@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (meshdiffusion_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
 Drives the port's two paths through their hand-written kernels, and fails
 (non-zero exit, no result line) on any error: res64 unconditional
@@ -14,10 +14,22 @@ iterations only. Phases, in order:
 1. the card: name and power limit, versions; TF32 off for fp32 comparisons;
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
 3. every kernel against its plain PyTorch version at the main path's shapes
-   (K3 at every distinct ResnetBlock conv shape, captured from a forward),
-   with errors, bounds and CUDA-event times (warm) of kernel and plain;
+   (K3 and the GroupNorm statistics at every distinct ResnetBlock conv
+   shape, captured from a forward; the per-shape rows also go to
+   ``DIR/kernel_shapes.json``, ``DIR`` defaulting to ``chip_smoke_out/``
+   beside this file), with errors, bounds and CUDA-event times
+   (warm) of kernel and plain; for K3 and the statistics also the device
+   time from torch.profiler beside the CUDA-event time (the host's share
+   shows at the small levels), the bound, and ``library_ms``: one PyTorch
+   call for the same function (``torch.var_mean`` for the statistics; for K3
+   there is none, so ``library_ms`` is null and cuDNN's ``F.conv3d`` alone
+   on the already-normalized bf16 input stands beside it as a conv-only
+   yardstick, ``conv_only_ms``);
 4. the full-width U-Net forward (seeded normal(0, 0.02) weights, bf16) with
-   kernels against without, and the launch counts of one forward;
+   kernels against without, the launch counts of one forward, and the
+   device time of each kernel in a U-Net step (one forward and one
+   ancestral update) over a few profiled steps, with the card's busy share
+   of a warm step's wall time;
 5. the entry points, ``main --mode uncond_gen`` (num_scales 10, beta_max
    2.0) then ``main --mode extract``, with every launch counter set to 0
    just before and read just after the generation run;
@@ -32,7 +44,8 @@ iterations only. Phases, in order:
    with the JAX package's keys and shapes, signs in pass 2, every loss
    finite;
 8. one JSON line of kernel results (each kernel's launches from the path
-   that runs it), the card's name and power limit, and the last line
+   that runs it, its launches a forward or fit step, its bound and its
+   ``library_ms``), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -69,6 +82,39 @@ def _time_ms(fn, iters=10, warmup=2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters=10) -> dict:
+    """Device time a call of each kernel that ``fn`` launches, from
+    torch.profiler (CUPTI): {kernel name: ms a call of fn}, warm."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0)
+        if t:
+            out[e.key] = out.get(e.key, 0.0) + t / iters / 1000.0
+    return out
+
+
+# kernel wrapper -> substrings of the names its kernels carry in a profile
+_KERNEL_NAMES = {
+    'ancestral_update': ('_ancestral_kernel',),
+    'gn_affine': ('gn_stats_kernel',),
+    'groupnorm_silu': ('_gn_silu_apply_kernel',),
+    'gn_silu_conv3d': ('gn_silu_conv3d_kernel', 'splitk_reduce_kernel'),
+    'tile_zmin': ('tile_zmin_kernel',),
+}
+
+
+def _of(prof: dict, wrapper: str) -> float:
+    return sum(t for k, t in prof.items() if any(n in k for n in _KERNEL_NAMES[wrapper]))
 
 
 def _rel_l2(a, b) -> float:
@@ -115,6 +161,10 @@ def _gt_mesh(path: str) -> None:
 
 
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--out', default=None, help='directory for the per-shape JSON')
+    args = parser.parse_args()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -136,6 +186,8 @@ def main() -> int:
     from meshdiffusion_tpu_torch.models import create_model, get_model
     from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
     from meshdiffusion_tpu_torch.ops import _build
+    from meshdiffusion_tpu_torch.ops.gn_silu_conv import conv3d_same, gn_silu_conv3d_bound_ms
+    from meshdiffusion_tpu_torch.ops.roofline import bound_ms
 
     # ---- 1. the card ----
     smi = _smi()
@@ -158,14 +210,25 @@ def main() -> int:
         if 'registers' in line or 'spill' in line:
             print('  ptxas:', line.strip())
 
-    results = {}     # kernel name -> dict(max_abs_err, ms, plain_ms)
+    # kernel name -> max_abs_err, and ms, plain_ms, bound_ms, library_ms summed
+    # over the shapes compared (each distinct main-path shape once)
+    results = {}
 
-    def record(name, err, ms, plain_ms):
-        r = results.setdefault(name, {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0})
+    def record(name, err, ms, plain_ms, bound, by, library_ms=None):
+        r = results.setdefault(name, {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
+                                      'bound_ms': 0.0, 'bound_by': by, 'library_ms': None})
         r['max_abs_err'] = max(r['max_abs_err'], err)
         r['ms'] += ms
         r['plain_ms'] += plain_ms
+        r['bound_ms'] += bound
+        if by != r['bound_by']:
+            r['bound_by'] = 'operations' if 'operations' in (by, r['bound_by']) else by
+        if library_ms is not None:
+            r['library_ms'] = (r['library_ms'] or 0.0) + library_ms
 
+    out_dir = args.out or os.path.join(HERE, 'chip_smoke_out')
+    os.makedirs(out_dir, exist_ok=True)
+    per_shape = []   # per-shape rows of phase 3, also written to out_dir/kernel_shapes.json
     cfg = get_config('res64')
     R = cfg.data.image_size
     mask = torch.as_tensor(TetGrid.load(R).grid_mask(), device=dev)[None, ..., None]
@@ -183,13 +246,17 @@ def main() -> int:
     model_k.eval()
     model_p.eval()
 
-    # capture the main path's K3 / K2 input shapes from one plain forward
-    conv_shapes, head = set(), {}
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args: conv_shapes.update({
-            (tuple(args[0].shape), args[0].dtype, mod.out_ch),
-            (tuple(args[0].shape[:-1]) + (mod.out_ch,), mod.dtype, mod.out_ch)}))
-        for m in model_p.modules() if isinstance(m, ResnetBlockDDPM)]
+    # capture the main path's K3 / K2 input shapes (and how often each runs)
+    # from one plain forward
+    conv_calls, head = {}, {}
+
+    def _conv_hook(mod, args):
+        for key in ((tuple(args[0].shape), args[0].dtype, mod.out_ch),
+                    (tuple(args[0].shape[:-1]) + (mod.out_ch,), mod.dtype, mod.out_ch)):
+            conv_calls[key] = conv_calls.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(_conv_hook)
+             for m in model_p.modules() if isinstance(m, ResnetBlockDDPM)]
     hooks.append(model_p.all_modules[-1].register_forward_pre_hook(
         lambda mod, args: head.update(shape=tuple(args[0].shape), dtype=args[0].dtype)))
     x_in = torch.randn((1, R, R, R, 4), device=dev, generator=g)
@@ -198,8 +265,10 @@ def main() -> int:
         model_p(x_in, labels, mask)
     for h in hooks:
         h.remove()
-    print(f'main path: {len(conv_shapes)} distinct gn_silu_conv3d shapes; output head '
-          f'GroupNorm+SiLU at {head["shape"]} {head["dtype"]}')
+    conv_shapes = set(conv_calls)
+    print(f'main path: {sum(conv_calls.values())} gn_silu_conv3d calls a forward at '
+          f'{len(conv_shapes)} distinct shapes; output head GroupNorm+SiLU at {head["shape"]} '
+          f'{head["dtype"]}')
 
     # ---- 3. each kernel against its plain version ----
     with torch.inference_mode():
@@ -216,9 +285,16 @@ def main() -> int:
             err = max(err, float((kx - px).abs().max()), float((km - pm).abs().max()))
         ms = _time_ms(lambda: ops.ancestral_update(x, e, mask, nz, beta, std), 50)
         pms = _time_ms(lambda: ops.ancestral_update_reference(x, e, mask, nz, beta, std), 50)
-        record('ancestral_update', err, ms, pms)
+        record('ancestral_update', err, ms, pms,
+               *bound_ms(*ops.ancestral_update_cost(shape, mask.shape)))
         print(f'K1 ancestral_update {shape} f32: max_abs_err {err:.3e} (bound 1e-5) '
               f'kernel {ms:.4f} ms plain {pms:.4f} ms')
+
+        def _var_mean_ms(xg):
+            """torch.var_mean over (B, S, G, C/G): the statistics in one call."""
+            B, C = xg.shape[0], xg.shape[-1]
+            v = xg.view(B, -1, 32, C // 32)
+            return _time_ms(lambda: torch.var_mean(v, dim=(1, 3), correction=0), 20)
 
         C = head['shape'][-1]
         sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
@@ -243,8 +319,10 @@ def main() -> int:
             print(f'K2 groupnorm_silu (stats + apply) {head["shape"]} {dt}: max_abs_err '
                   f'{err_a:.3e} (bound {tol:g}) kernel {ms_a:.4f} ms plain {pms_a:.4f} ms')
             if dt == head['dtype']:       # the JSON line reports the main path's dtype
-                record('gn_affine', err_s, ms_s, pms_s)
-                record('groupnorm_silu', err_a, ms_a, pms_a)
+                record('gn_affine', err_s, ms_s, pms_s,
+                       *bound_ms(*ops.gn_affine_cost(xg.shape, dt)), library_ms=_var_mean_ms(xg))
+                record('groupnorm_silu', err_a, ms_a, pms_a,
+                       *bound_ms(*ops.groupnorm_silu_cost(xg.shape, dt)))
 
         for xs, xdt, O in sorted(conv_shapes, key=lambda s: (-s[0][1], s[0][-1], s[2], str(s[1]))):
             C = xs[-1]
@@ -253,25 +331,71 @@ def main() -> int:
             bi = 0.1 * torch.randn(C, device=dev, generator=g)
             kern = (torch.randn((3, 3, 3, C, O), device=dev, generator=g)
                     / (27 * C) ** 0.5).to(torch.bfloat16)
+            packed = ops.pack_conv_weights(kern)
             cb = 0.1 * torch.randn(O, device=dev, generator=g)
-            y = ops.gn_silu_conv3d(xc, sc, bi, kern, cb)
+            y = ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
             r = ops.gn_silu_conv3d_reference(xc, sc, bi, kern, cb)
             rel = _rel_l2(y, r)
             err = float((y.float() - r.float()).abs().max())
             assert torch.isfinite(y).all() and rel <= 1e-2, (xs, O, rel)
-            ms = _time_ms(lambda: ops.gn_silu_conv3d(xc, sc, bi, kern, cb))
+            # K2's statistics at this input, against the plain version
+            a, b = ops.gn_affine(xc, sc, bi)
+            ra, rb = ops.gn_affine_reference(xc, sc, bi)
+            torch.testing.assert_close(a, ra, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(b, rb, rtol=1e-5, atol=1e-5)
+            err_s = max(float((a - ra).abs().max()), float((b - rb).abs().max()))
+            call = lambda: ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
+            ms = _time_ms(call)
             pms = _time_ms(lambda: ops.gn_silu_conv3d_reference(xc, sc, bi, kern, cb))
-            record('gn_silu_conv3d', err, ms, pms)
-            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O}: rel_l2 {rel:.3e} '
-                  f'(bound 1e-2) max_abs_err {err:.3e} kernel {ms:.3f} ms plain {pms:.3f} ms')
+            prof = _device_ms(call)
+            dms, dstats = _of(prof, 'gn_silu_conv3d'), _of(prof, 'gn_affine')
+            h = ops.groupnorm_silu_reference(xc, sc, bi).to(torch.bfloat16)
+            lms = _time_ms(lambda: conv3d_same(h, kern))
+            bnd, by = gn_silu_conv3d_bound_ms(xs, xdt, O)
+            n = conv_calls[(xs, xdt, O)]
+            record('gn_silu_conv3d', err, ms, pms, bnd, by)
+            per_shape.append({'name': 'gn_silu_conv3d', 'x': list(xs), 'dtype': str(xdt)[6:], 'O': O,
+                              'calls_per_forward': n, 'ms': ms, 'device_ms': dms,
+                              'device_ms_with_stats': dms + dstats, 'plain_ms': pms,
+                              'bound_ms': bnd, 'bound_by': by, 'library_ms': None,
+                              'conv_only_ms': lms})
+            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} (x{n} a forward): rel_l2 '
+                  f'{rel:.3e} (bound 1e-2) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
+                  f'device {dms:.4f} ms (+ stats {dstats:.4f}); plain {pms:.3f} ms; bound {bnd:.4f} '
+                  f'ms ({by}, {100 * bnd / dms:.0f} % reached); cuDNN conv alone {lms:.4f} ms')
+            s_ms = _time_ms(lambda: ops.gn_affine(xc, sc, bi), 20)
+            s_pms = _time_ms(lambda: ops.gn_affine_reference(xc, sc, bi), 20)
+            s_dms = _of(_device_ms(lambda: ops.gn_affine(xc, sc, bi)), 'gn_affine')
+            s_lms = _var_mean_ms(xc)
+            s_bnd, s_by = bound_ms(*ops.gn_affine_cost(xs, xdt))
+            record('gn_affine', err_s, s_ms, s_pms, s_bnd, s_by, library_ms=s_lms)
+            per_shape.append({'name': 'gn_affine', 'x': list(xs), 'dtype': str(xdt)[6:],
+                              'calls_per_forward': n, 'ms': s_ms, 'device_ms': s_dms,
+                              'plain_ms': s_pms, 'bound_ms': s_bnd, 'bound_by': s_by,
+                              'library_ms': s_lms})
+            print(f'K2 gn_affine (gn_stats) x{xs} {str(xdt)[6:]}: max_abs_err {err_s:.3e} (bound '
+                  f'1e-5); call {s_ms:.4f} ms, device {s_dms:.4f} ms; plain {s_pms:.4f} ms; bound '
+                  f'{s_bnd:.4f} ms ({s_by}); torch.var_mean {s_lms:.4f} ms')
+    k3 = [r for r in per_shape if r['name'] == 'gn_silu_conv3d']
+    results['gn_silu_conv3d']['conv_only_ms'] = sum(r['conv_only_ms'] for r in k3)
+    fwd_dev = sum(r['calls_per_forward'] * r['device_ms'] for r in k3)
+    fwd_bnd = sum(r['calls_per_forward'] * r['bound_ms'] for r in k3)
     print(f'K3 summed over the {len(conv_shapes)} distinct shapes: kernel '
-          f'{results["gn_silu_conv3d"]["ms"]:.3f} ms plain {results["gn_silu_conv3d"]["plain_ms"]:.3f} ms')
+          f'{results["gn_silu_conv3d"]["ms"]:.3f} ms plain {results["gn_silu_conv3d"]["plain_ms"]:.3f} ms; '
+          f'weighted by calls a forward: device {fwd_dev:.3f} ms against a bound of {fwd_bnd:.3f} ms')
+    slower = [(r['x'], r['dtype'], r['O']) for r in k3 if r['ms'] >= r['plain_ms']]
+    assert not slower, f'K3 slower than its plain version at {slower}'
+    with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
+        json.dump(per_shape, f, indent=1)
 
     # ---- 4. the full-width forward, kernels on against off ----
     with torch.inference_mode():
         ops.reset_launch_counts()
-        y_k = model_k(x_in, labels, mask)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_k = model_k(x_in, labels, mask)     # the first: builds the convs' weight layouts
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1000.0
         per_fwd = ops.launch_counts()
         y_p = model_p(x_in, labels, mask)
         rel = _rel_l2(y_k, y_p)
@@ -283,11 +407,26 @@ def main() -> int:
         for which in ('plain', 'kernels', 'kernels', 'plain'):
             m = model_k if which == 'kernels' else model_p
             fwd[which].append(_time_ms(lambda: m(x_in, labels, mask), 3, 1))
+        nz = torch.randn(x_in.shape, device=dev, generator=g)
+        step = lambda: ops.ancestral_update(x_in, model_k(x_in, labels, mask), mask, nz, 0.01, 0.5)
+        step_ms = _time_ms(step, 10, 2)
+        n_prof = 3
+        prof = _device_ms(step, n_prof)
+    per_fwd_dev = {n: _of(prof, n) for n in _KERNEL_NAMES}    # one forward a step
+    busy = sum(prof.values())
     ms_k, ms_p = (sum(v) / len(v) for v in (fwd['kernels'], fwd['plain']))
     print(f'res64 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
           f'(bound 1e-2); kernels {ms_k:.2f} ms plain {ms_p:.2f} ms per forward '
           f'({fwd})')
-    print(f'launches in one forward: {per_fwd}')
+    print(f'launches in one forward: {per_fwd}; the first forward {first_ms:.1f} ms (it builds '
+          f'every conv\'s weight layouts); a warm U-Net step (forward + ancestral update, '
+          f'10 in a row) {step_ms:.2f} ms')
+    print(f'device time a U-Net step (torch.profiler over {n_prof} steps): all kernels {busy:.3f} ms, '
+          f'{100 * busy / step_ms:.0f} % of the {step_ms:.2f} ms a warm step takes unprofiled (the '
+          f'rest: the card idle, waiting on the host); '
+          + ', '.join(f'{n} {t:.3f} ms' for n, t in per_fwd_dev.items() if t))
+    for k, t in sorted(prof.items(), key=lambda kv: -kv[1])[:12]:
+        print(f'  {t:8.3f} ms  {k[:100]}')
     del model_k, model_p
     torch.cuda.empty_cache()
 
@@ -353,7 +492,7 @@ def main() -> int:
             tt = torch.stack([p[1] for p in per_view])
             T, Kt = tt.shape[1], tt.shape[2]
             ntx = W // raster.TILE
-            z_floor, err, ms, pms = None, 0.0, 0.0, 0.0
+            z_floor, err, ms, pms, bnd = None, 0.0, 0.0, 0.0, 0.0
             for layer in range(2):
                 zf = raster.floor_tiles(z_floor, B, (H, W), dev)
                 args = (cand.reshape(B * T, Kt, 9), tt.reshape(B * T, Kt), zf, ntx, T)
@@ -365,15 +504,17 @@ def main() -> int:
                 assert bad == 0 and zerr <= 1e-6 and int(hit.sum()) > 10000, (layer, bad, zerr)
                 lm = _time_ms(lambda: ops.tile_zmin(*args), 20)
                 lp = _time_ms(lambda: ops.tile_zmin_reference(*args), 5)
-                err, ms, pms = max(err, zerr), ms + lm, pms + lp
+                b_ms, b_by = bound_ms(*ops.tile_zmin_cost(args[0], args[1]))
+                err, ms, pms, bnd = max(err, zerr), ms + lm, pms + lp, bnd + b_ms
                 print(f'tile_zmin layer {layer}: cand {tuple(args[0].shape)} (4 views x {T} '
                       f'tiles): ids equal, {int(hit.sum())} pixels hit, z max_abs_err {zerr:.3e} '
                       f'(bound 1e-6); kernel {lm:.4f} ms plain {lp:.3f} ms')
                 img = lambda t: t.view(B, H // raster.TILE, ntx, raster.TILE, raster.TILE) \
                     .permute(0, 1, 3, 2, 4).reshape(B, H, W)
                 z_floor = torch.where(img(kt) >= 0, img(kz), raster.BIG)
-        record('tile_zmin', err, ms, pms)
-        print(f'tile_zmin both layers: kernel {ms:.4f} ms plain {pms:.3f} ms; GT render binning '
+        record('tile_zmin', err, ms, pms, bnd, b_by)
+        print(f'tile_zmin both layers: kernel {ms:.4f} ms plain {pms:.3f} ms bound {bnd:.4f} ms '
+              f'({b_by}, this data\'s live candidates); GT render binning '
               f'overflow (tile, global) {[(int(p[3]), int(p[4])) for p in per_view]}')
 
         # ---- 7. the fit path through its entry point ----
@@ -425,7 +566,7 @@ def main() -> int:
     meta = {
         'ancestral_update': ('triton', 'meshdiffusion_tpu_torch/ops/sampler_step.py',
                              'meshdiffusion_tpu/ops/sampler_step.py:52'),
-        'gn_affine': ('triton', 'meshdiffusion_tpu_torch/ops/groupnorm.py',
+        'gn_affine': ('cuda', 'meshdiffusion_tpu_torch/csrc/gn_stats.cu',
                       'meshdiffusion_tpu/ops/groupnorm.py:94'),
         'groupnorm_silu': ('triton', 'meshdiffusion_tpu_torch/ops/groupnorm.py',
                            'meshdiffusion_tpu/ops/groupnorm.py:94'),
@@ -435,8 +576,14 @@ def main() -> int:
                       'meshdiffusion_tpu/ops/tile_raster.py:126'),
     }
     path_launches = dict(launches, tile_zmin=fit_launches['tile_zmin'])
+    # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted
+    assert launches['ancestral_update'] % steps == 0, (launches, steps)
+    assert fit_launches['tile_zmin'] % (pool + steps_run) == 0, (fit_launches, pool, steps_run)
+    per_step = dict(per_fwd, ancestral_update=launches['ancestral_update'] // steps,
+                    tile_zmin=fit_launches['tile_zmin'] // (pool + steps_run))
     kernels = [{'name': n, 'route': route, 'source': src, 'replaces': rep,
-                'launches': path_launches[n], **results[n]}
+                'launches': path_launches[n], 'launches_per_forward': per_step[n],
+                'device_ms_per_forward': per_fwd_dev[n] or None, **results[n]}
                for n, (route, src, rep) in meta.items()]
     assert all(k['launches'] > 0 for k in kernels)
     print(json.dumps({'kernels': kernels}))

@@ -1,46 +1,71 @@
-// Fused GroupNorm-affine + SiLU + SAME 3x3x3 conv (+ bias), forward only.
+// Fused GroupNorm-affine + SiLU + SAME 3x3x3 conv (+ bias), forward only,
+// written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel meshdiffusion_tpu/ops/gn_silu_conv.py
 // (gn_silu_conv3d_pallas, pallas_call at :171). The GroupNorm statistics are
-// reduced beforehand (ops/groupnorm.py, gn_stats) and folded into a
-// per-(batch, channel) affine a, b, so this kernel computes
+// reduced beforehand (csrc/gn_stats.cu through ops/groupnorm.py::gn_affine)
+// and folded into a per-(batch, channel) affine a, b, so this kernel computes
 //
 //     y[b,d,h,w,o] = bias[o] + sum_{tap, c} silu(x[b,d',h',w',c] * a[b,c] + b[b,c]) * W[tap, c, o]
 //
 // over channels-last (NDHWC) x, with zero where (d',h',w') falls outside the
-// volume: SAME padding applies AFTER normalize+SiLU, so an outside tap adds
-// 0, not silu(b). The Pallas kernel gets this from zeroed scratch planes;
-// here the zeros are written into the shared-memory brick described below.
+// volume: SAME padding applies AFTER normalize+SiLU, so an outside tap adds 0,
+// not silu(b). x is read in bf16 (an fp32 x arrives rounded by the
+// statistics pass, which reads it anyway), silu(x*a+b) is computed in fp32
+// and stored as a bf16 operand, the sums are fp32, the fp32 bias is added and
+// the output is rounded to bf16 once.
 //
-// What bounds it on the H100: it is an implicit GEMM with M = B*D*H*W
-// voxels, N = O, K = 27*C, from 64^3 x 128 -> 128 (about 232 GFLOP a call)
-// down to 4^3 x 1024 -> 512. At the large levels the tensor cores bound it,
-// once the normalize+SiLU work (an exp and a divide per element) is done once
-// per input element and not once per tap; at the 8^3 and 4^3 levels the
-// output tiles alone are too few to fill 132 SMs.
+// What bounds it on the H100: an implicit GEMM with M = B*D*H*W voxels,
+// N = O, K = 27*C: 2*M*27*C*O FLOP, from 64^3 x 128 -> 128 (232 GFLOP a call)
+// down to 4^3 x 1024 -> 512. From 64^3 to 8^3 the tensor cores bound it
+// (989 TFLOP/s bf16); at 4^3 the 14-28 MB of weights do (3.35 TB/s).
 //
-// Design (simple; TMA, wgmma and warp specialisation are later work):
-// * a block owns a TD x TH x TW brick of 128 output voxels (TW <= 16) of one
-//   sample and 128 output channels; 8 warps, each a 32 x 64 sub-tile of
-//   mma.sync m16n8k16 bf16 products with fp32 sums;
-// * the K loop walks 32-channel chunks. For each chunk the block loads the
-//   halo'd input brick (TD+2) x (TH+2) x (TW+2) once, streams x in bf16 (an
-//   fp32 x is rounded to bf16 first, as the Pallas kernel streams its operand
-//   in the compute dtype), applies silu(x*a+b) in fp32, and stores bf16 to
-//   shared memory, zero outside the volume; all 27 taps then read their A
-//   operand from that brick: ldmatrix takes one row address per lane, so a
-//   tap is only a shifted row offset, and no im2col buffer exists;
-// * the B operand (weights pre-laid as (27*C, O) bf16, row k = tap*C + c) is
-//   double-buffered per tap with cp.async, the next tap's tile in flight
-//   during the current tap's products;
-// * when the output tiles alone cannot fill the card, the chunk loop is split
-//   over gridDim.z and a second kernel sums the fp32 partials in split order
-//   (deterministic, no atomics);
-// * the epilogue adds the fp32 bias and rounds once to bf16.
+// Design (one block an SM, persistent over work items; warp-specialised):
+// * three warpgroups. Two consumer warpgroups issue wgmma.mma_async
+//   m64nNk16 (N = 128 or 256) with fp32 sums in registers. Their A operand
+//   comes from registers, loaded with ldmatrix from a normalized input brick in
+//   shared memory: a tap is then only a row offset into the brick, which is
+//   why A cannot come from shared memory by descriptor (the rows one tap reads
+//   are not the 8-row-aligned core matrices a descriptor needs). B comes from
+//   shared memory by descriptor (K-major, 128-byte swizzle).
+// * the producer warpgroup: its warp 0 streams the weights, one B tile per
+//   (tap, 64-channel chunk, N block), through a 4-stage ring with one
+//   cp.async.bulk a tile (no tensor map: the tiles are pre-laid contiguous in
+//   the swizzled image the descriptor expects, ops/gn_silu_conv.py
+//   pack_conv_weights), completing on a full mbarrier; the consumers free a
+//   stage through an empty mbarrier once the wgmma group that read it has
+//   retired. There is no block-wide barrier in the main loop.
+// * its warps 1-3 build the next chunk's halo'd brick (TD+2) x (TH+2) x (TW+2)
+//   x 64 channels into a double-buffered brick (full/empty mbarriers) while
+//   the consumers run the current chunk's 27 taps: every 16-byte cell of it
+//   is copied in by cp.async at once (zero-filled outside the volume), then
+//   normalized in place, silu(x*a+b) in fp32 stored as bf16. With its loads
+//   one at a time a thread, the brick and not the tensor cores set the pace.
+//   Brick rows are 128 bytes with their 16-byte cells XOR-swizzled by the
+//   voxel index, so ldmatrix of 8 consecutive voxels is free of bank
+//   conflicts.
+// * setmaxnreg moves registers from the producer (72) to the consumers (216).
+// * three tilings (ops/gn_silu_conv.py _plan): 256 voxels x 128 channels
+//   (4x8x8 bricks of 6x10x10, each input element normalized ~2.3x), 128 x 256
+//   (4x4x8), and at 4^3 64 x 256 with the two consumers splitting N, so no
+//   wgmma row is wasted. When the output tiles alone cannot fill the card, the
+//   (chunk, tap) sequence is split into contiguous ranges over blocks (each a
+//   contiguous slab of packed weights); the fp32 partials go to a scratch
+//   buffer the wrapper keeps, and a second kernel sums them in split order
+//   (deterministic, no atomics), adds the bias and rounds to bf16.
+// * a tap's four k16 steps are one wgmma group, issued after all its A
+//   fragments are in registers and retired (wgmma.wait_group 0) before the
+//   next tap's ldmatrix: ptxas serializes wgmmas whose input registers are
+//   written while a group is in flight. The two consumer warpgroups overlap
+//   instead: one's ldmatrix and waits run under the other's products.
 //
-// Requirements (checked by the Python wrapper, which also picks the brick
-// and the split): C % 32 == 0, O % 8 == 0, contiguous tensors, 16-byte
-// aligned pointers.
+// What holds it now, at 64^3 about half of the tensor-core peak: the brick,
+// the weight ring's turnaround and the per-tap synchronization each take
+// about as long as the products and overlap them only in part.
+//
+// Requirements (checked by the Python wrapper, which also picks the tiling,
+// the split and the grid): C % 32 == 0 (a 32-channel tail chunk is zero
+// padded), O % 8 == 0, contiguous tensors, 16-byte aligned pointers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,17 +75,68 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 128;           // output voxels per block (TD*TH*TW <= BM)
-constexpr int BN = 128;           // output channels per block
-constexpr int BK = 32;            // input channels per chunk
-constexpr int THREADS = 256;
-constexpr int LDA = BK + 8;       // brick row: 40 bf16 = 80 bytes (ldmatrix conflict-free)
-constexpr int LDB = BN + 8;       // weight row: 136 bf16 = 272 bytes
-constexpr int B_TILE = BK * LDB;  // bf16 elements of one tap's weight tile
+constexpr int BK = 64;                // channels a chunk: one 128-byte swizzle row of bf16
+constexpr int TAPS = 27;
+constexpr int STAGES = 4;             // weight ring
+constexpr int CONSUMERS = 2;          // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int BRICK_THREADS = 96;     // producer warps 1-3
+constexpr int ROW_BYTES = BK * 2;     // one brick voxel, one B tile row
+constexpr int PRODUCER_REGS = 72;     // 128 * 72 + 256 * 216 = 384 * 168
+constexpr int CONSUMER_REGS = 216;
+
+struct Params {
+    int B, D, H, W, C, O;
+    int TD, TH, TW;                   // output tile
+    int ntd, nth, ntw, tiles;         // tiles a sample, over every sample
+    int NB, CK, KS;                   // N blocks, 64-channel chunks, KS = 27 * CK k-steps
+    int splits, per, items;           // k-step ranges, their length, work items
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p)
 {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar)
+{
+    asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes)
+{
+    asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spin until the phase of the given parity has completed. A wait that never
+// ends (a protocol fault) traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity)
+{
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    for (uint32_t spins = 0;; ++spins) {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (done) break;
+        if (spins == (1u << 26)) __trap();
+    }
+}
+
+// One contiguous global -> shared copy by the bulk-copy engine, completing
+// (bytes counted) on the mbarrier.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
+{
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r)
@@ -69,278 +145,448 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r)
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r)
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory"); }
+
+// Keep registers where they are across the asynchronous wgmma: the compiler
+// must treat them as read and rewritten here.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r)
 {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// d = a(16x16, row) * b(16x8, col) + d; bf16 operands, fp32 sums
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1)
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile:
+// start address >> 4, leading offset 1 (unused by this layout), stride 1024
+// bytes between 8-row groups, layout type 1 (SWIZZLE_128B).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr)
 {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// 16-byte async copy; src_bytes 0 writes zeros
+// d (m64 x n128, fp32) += a (m64 x k16, bf16, registers) * B (k16 x n128, bf16, shared
+// memory by descriptor, K-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, const uint32_t* a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (m64 x n256, fp32) += a (m64 x k16, bf16, registers) * B (k16 x n256, bf16, shared
+// memory by descriptor, K-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, const uint32_t* a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+template <int N> struct Wgmma;
+template <> struct Wgmma<128> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b) { wgmma_m64n128k16(d, a, b); }
+};
+template <> struct Wgmma<256> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b) { wgmma_m64n256k16(d, a, b); }
+};
+
+// 16-byte asynchronous global -> shared copy; src_bytes 0 writes zeros
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes)
 {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(src_bytes));
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// 8 consecutive channels of x as floats: one 16-byte load for bf16, two for
-// fp32 (rounded to bf16: the operand streams in the compute dtype)
-template <typename T> struct Load8;
-template <> struct Load8<bf16> {
-    static __device__ __forceinline__ void get(const bf16* p, float* v) {
-        uint4 raw = *reinterpret_cast<const uint4*>(p);
-        const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
-    }
-};
-template <> struct Load8<float> {
-    static __device__ __forceinline__ void get(const float* p, float* v) {
-        float4 lo = *reinterpret_cast<const float4*>(p);
-        float4 hi = *reinterpret_cast<const float4*>(p + 4);
-        const float e[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(__float2bfloat16(e[j]));
-    }
+struct Item {
+    int b, d0, h0, w0, nb, split, k0, k1;
 };
 
-template <typename TIn>
-__global__ void __launch_bounds__(THREADS)
-gn_silu_conv3d_kernel(const TIn* __restrict__ x, const float* __restrict__ ga,
-                      const float* __restrict__ gb, const bf16* __restrict__ w,
-                      const float* __restrict__ bias, bf16* __restrict__ out,
-                      float* __restrict__ partial, int B, int D, int H, int W, int C, int O,
-                      int TD, int TH, int TW, int chunks_per_split)
+__device__ __forceinline__ Item decode(const Params& p, int item)
 {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int BW = TW + 2, BH = TH + 2;
-    const int brick_vox = (TD + 2) * BH * BW;
-    bf16* brick = reinterpret_cast<bf16*>(smem);
-    bf16* Bs = brick + ((brick_vox * LDA + 63) / 64) * 64;     // 128-byte aligned
+    Item it;
+    int t = item % p.tiles;
+    const int rest = item / p.tiles;
+    it.nb = rest % p.NB;
+    it.split = rest / p.NB;
+    it.w0 = (t % p.ntw) * p.TW; t /= p.ntw;
+    it.h0 = (t % p.nth) * p.TH; t /= p.nth;
+    it.d0 = (t % p.ntd) * p.TD;
+    it.b = t / p.ntd;
+    it.k0 = it.split * p.per;
+    it.k1 = min(p.KS, it.k0 + p.per);
+    return it;
+}
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int warp_m = warp & 3;      // rows warp_m*32 .. +31
-    const int warp_n = warp >> 2;     // cols warp_n*64 .. +63
+// MW m64 tiles of NW columns a consumer warpgroup; the two consumers split
+// M (SPLIT_N false: a block is 2*MW*64 voxels x NW channels) or N (a block
+// is MW*64 voxels x 2*NW channels).
+template <int MW, int NW, bool SPLIT_N>
+__global__ void __launch_bounds__(THREADS, 1)
+gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
+                      const float* __restrict__ gb, const bf16* __restrict__ wp,
+                      const float* __restrict__ bias, bf16* __restrict__ out,
+                      float* __restrict__ partial, const Params p)
+{
+    constexpr int BN = SPLIT_N ? CONSUMERS * NW : NW;      // channels a block (B tile rows)
+    constexpr int STAGE_BYTES = BN * ROW_BYTES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* ring = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    const int BW = p.TW + 2, BH = p.TH + 2;
+    const int brick_vox = (p.TD + 2) * BH * BW;
+    unsigned char* bricks = ring + STAGES * STAGE_BYTES;
+    uint64_t* wfull = reinterpret_cast<uint64_t*>(bricks + 2 * brick_vox * ROW_BYTES);
+    uint64_t* wempty = wfull + STAGES;
+    uint64_t* bfull = wempty + STAGES;
+    uint64_t* bempty = bfull + 2;
 
-    // this block's brick: sample b, origin (d0, h0, w0); out channels n0..
-    int t = blockIdx.x;
-    const int ntw = (W + TW - 1) / TW, nth = (H + TH - 1) / TH, ntd = (D + TD - 1) / TD;
-    const int w0 = (t % ntw) * TW; t /= ntw;
-    const int h0 = (t % nth) * TH; t /= nth;
-    const int d0 = (t % ntd) * TD;
-    const int b = t / ntd;
-    const int n0 = blockIdx.y * BN;
-    const int tile_vox = TD * TH * TW;
-    const int CK = C / BK;
-    const int ck0 = blockIdx.z * chunks_per_split;
-    const int ck1 = min(CK, ck0 + chunks_per_split);
-
-    // brick voxel of each lane's ldmatrix row in the warp's two m16
-    // fragments under tap (0,0,0); tap (kd,kh,kw) adds its row offset
-    int abase[2];
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-        int r = warp_m * 32 + f * 16 + (lane & 15);
-        if (r >= tile_vox) r = 0;     // rows past the brick: computed, never stored
-        const int td = r / (TH * TW), rem = r - td * TH * TW;
-        const int th = rem / TW, tw = rem - th * TW;
-        abase[f] = (td * BH + th) * BW + tw;
-    }
-    const int akofs = (lane >> 4) * 8;
-    const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int bcol = warp_n * 64 + (lane >> 4) * 8;
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.0f;
-
-    auto load_b = [&](int tap, int c0, int buf) {
-#pragma unroll
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(wfull + s, 1);
+            mbar_init(wempty + s, CONSUMERS * 4);
+        }
         for (int i = 0; i < 2; ++i) {
-            const int v = tid + i * THREADS;
-            const int row = v >> 4, col = (v & 15) * 8;
-            const int n = n0 + col;
-            const bf16* src = w + ((long long)tap * C + c0 + row) * O + n;
-            cp_async16(smem_u32(Bs + buf * B_TILE + row * LDB + col), n < O ? src : w,
-                       n < O ? 16 : 0);
+            mbar_init(bfull + i, BRICK_THREADS);
+            mbar_init(bempty + i, CONSUMERS * 4);
         }
-        cp_async_commit();
-    };
-
-    const int q = tid & 3;            // this thread's 8-channel group in a chunk
-    for (int ck = ck0; ck < ck1; ++ck) {
-        const int c0 = ck * BK;
-        __syncthreads();              // the previous chunk is done with brick and Bs
-        load_b(0, c0, 0);
-
-        float av[8], bv[8];
-        {
-            const float4* pa = reinterpret_cast<const float4*>(ga + (long long)b * C + c0 + q * 8);
-            const float4* pb = reinterpret_cast<const float4*>(gb + (long long)b * C + c0 + q * 8);
-            const float4 a0 = pa[0], a1 = pa[1], b0 = pb[0], b1 = pb[1];
-            av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-            av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-            bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-            bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-        }
-        // the brick: silu(x*a+b) once per voxel and channel, zero outside the volume
-        for (int i = tid; i < brick_vox * 4; i += THREADS) {
-            const int vox = i >> 2;   // i & 3 == q, since THREADS % 4 == 0
-            const int bw = vox % BW, rest = vox / BW;
-            const int bh = rest % BH, bd = rest / BH;
-            const int dd = d0 + bd - 1, hh = h0 + bh - 1, ww = w0 + bw - 1;
-            __align__(16) bf16 v[8];
-            if (dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W) {
-                float xv[8];
-                Load8<TIn>::get(x + ((((long long)b * D + dd) * H + hh) * W + ww) * C + c0 + q * 8, xv);
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    const float s = xv[j] * av[j] + bv[j];
-                    v[j] = __float2bfloat16(s / (1.0f + __expf(-s)));
-                }
-            } else {
-#pragma unroll
-                for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(0.0f);
-            }
-            *reinterpret_cast<uint4*>(brick + vox * LDA + q * 8) = *reinterpret_cast<const uint4*>(v);
-        }
-        cp_async_wait_all();
-        __syncthreads();
-
-        for (int tap = 0; tap < 27; ++tap) {
-            if (tap + 1 < 27) load_b(tap + 1, c0, (tap + 1) & 1);
-            const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-            const int toff = (kd * BH + kh) * BW + kw;
-            const bf16* Bt = Bs + (tap & 1) * B_TILE;
-#pragma unroll
-            for (int ks = 0; ks < BK; ks += 16) {
-                uint32_t a[2][4];
-#pragma unroll
-                for (int f = 0; f < 2; ++f)
-                    ldsm_x4(smem_u32(brick + (abase[f] + toff) * LDA + ks + akofs), a[f]);
-#pragma unroll
-                for (int jp = 0; jp < 4; ++jp) {
-                    uint32_t bb[4];
-                    ldsm_x4_trans(smem_u32(Bt + (ks + brow) * LDB + bcol + jp * 16), bb);
-#pragma unroll
-                    for (int f = 0; f < 2; ++f) {
-                        mma_bf16(acc[f][2 * jp], a[f], bb[0], bb[1]);
-                        mma_bf16(acc[f][2 * jp + 1], a[f], bb[2], bb[3]);
-                    }
-                }
-            }
-            cp_async_wait_all();      // the next tap's weights have landed
-            __syncthreads();
-        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    __syncthreads();
 
-    // epilogue: accumulator (row g / g+8, cols 2t, 2t+1) of each m16n8 tile
-    const long long M = (long long)B * D * H * W;
-    const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int r = warp_m * 32 + f * 16 + g + half * 8;
-            if (r >= tile_vox) continue;
-            const int td = r / (TH * TW), rem = r - td * TH * TW;
-            const int th = rem / TW, tw = rem - th * TW;
-            const int dd = d0 + td, hh = h0 + th, ww = w0 + tw;
-            if (dd >= D || hh >= H || ww >= W) continue;
-            const long long m = (((long long)b * D + dd) * H + hh) * W + ww;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const int n = n0 + warp_n * 64 + j * 8 + 2 * tq;
-                if (n >= O) continue;
-                const float v0 = acc[f][j][half * 2], v1 = acc[f][j][half * 2 + 1];
-                if (partial == nullptr) {
-                    *reinterpret_cast<__nv_bfloat162*>(out + m * O + n) =
-                        __floats2bfloat162_rn(v0 + __ldg(bias + n), v1 + __ldg(bias + n + 1));
-                } else {
-                    *reinterpret_cast<float2*>(partial + ((long long)blockIdx.z * M + m) * O + n) =
-                        make_float2(v0, v1);
+    const int wg = threadIdx.x / 128;
+    if (wg == CONSUMERS) {
+        // ------------------------------ producer ------------------------------
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+        const int pt = threadIdx.x - CONSUMERS * 128;
+        if (pt == 0) {
+            // the weight ring: one bulk copy a (tap, chunk) k-step
+            uint32_t q = 0;
+            for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+                const Item it = decode(p, item);
+                const unsigned char* src = reinterpret_cast<const unsigned char*>(wp)
+                    + ((size_t)it.nb * p.KS + it.k0) * STAGE_BYTES;
+                for (int kk = it.k0; kk < it.k1; ++kk, ++q, src += STAGE_BYTES) {
+                    const int s = q % STAGES;
+                    mbar_wait(wempty + s, ((q / STAGES) & 1) ^ 1);
+                    mbar_expect_tx(wfull + s, STAGE_BYTES);
+                    bulk_g2s(ring + s * STAGE_BYTES, src, STAGE_BYTES, wfull + s);
                 }
+            }
+        } else if (pt >= 32) {
+            // the bricks: every raw 16-byte chunk of the chunk's halo'd brick
+            // copied in at once (zeros outside the volume), then silu(x*a+b)
+            // in place, once per voxel and channel; a thread touches only the
+            // chunks it copied, so no barrier is needed between the two
+            const int bt = pt - 32;
+            const int q8 = bt & 7;                    // this thread's 8-channel group
+            constexpr int VSTEP = BRICK_THREADS / 8;  // voxels a pass
+            uint32_t n = 0;                           // chunks built
+            for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+                const Item it = decode(p, item);
+                for (int ck = it.k0 / TAPS; ck <= (it.k1 - 1) / TAPS; ++ck, ++n) {
+                    const int buf = n & 1;
+                    mbar_wait(bempty + buf, ((n >> 1) & 1) ^ 1);
+                    const int c = ck * BK + q8 * 8;
+                    const bool live = c < p.C;        // a zero-padded tail chunk
+                    unsigned char* brick = bricks + buf * brick_vox * ROW_BYTES;
+                    const uint32_t brick_s = smem_u32(brick);
+                    uint64_t inside = 0;              // bit i: this thread's i-th voxel is in the volume
+                    {
+                        const int v0 = bt >> 3;
+                        int bw = v0 % BW, bh = (v0 / BW) % BH, bd = v0 / (BW * BH);
+                        for (int v = v0, i = 0; v < brick_vox; v += VSTEP, ++i) {
+                            const int dd = it.d0 + bd - 1, hh = it.h0 + bh - 1, ww = it.w0 + bw - 1;
+                            const bool in = live && dd >= 0 && dd < p.D && hh >= 0 && hh < p.H
+                                            && ww >= 0 && ww < p.W;
+                            const bf16* src = in ? x + ((((size_t)it.b * p.D + dd) * p.H + hh) * p.W + ww) * p.C + c : x;
+                            cp_async16(brick_s + v * ROW_BYTES + ((q8 ^ (v & 7)) << 4), src, in ? 16 : 0);
+                            inside |= (uint64_t)in << i;
+                            for (bw += VSTEP; bw >= BW;) {
+                                bw -= BW;
+                                if (++bh == BH) { bh = 0; ++bd; }
+                            }
+                        }
+                        asm volatile("cp.async.commit_group;\n" ::: "memory");
+                    }
+                    float av[8], bv[8];
+                    if (live) {
+                        const float4* pa = reinterpret_cast<const float4*>(ga + (size_t)it.b * p.C + c);
+                        const float4* pb = reinterpret_cast<const float4*>(gb + (size_t)it.b * p.C + c);
+                        const float4 a0 = pa[0], a1 = pa[1], b0 = pb[0], b1 = pb[1];
+                        av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+                        av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+                        bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+                        bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+                    }
+                    asm volatile("cp.async.wait_all;\n" ::: "memory");
+                    for (int v = bt >> 3, i = 0; v < brick_vox; v += VSTEP, ++i) {
+                        if (!((inside >> i) & 1)) continue;      // stays zero
+                        uint4* cell = reinterpret_cast<uint4*>(brick + v * ROW_BYTES + ((q8 ^ (v & 7)) << 4));
+                        uint4 raw = *cell;
+                        bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+                        for (int j = 0; j < 8; ++j) {
+                            const float t = __bfloat162float(e[j]) * av[j] + bv[j];
+                            e[j] = __float2bfloat16(__fdividef(t, 1.0f + __expf(-t)));
+                        }
+                        *cell = raw;
+                    }
+                    mbar_arrive(bfull + buf);
+                }
+            }
+        }
+    } else {
+        // ------------------------------ consumers -----------------------------
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+        const int lane = threadIdx.x & 31, warp4 = (threadIdx.x >> 5) & 3;
+        const int row0 = SPLIT_N ? 0 : wg * MW * 64;
+        const int col0 = SPLIT_N ? wg * NW : 0;
+        const int tile_vox = p.TD * p.TH * p.TW;
+        const int hi = lane >> 4;
+        const uint32_t ring_s = smem_u32(ring) + col0 * ROW_BYTES;
+        const uint32_t bricks_s = smem_u32(bricks);
+        uint32_t q = 0, n = 0;               // k-steps consumed, chunks consumed
+        for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+            const Item it = decode(p, item);
+            // the brick voxel of this lane's ldmatrix row in each m64 tile, tap (0,0,0)
+            int vb[MW];
+#pragma unroll
+            for (int f = 0; f < MW; ++f) {
+                int r = row0 + f * 64 + warp4 * 16 + (lane & 15);
+                if (r >= tile_vox) r = 0;     // rows past the tile: computed, never stored
+                const int td = r / (p.TH * p.TW), rem = r - td * p.TH * p.TW;
+                const int th = rem / p.TW, tw = rem - th * p.TW;
+                vb[f] = (td * BH + th) * BW + tw;
+            }
+            float acc[MW][NW / 2];
+#pragma unroll
+            for (int f = 0; f < MW; ++f)
+#pragma unroll
+                for (int i = 0; i < NW / 2; ++i) acc[f][i] = 0.0f;
+#pragma unroll
+            for (int f = 0; f < MW; ++f) fence_regs<NW / 2>(acc[f]);
+
+            uint32_t afr[BK / 16][MW][4];
+            int cur_ck = -1, buf = 0;
+            uint32_t brick_s = 0;
+            for (int kk = it.k0; kk < it.k1; ++kk, ++q) {
+                const int ck = kk / TAPS, tap = kk - ck * TAPS;
+                if (ck != cur_ck) {
+                    cur_ck = ck;
+                    buf = n & 1;
+                    mbar_wait(bfull + buf, (n >> 1) & 1);
+                    brick_s = bricks_s + buf * brick_vox * ROW_BYTES;
+                }
+                // this tap's A fragments: a row offset into the brick
+                const int toff = ((tap / 9) * BH + (tap / 3) % 3) * BW + tap % 3;
+#pragma unroll
+                for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+                    for (int f = 0; f < MW; ++f) {
+                        const int v = vb[f] + toff;
+                        ldsm_x4(brick_s + v * ROW_BYTES + (((2 * j + hi) ^ (v & 7)) << 4), afr[j][f]);
+                    }
+                if (tap == TAPS - 1 || kk == it.k1 - 1) {   // the brick is no longer read
+                    __syncwarp();
+                    if (lane == 0) mbar_arrive(bempty + buf);
+                    ++n;
+                }
+                const int s = q % STAGES;
+                mbar_wait(wfull + s, (q / STAGES) & 1);
+                __syncwarp();
+                // one wgmma group a tap; no register is written while it runs
+                // (ptxas would serialize the wgmmas), the other consumer
+                // warpgroup's group keeps the tensor cores busy meanwhile
+                const uint64_t desc = desc_sw128(ring_s + s * STAGE_BYTES);
+                wgmma_fence();
+#pragma unroll
+                for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+                    for (int f = 0; f < MW; ++f) Wgmma<NW>::run(acc[f], afr[j][f], desc + 2 * j);
+                wgmma_commit();
+                wgmma_wait<0>();
+                __syncwarp();
+                if (lane == 0) mbar_arrive(wempty + s);
+            }
+#pragma unroll
+            for (int f = 0; f < MW; ++f) fence_regs<NW / 2>(acc[f]);
+
+            // epilogue: acc[f][4k + e] holds row (g, g+8 for e >= 2), column
+            // 8k + 2t + (e & 1). Row offsets first, then one bias pair a
+            // column group for all of the thread's rows.
+            const int g = lane >> 2, t4 = lane & 3;
+            long long mrow[MW][2];            // the row's output offset, -1 outside the volume
+#pragma unroll
+            for (int f = 0; f < MW; ++f)
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int r = row0 + f * 64 + warp4 * 16 + g + half * 8;
+                    const int td = r / (p.TH * p.TW), rem = r - td * p.TH * p.TW;
+                    const int th = rem / p.TW, tw = rem - th * p.TW;
+                    const int dd = it.d0 + td, hh = it.h0 + th, ww = it.w0 + tw;
+                    mrow[f][half] = (r < tile_vox && dd < p.D && hh < p.H && ww < p.W)
+                        ? ((((long long)it.b * p.D + dd) * p.H + hh) * p.W + ww) * p.O : -1;
+                }
+            const int n0 = it.nb * BN + col0 + 2 * t4;
+            float* part = partial == nullptr ? nullptr
+                : partial + (long long)it.split * p.B * p.D * p.H * p.W * p.O;
+#pragma unroll
+            for (int k = 0; k < NW / 8; ++k) {
+                const int nn = n0 + k * 8;
+                if (nn >= p.O) break;         // O % 8 == 0: the warp's 8 columns are all in or all out
+                const float2 bb = part == nullptr ? __ldg(reinterpret_cast<const float2*>(bias + nn))
+                                                  : make_float2(0.0f, 0.0f);
+#pragma unroll
+                for (int f = 0; f < MW; ++f)
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        if (mrow[f][half] < 0) continue;
+                        const float v0 = acc[f][4 * k + 2 * half] + bb.x;
+                        const float v1 = acc[f][4 * k + 2 * half + 1] + bb.y;
+                        if (part == nullptr)
+                            *reinterpret_cast<__nv_bfloat162*>(out + mrow[f][half] + nn) =
+                                __floats2bfloat162_rn(v0, v1);
+                        else
+                            *reinterpret_cast<float2*>(part + mrow[f][half] + nn) = make_float2(v0, v1);
+                    }
             }
         }
     }
 }
 
-// Sum the split partials in split order, add the bias, round to bf16.
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
+// Sum the split partials in split order, add the bias, round to bf16; four
+// outputs a thread (O % 8 == 0).
+__global__ void splitk_reduce_kernel(const float4* __restrict__ partial,
                                      const float* __restrict__ bias,
-                                     bf16* __restrict__ out, long long MO, int O, int splits)
+                                     bf16* __restrict__ out, long long MO4, int O, int splits)
 {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= MO) return;
-    float s = 0.0f;
-    for (int z = 0; z < splits; ++z) s += partial[z * MO + i];
-    out[i] = __float2bfloat16(s + __ldg(bias + (int)(i % O)));
+    if (i >= MO4) return;
+    float4 s = __ldg(partial + i);
+    for (int z = 1; z < splits; ++z) {
+        const float4 v = __ldg(partial + z * MO4 + i);
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    const int n = (int)((4 * i) % O);
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + 4 * i);
+    o[0] = __floats2bfloat162_rn(s.x + __ldg(bias + n), s.y + __ldg(bias + n + 1));
+    o[1] = __floats2bfloat162_rn(s.z + __ldg(bias + n + 2), s.w + __ldg(bias + n + 3));
 }
 
-template <typename TIn>
+template <int MW, int NW, bool SPLIT_N>
 cudaError_t launch(const void* x, const void* a, const void* b, const void* w, const void* bias,
-                   void* out, float* part, int B, int D, int H, int W, int C, int O,
-                   int TD, int TH, int TW, int splits, cudaStream_t s)
+                   void* out, float* part, const Params& p, int grid, cudaStream_t s)
 {
-    const int brick_vox = (TD + 2) * (TH + 2) * (TW + 2);
-    const size_t smem = ((brick_vox * LDA + 63) / 64) * 64 * sizeof(bf16)
-                        + 2 * B_TILE * sizeof(bf16);
+    constexpr int BN = SPLIT_N ? CONSUMERS * NW : NW;
+    const int brick_vox = (p.TD + 2) * (p.TH + 2) * (p.TW + 2);
+    const size_t smem = 1024 + (size_t)STAGES * BN * ROW_BYTES + 2 * (size_t)brick_vox * ROW_BYTES
+                        + (2 * STAGES + 4) * sizeof(uint64_t);
+    auto kernel = gn_silu_conv3d_kernel<MW, NW, SPLIT_N>;
     static size_t smem_allowed = 0;   // per instantiation; raised on demand
     if (smem > smem_allowed) {
-        cudaError_t err = cudaFuncSetAttribute(gn_silu_conv3d_kernel<TIn>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
         if (err != cudaSuccess) return err;
         smem_allowed = smem;
     }
-    const int CK = C / BK;
-    const int per = (CK + splits - 1) / splits;
-    const long long tiles = (long long)B * ((D + TD - 1) / TD) * ((H + TH - 1) / TH)
-                            * ((W + TW - 1) / TW);
-    dim3 grid((unsigned)tiles, (unsigned)((O + BN - 1) / BN), (unsigned)splits);
-    gn_silu_conv3d_kernel<TIn><<<grid, THREADS, smem, s>>>(
-        static_cast<const TIn*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+    kernel<<<grid, THREADS, smem, s>>>(
+        static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
         static_cast<const bf16*>(w), static_cast<const float*>(bias), static_cast<bf16*>(out),
-        part, B, D, H, W, C, O, TD, TH, TW, per);
+        part, p);
     return cudaGetLastError();
 }
 
+
 }  // namespace
 
-// x (B, D, H, W, C) bf16 or fp32 (x_is_f32); a, b (B, C) fp32; w (27*C, O)
-// bf16; bias (O,) fp32; out (B, D, H, W, O) bf16; partial (splits, M, O) fp32
-// scratch when splits > 1. (TD, TH, TW): the output brick, TD*TH*TW <= 128.
-extern "C" int gn_silu_conv3d_bf16(const void* x, int x_is_f32, const void* a,
+// x (B, D, H, W, C) bf16; a, b (B, C) fp32; w the packed
+// weights (NB, CK, 27, BN, 64) bf16 in the swizzled image; bias (O,) fp32;
+// out (B, D, H, W, O) bf16; partial (splits, M, O) fp32 scratch when
+// splits > 1. tiling: 0 = 256 voxels x 128 channels, 1 = 128 x 256,
+// 2 = 64 x 256; (TD, TH, TW) the output tile; grid the persistent block count.
+extern "C" int gn_silu_conv3d_bf16(const void* x, const void* a,
                                    const void* b, const void* w, const void* bias,
                                    void* out, void* partial, int B, int D, int H, int W,
-                                   int C, int O, int TD, int TH, int TW, int splits,
-                                   void* stream)
+                                   int C, int O, int tiling, int TD, int TH, int TW,
+                                   int splits, int grid, void* stream)
 {
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    const int BN = tiling == 0 ? 128 : 256;
+    Params p;
+    p.B = B; p.D = D; p.H = H; p.W = W; p.C = C; p.O = O;
+    p.TD = TD; p.TH = TH; p.TW = TW;
+    p.ntd = (D + TD - 1) / TD; p.nth = (H + TH - 1) / TH; p.ntw = (W + TW - 1) / TW;
+    p.tiles = B * p.ntd * p.nth * p.ntw;
+    p.NB = (O + BN - 1) / BN;
+    p.CK = (C + BK - 1) / BK;
+    p.KS = TAPS * p.CK;
+    p.per = (p.KS + splits - 1) / splits;
+    p.splits = splits;
+    p.items = p.tiles * p.NB * splits;
+    if ((TD + 2) * (TH + 2) * (TW + 2) > 64 * (BRICK_THREADS / 8))   // a 64-bit mask a thread
+        return (int)cudaErrorInvalidValue;
     float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-    cudaError_t err = x_is_f32
-        ? launch<float>(x, a, b, w, bias, out, part, B, D, H, W, C, O, TD, TH, TW, splits, s)
-        : launch<bf16>(x, a, b, w, bias, out, part, B, D, H, W, C, O, TD, TH, TW, splits, s);
+    cudaError_t err;
+    switch (tiling) {
+    case 0: err = launch<2, 128, false>(x, a, b, w, bias, out, part, p, grid, s); break;
+    case 1: err = launch<1, 256, false>(x, a, b, w, bias, out, part, p, grid, s); break;
+    case 2: err = launch<1, 128, true>(x, a, b, w, bias, out, part, p, grid, s); break;
+    default: return (int)cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess || splits == 1) return (int)err;
-    const long long MO = (long long)B * D * H * W * O;
-    splitk_reduce_kernel<<<(unsigned)((MO + 255) / 256), 256, 0, s>>>(
-        part, static_cast<const float*>(bias), static_cast<bf16*>(out), MO, O, splits);
+    const long long MO4 = (long long)B * D * H * W * O / 4;
+    splitk_reduce_kernel<<<(unsigned)((MO4 + 255) / 256), 256, 0, s>>>(
+        reinterpret_cast<const float4*>(part), static_cast<const float*>(bias),
+        static_cast<bf16*>(out), MO4, O, splits);
     return (int)cudaGetLastError();
 }
 

@@ -22,6 +22,7 @@ from .geometry.obj_io import write_obj
 from .geometry.remesh import isotropic_remesh
 from .geometry.smoothing import laplacian_smooth
 from .geometry.tet_grid import TetGrid
+from .utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -41,11 +42,13 @@ def make_grid_to_mesh(tet_grid: TetGrid, mesh_scale: float = 2.1, deform_scale: 
 def extract_grid(grid: np.ndarray, tet_grid: TetGrid, out_path: str,
                  mesh_scale: float = 2.1, deform_scale: float = 1.0,
                  num_smooth_steps: int = 3, unnormalized_sdf: bool = False,
-                 remesh: bool = True, device='cpu'):
+                 remesh: bool = True, device='cuda'):
     """One (4, R, R, R) channel-first grid -> post-processed .obj; returns
-    (verts, faces). Post-process order mirrors reference eval.py:449-456:
+    (verts, faces), computed on ``device`` (the card unless the caller names
+    another; raises where CUDA is missing). Post-process order mirrors reference eval.py:449-456:
     isotropic remeshing -> uniform Laplacian smoothing (num_smooth_steps)
     -> isotropic remeshing; ``remesh=False`` smooths the raw tessellation."""
+    device = resolve_device(device)
     t0 = time.perf_counter()
     g = torch.as_tensor(np.moveaxis(np.asarray(grid, np.float32), 0, -1), device=device)
     fn = make_grid_to_mesh(tet_grid, mesh_scale, deform_scale, unnormalized_sdf)
@@ -70,9 +73,10 @@ def extract_grid(grid: np.ndarray, tet_grid: TetGrid, out_path: str,
 def extract_batch(sample_path: str, out_dir: str, resolution: int = 64,
                   mesh_scale: float = 2.1, deform_scale: float = 1.0,
                   num_smooth_steps: int = 3, unnormalized_sdf: bool = False,
-                  tet_root: Optional[str] = None, remesh: bool = True, device='cpu'):
+                  tet_root: Optional[str] = None, remesh: bool = True, device='cuda'):
     """Every sample of one channel-first .npy batch -> ``out_dir/mesh/%06d.obj``
-    (reference eval.py:400-456)."""
+    (reference eval.py:400-456), on ``device`` as :func:`extract_grid`."""
+    device = resolve_device(device)
     tg = TetGrid.load(resolution, tet_root or None)
     mesh_dir = os.path.join(out_dir, 'mesh')
     os.makedirs(mesh_dir, exist_ok=True)

@@ -25,6 +25,7 @@ import sys
 import torch
 
 from .config import apply_overrides, get_config
+from .utils.device import resolve_device
 
 
 def _load_config(spec: str):
@@ -40,10 +41,7 @@ def _load_config(spec: str):
 
 
 def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'--device {name}: CUDA is not available')
-    return dev
+    return resolve_device(name, '--device')
 
 
 def main(argv=None):

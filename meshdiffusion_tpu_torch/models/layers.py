@@ -89,6 +89,7 @@ class Conv3D(nn.Conv3d):
         self.init_scale = init_scale
         self.dtype = dtype
         self._dhwio, self._dhwio_key = None, None
+        self._packed, self._packed_key = None, None
 
     def reset_parameters_ddpm(self, generator=None):
         rf = math.prod(self.kernel_size)
@@ -98,7 +99,8 @@ class Conv3D(nn.Conv3d):
 
     def dhwio(self) -> torch.Tensor:
         """The weight in the JAX kernel layout (kd, kh, kw, I, O), contiguous
-        in the compute dtype: the layout the conv kernel reads. Kept between
+        in the compute dtype: the layout the plain GN -> SiLU -> conv reads
+        (the conv kernel reads :meth:`packed`). Kept between
         calls and rebuilt when the weight changes (its storage or version),
         so the 74 ResnetBlock convs of a forward do not re-cast and
         re-transpose their weights every call."""
@@ -108,6 +110,18 @@ class Conv3D(nn.Conv3d):
             self._dhwio = w.detach().permute(2, 3, 4, 1, 0).to(self.dtype).contiguous()
             self._dhwio_key = key
         return self._dhwio
+
+    def packed(self) -> torch.Tensor:
+        """The weight as the conv kernel's B tiles (``ops.pack_conv_weights``:
+        per (N block, 64-channel chunk, tap) one contiguous, swizzled bf16
+        tile, copied into shared memory by one bulk copy). Kept between calls
+        and rebuilt when the weight changes, as :meth:`dhwio` is."""
+        w = self.weight
+        key = (w.data_ptr(), w._version)
+        if key != self._packed_key:
+            self._packed = ops.pack_conv_weights(self.dhwio())
+            self._packed_key = key
+        return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -143,15 +157,20 @@ class ResnetBlockDDPM(nn.Module):
             self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        chain = ops.gn_silu_conv3d if self.kernels else ops.gn_silu_conv3d_reference
         dt = self.dtype
-        gn, conv = self.GroupNorm_0, self.Conv_0
-        h = chain(x, gn.weight, gn.bias, conv.dhwio(), conv.bias, 32, 1e-6, dt)
+
+        def chain(x, gn, conv):
+            if self.kernels:      # the wrapper routes by device: the kernel on CUDA
+                return ops.gn_silu_conv3d(x, gn.weight, gn.bias, conv.dhwio(), conv.bias, 32,
+                                          1e-6, dt, packed=conv.packed())
+            return ops.gn_silu_conv3d_reference(x, gn.weight, gn.bias, conv.dhwio(), conv.bias,
+                                                32, 1e-6, dt)
+
+        h = chain(x, self.GroupNorm_0, self.Conv_0)
         if temb is not None:
             t = _linear_in(F.silu(temb), self.Dense_0, dt)
             h = h + t[:, None, None, None, :].to(h.dtype)
-        gn, conv = self.GroupNorm_1, self.Conv_1
-        h = chain(h, gn.weight, gn.bias, conv.dhwio(), conv.bias, 32, 1e-6, dt)
+        h = chain(h, self.GroupNorm_1, self.Conv_1)
         if self.in_ch != self.out_ch:
             x = self.NIN_0(x)
         return x + h

@@ -6,6 +6,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..utils.device import resolve_device
+
 _MODELS: Dict[str, Callable] = {}
 
 
@@ -32,10 +34,11 @@ def get_model(name: str):
         raise KeyError(f"unknown model {name!r}; registered: {sorted(_MODELS)}") from e
 
 
-def create_model(config, device='cpu', generator: Optional[torch.Generator] = None):
-    """The U-Net for ``config.model.name`` on ``device``, with the DDPM
+def create_model(config, device='cuda', generator: Optional[torch.Generator] = None):
+    """The U-Net for ``config.model.name`` on ``device`` (the card unless the
+    caller names another; raises where CUDA is missing), with the DDPM
     initialisation drawn from ``generator`` (a generator on ``device``)."""
-    with torch.device(device):
+    with torch.device(resolve_device(device)):
         model = get_model(config.model.name).from_config(config)
     model.reset_parameters_ddpm(generator)
     return model

@@ -3,20 +3,26 @@
 | wrapper | kernel | replaces (TPU) |
 | --- | --- | --- |
 | :func:`ancestral_update` | Triton | ``meshdiffusion_tpu/ops/sampler_step.py:52`` |
-| :func:`gn_affine` | Triton (gn_stats) | statistics phase of ``ops/groupnorm.py:94`` |
+| :func:`gn_affine` | CUDA C++, sm_90a (gn_stats, one launch) | statistics phase of ``ops/groupnorm.py:94`` |
 | :func:`groupnorm_silu` | Triton (apply) | ``meshdiffusion_tpu/ops/groupnorm.py:94`` |
-| :func:`gn_silu_conv3d` | CUDA C++, sm_90a | ``meshdiffusion_tpu/ops/gn_silu_conv.py:142`` |
+| :func:`gn_silu_conv3d` | CUDA C++, sm_90a (wgmma) | ``meshdiffusion_tpu/ops/gn_silu_conv.py:142`` |
 | :func:`tile_zmin` | CUDA C++, sm_90a | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches.
+Each kernel module also has a ``*_cost`` helper, the (FLOP, bytes) of a
+call, from which ``roofline.bound_ms`` gives the least time an H100 could
+take for it.
 """
 
-from .gn_silu_conv import gn_silu_conv3d, gn_silu_conv3d_reference  # noqa: F401
-from .groupnorm import (gn_affine, gn_affine_reference, groupnorm_reference,  # noqa: F401
-                        groupnorm_silu, groupnorm_silu_reference)
-from .sampler_step import ancestral_update, ancestral_update_reference  # noqa: F401
-from .tile_zmin import tile_zmin, tile_zmin_reference  # noqa: F401
+from .gn_silu_conv import (gn_silu_conv3d, gn_silu_conv3d_cost,  # noqa: F401
+                           gn_silu_conv3d_reference, pack_conv_weights)
+from .groupnorm import (gn_affine, gn_affine_cost, gn_affine_reference,  # noqa: F401
+                        groupnorm_reference, groupnorm_silu, groupnorm_silu_cost,
+                        groupnorm_silu_reference)
+from .sampler_step import (ancestral_update, ancestral_update_cost,  # noqa: F401
+                           ancestral_update_reference)
+from .tile_zmin import tile_zmin, tile_zmin_cost, tile_zmin_reference  # noqa: F401
 
 KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, tile_zmin)
 

@@ -18,6 +18,7 @@ to the plain version, CUDA tensors to the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -32,12 +33,15 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
 FLAGS = ['-O3', '-std=c++17', '-Xcompiler', '-fPIC', '-lineinfo']
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (restype is int: a cudaError_t)
 _SIGNATURES = {
-    # x, x_is_f32, a, b, w, bias, out, partial, B, D, H, W, C, O, TD, TH, TW, splits, stream
-    'gn_silu_conv3d_bf16': [_P, _I, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a, b, w, bias, out, partial, B, D, H, W, C, O, tiling, TD, TH, TW, splits, grid,
+    # stream
+    'gn_silu_conv3d_bf16': [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, dtype, scale, bias, a, b, work, ticket, xb, B, S, C, G, CC, R, eps, stream
+    'gn_stats': [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # cand, tile_tris, z_floor, best_tri, best_z, N, K, ntx, tpv, stream
     'tile_zmin': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -121,6 +125,8 @@ def build(verbose: bool = False) -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
@@ -132,6 +138,17 @@ def lib() -> ctypes.CDLL:
             handle.mdt_error_string.restype = ctypes.c_char_p
             _lib = handle
         return _lib
+
+
+H100_SMS = 132     # streaming multiprocessors of an H100 SXM: the plans' default
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: what the kernels'
+    launch plans size their grids by."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -3,12 +3,16 @@
 Replaces the TPU kernel ``meshdiffusion_tpu/ops/gn_silu_conv.py``
 (``gn_silu_conv3d_pallas``, pallas_call at :171): the two GN -> SiLU ->
 conv chains of every U-Net ResnetBlock. The GroupNorm statistics come
-from the Triton ``gn_stats`` pass (:func:`.groupnorm.gn_affine`), read at
-x's own precision (fp32 for the up path's residual sums), folded into a
-per-(batch, channel) affine; the CUDA kernel ``csrc/gn_silu_conv3d.cu``
-then streams x in bf16, applies ``silu(x*a + b)`` while it loads each
-operand tile, and runs the conv as an implicit GEMM with fp32 sums (see
-the notes in that file for what bounds it and what its design does).
+from the one-launch ``gn_stats`` kernel (:func:`.groupnorm.gn_affine`), read
+at x's own precision (fp32 for the up path's residual sums; that pass also
+writes x rounded to bf16, the conv's operand), folded into a per-(batch,
+channel) affine; the CUDA kernel ``csrc/gn_silu_conv3d.cu``
+(wgmma, a bulk-copy weight ring, the next channel chunk's normalized input
+brick built while the current one's products run) then computes
+``silu(x*a + b)`` once per input element and the conv as an implicit GEMM
+with fp32 sums. The notes in that file say what bounds it and what its
+design does; :func:`_plan` picks its tiling, split and grid, and
+:func:`pack_conv_weights` lays the weights out as its B tiles.
 
 On a CPU tensor :func:`gn_silu_conv3d` runs the plain version
 (:func:`gn_silu_conv3d_reference`); on a CUDA tensor it launches the
@@ -20,14 +24,23 @@ training.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .groupnorm import gn_affine, groupnorm_silu_reference
+from .groupnorm import _gn_stats, groupnorm_silu_reference
+from .roofline import PEAK_BF16_FLOPS, bound_ms
 
-_BM, _BN, _BK = 128, 128, 32     # the kernel's block: output voxels, output channels, K chunk
-_SMS = 132                       # streaming multiprocessors of an H100
+_BK = 64                 # channels a chunk (one 128-byte swizzled row of bf16)
+_STAGES = 4              # weight ring stages
+SMEM_LIMIT = 232_448     # shared memory a block may use on an H100
+_MAX_BRICK = 768         # brick voxels: 64 a brick-building thread (a 64-bit mask)
+# tiling -> (output voxels a block, channels a block, tile H, tile W targets)
+_TILINGS = {0: (256, 128, 8, 8), 1: (128, 256, 4, 8), 2: (64, 256, 4, 4)}
 
 
 def conv3d_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -48,60 +61,162 @@ def gn_silu_conv3d_reference(x, scale, bias, kernel, conv_bias, num_groups: int 
     return conv3d_same(h.to(dtype), kernel.to(dtype)) + conv_bias.to(dtype)
 
 
-def _plan(B: int, D: int, H: int, W: int, C: int, O: int):
-    """The kernel's launch plan: its output brick (TD, TH, TW) of at most
-    128 voxels, and how many ways the channel chunks are split when the
-    output tiles alone cannot fill the card (then two blocks an SM)."""
-    TW = min(W, 16)
-    TH = min(H, _BM // TW)
-    TD = min(D, _BM // (TW * TH))
-    blocks = B * -(-D // TD) * -(-H // TH) * -(-W // TW) * -(-O // _BN)
-    chunks = C // _BK
-    if blocks >= _SMS:
-        return TD, TH, TW, 1
-    per = -(-chunks // min(-(-2 * _SMS // blocks), chunks))
-    return TD, TH, TW, -(-chunks // per)     # no empty split
+def gn_silu_conv3d_cost(x_shape, x_dtype: torch.dtype, out_ch: int) -> Tuple[float, float]:
+    """(FLOP, bytes) of one call: 2 * M * 27 * C * O on the bf16 tensor
+    cores; x, the bf16 weights, the bf16 output, the fp32 affine and bias
+    each moved once."""
+    B, D, H, W, C = x_shape
+    M = B * D * H * W
+    esize = torch.empty((), dtype=x_dtype).element_size()
+    nbytes = M * C * esize + 27 * C * out_ch * 2 + M * out_ch * 2 + 2 * B * C * 4 + out_ch * 4
+    return 2.0 * M * 27 * C * out_ch, float(nbytes)
+
+
+def gn_silu_conv3d_bound_ms(x_shape, x_dtype: torch.dtype, out_ch: int) -> Tuple[float, str]:
+    return bound_ms(*gn_silu_conv3d_cost(x_shape, x_dtype, out_ch), PEAK_BF16_FLOPS)
+
+
+def block_n(out_ch: int) -> int:
+    """Output channels a block: 256 where O allows it, else 128."""
+    return 256 if out_ch % 256 == 0 else 128
+
+
+def smem_bytes(bn: int, td: int, th: int, tw: int) -> int:
+    """Dynamic shared memory of a block: 1024-byte alignment slack, the
+    weight ring, two bricks, the mbarriers (the kernel's own sum)."""
+    return 1024 + _STAGES * bn * 128 + 2 * (td + 2) * (th + 2) * (tw + 2) * 128 + (2 * _STAGES + 4) * 8
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    tiling: int          # 0: 256 voxels x 128 channels, 1: 128 x 256, 2: 64 x 256 (N split)
+    TD: int              # output tile
+    TH: int
+    TW: int
+    tiles: int           # output tiles, over every sample
+    NB: int              # output-channel blocks
+    KS: int              # k-steps: 27 taps x 64-channel chunks
+    splits: int          # contiguous k-step ranges (split-K)
+    per: int             # k-steps a range (the kernel's ceil(KS / splits))
+    items: int           # work items = tiles * NB * splits
+    grid: int            # persistent blocks, one an SM at most
+    smem: int            # dynamic shared memory a block
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, D: int, H: int, W: int, C: int, O: int,
+          sms: int = _build.H100_SMS) -> ConvPlan:
+    """The kernel's launch plan for x (B, D, H, W, C) -> O channels: the
+    tiling (by O and the volume), the output tile (D shrunk until two
+    bricks and the weight ring fit in shared memory), and the split of the
+    27 x ceil(C/64) k-steps when the output tiles alone cannot fill the
+    card (then about one item an SM, no range empty). Raises on shapes the
+    kernel does not take."""
+    if C % 32 or O % 8 or min(B, D, H, W, C, O) < 1:
+        raise ValueError(f'the conv kernel needs C % 32 == 0 and O % 8 == 0, got C={C}, O={O}')
+    bn = block_n(O)
+    tiling = 0 if bn == 128 else (2 if D * H * W <= 64 else 1)
+    bm, bn_t, th, tw = _TILINGS[tiling]
+    TW, TH = min(W, tw), min(H, th)
+    TD = min(D, bm // (TH * TW))
+    brick = lambda td: (td + 2) * (TH + 2) * (TW + 2)
+    while TD > 1 and (smem_bytes(bn, TD, TH, TW) > SMEM_LIMIT or brick(TD) > _MAX_BRICK):
+        TD -= 1
+    smem = smem_bytes(bn, TD, TH, TW)
+    if smem > SMEM_LIMIT or brick(TD) > _MAX_BRICK:
+        raise ValueError(f'no output tile of ({D}, {H}, {W}) fits in shared memory')
+    tiles = B * -(-D // TD) * -(-H // TH) * -(-W // TW)
+    NB, KS = -(-O // bn), 27 * -(-C // _BK)
+    base = tiles * NB
+    want = 1 if base >= sms * 3 // 4 else max(1, sms // base)
+    splits = -(-KS // -(-KS // want))
+    per = -(-KS // splits)
+    items = base * splits
+    return ConvPlan(tiling, TD, TH, TW, tiles, NB, KS, splits, per, items, min(items, sms), smem)
+
+
+def packed_numel(C: int, O: int) -> int:
+    return -(-O // block_n(O)) * block_n(O) * 27 * -(-C // _BK) * _BK
+
+
+def pack_conv_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """The (3, 3, 3, C, O) kernel as the conv kernel's B tiles, flat bf16:
+    (N block, 64-channel chunk, tap, BN output channels, 64 input channels),
+    zero-padded to whole chunks and blocks, each tile K-major with its
+    16-byte chunks XOR-swizzled by the row (the image a wgmma descriptor
+    with 128-byte swizzle reads): element (n, k) of a tile sits at
+    n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8."""
+    C, O = kernel.shape[3], kernel.shape[4]
+    bn = block_n(O)
+    CK, NB = -(-C // _BK), -(-O // bn)
+    w = kernel.detach().reshape(27, C, O)       # a view for a contiguous or a permuted Conv3d weight
+    if CK * _BK != C or NB * bn != O:
+        w = F.pad(w, (0, NB * bn - O, 0, CK * _BK - C))
+    w = w.reshape(27, CK, _BK, NB, bn).permute(3, 1, 0, 4, 2)       # (NB, CK, 27, n, k)
+    w = w.unflatten(4, (8, 8)).unflatten(3, (bn // 8, 8))            # n = (n8, r), k = (chunk, e)
+    r = torch.arange(8)
+    w = w[..., r[:, None], r[None, :] ^ r[:, None], :]               # chunk p holds chunk p ^ r
+    return w.to(torch.bfloat16).reshape(-1)
+
+
+_partials = {}    # (device, stream) -> fp32 split-K scratch, grown on demand and reused
+
+
+def _scratch(device, stream: int, numel: int) -> torch.Tensor:
+    """Calls on one stream run in order and share a scratch; another stream
+    gets its own."""
+    buf = _partials.get((device, stream))
+    if buf is None or buf.numel() < numel:
+        buf = _partials[(device, stream)] = torch.empty(numel, device=device, dtype=torch.float32)
+    return buf
 
 
 def gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
-                   eps: float = 1e-6, dtype=torch.bfloat16) -> torch.Tensor:
+                   eps: float = 1e-6, dtype=torch.bfloat16,
+                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GroupNorm -> SiLU -> SAME 3^3 conv + bias. x (B, D, H, W, C) in fp32
-    or bf16; kernel (3, 3, 3, C, O); output (B, D, H, W, O) in ``dtype``."""
-    if not _build.use_kernel('gn_silu_conv3d', x, scale, bias, kernel, conv_bias):
+    or bf16; kernel (3, 3, 3, C, O); output (B, D, H, W, O) in ``dtype``.
+    ``packed``: the kernel as :func:`pack_conv_weights` lays it out (the
+    U-Net's convs keep it between calls); packed here when not given."""
+    tensors = (x, scale, bias, kernel, conv_bias) + ((packed,) if packed is not None else ())
+    if not _build.use_kernel('gn_silu_conv3d', *tensors):
         return gn_silu_conv3d_reference(x, scale, bias, kernel, conv_bias,
                                         num_groups, eps, dtype)
     B, D, H, W, C = x.shape
     O = kernel.shape[-1]
     if dtype != torch.bfloat16:
         raise ValueError(f'the conv kernel computes in bfloat16, not {dtype}')
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, scale, bias, kernel, conv_bias)):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError('gn_silu_conv3d is forward-only on CUDA: call under '
                            'torch.inference_mode() or torch.no_grad()')
     if kernel.shape != (3, 3, 3, C, O):
         raise ValueError(f'kernel {tuple(kernel.shape)} is not (3, 3, 3, {C}, O)')
-    if C % _BK or O % 8 or C % num_groups:
-        raise ValueError(f'need C % 32 == 0 and O % 8 == 0, got C={C}, O={O}')
+    if C % num_groups:
+        raise ValueError(f'channels {C} not divisible by {num_groups} groups')
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError('x must be contiguous float32 or bfloat16')
-    a, b = gn_affine(x, scale, bias, num_groups, eps)
-    w = kernel.to(torch.bfloat16).contiguous()
+    plan = _plan(B, D, H, W, C, O, _build.sm_count(x.device.index or 0))
+    if packed is None:
+        packed = pack_conv_weights(kernel)
+    elif (packed.dtype != torch.bfloat16 or packed.numel() != packed_numel(C, O)
+          or not packed.is_contiguous()):
+        raise ValueError('packed is not pack_conv_weights(kernel)')
+    if x.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError('x and the packed weights must be 16-byte aligned')
     cb = conv_bias.float().contiguous()
-    for t in (x, w):
-        if t.data_ptr() % 16:
-            raise ValueError('x and kernel must be 16-byte aligned')
     M = B * D * H * W
-    TD, TH, TW, splits = _plan(B, D, H, W, C, O)
     out = torch.empty((B, D, H, W, O), device=x.device, dtype=torch.bfloat16)
-    partial = torch.empty((splits, M, O), device=x.device, dtype=torch.float32) \
-        if splits > 1 else None
-    lib = _build.lib()
     with torch.cuda.device(x.device):
-        err = lib.gn_silu_conv3d_bf16(
-            x.data_ptr(), int(x.dtype == torch.float32), a.data_ptr(), b.data_ptr(),
-            w.data_ptr(), cb.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            B, D, H, W, C, O, TD, TH, TW, splits, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        partial = _scratch(x.device, stream, plan.splits * M * O) if plan.splits > 1 else None
+        # the statistics; an fp32 x also comes back rounded to bf16, the operand
+        a, b, xb = _gn_stats(x, scale, bias, num_groups, eps, stream,
+                             round_bf16=x.dtype == torch.float32)
+        err = _build.lib().gn_silu_conv3d_bf16(
+            (x if xb is None else xb).data_ptr(), a.data_ptr(), b.data_ptr(), packed.data_ptr(),
+            cb.data_ptr(), out.data_ptr(), partial.data_ptr() if partial is not None else None,
+            B, D, H, W, C, O, plan.tiling, plan.TD, plan.TH, plan.TW, plan.splits, plan.grid,
+            stream)
     _build.check(err, 'gn_silu_conv3d')
     gn_silu_conv3d.launches += 1
     return out

@@ -1,27 +1,24 @@
 """GroupNorm(32) statistics and fused GroupNorm + SiLU, channels-last.
 
 Replaces the TPU kernel ``meshdiffusion_tpu/ops/groupnorm.py``
-(``fused_groupnorm_silu``, pallas_call at :114) with two Triton passes:
+(``fused_groupnorm_silu``, pallas_call at :114) with two kernels:
 
-* ``gn_stats`` (:func:`gn_affine`): per-(sample, group) fp32 statistics,
-  folded with the GroupNorm scale and bias into a per-(sample, channel)
-  affine ``a, b`` such that ``GroupNorm(x) = x * a + b``. The same fold
-  (``_gn_affine`` in ``meshdiffusion_tpu/ops/gn_silu_conv.py:62``) feeds the
-  conv kernel of ``gn_silu_conv.py``.
-* ``groupnorm_silu_apply`` (:func:`groupnorm_silu`): ``silu(x * a + b)``.
+* ``gn_stats`` (:func:`gn_affine`, CUDA C++ ``csrc/gn_stats.cu``, one
+  launch): per-(sample, group) fp32 statistics, folded with the GroupNorm
+  scale and bias into a per-(sample, channel) affine ``a, b`` such that
+  ``GroupNorm(x) = x * a + b``. The same fold (``_gn_affine`` in
+  ``meshdiffusion_tpu/ops/gn_silu_conv.py:62``) feeds the conv kernel of
+  ``gn_silu_conv.py``, 75 times a res64 forward.
+* ``groupnorm_silu_apply`` (:func:`groupnorm_silu`, Triton): ``silu(x * a + b)``.
 
 What bounds them on the H100: both are memory-bound (the statistics read x
-once, the apply reads it again and writes the output); at the U-Net's
-output head (1, 64, 64, 64, 128) that is a few hundred MB of traffic.
-
-Design: the Pallas kernel walks row blocks in order and carries its sums in
-scratch memory from one grid step to the next. Hopper blocks run in no
-order, so the statistics are a split reduction instead: each block reduces
-a block of rows to a per-channel (mean, M2) pair in fp32 (two-pass inside
-the block, numerically stable), and a second small kernel merges the pairs
-of each (sample, group) with Chan's formula in a fixed order
-(deterministic, no atomics) and writes ``a, b``. Triton fits: a reduction
-and then an elementwise pass.
+once, the apply reads it again and writes the output); below 32^3 the
+statistics read less than a launch costs. The Pallas kernel walks row
+blocks in order and carries its sums from one grid step to the next; Hopper
+blocks run in no order, so the statistics kernel merges per-block Welford
+triples with Chan's formula, the last block to finish doing the final merge
+in a fixed order (see the note in ``csrc/gn_stats.cu``). Triton fits the
+apply: one elementwise pass.
 
 On a CPU tensor every wrapper runs its plain PyTorch version (``*_reference``,
 the spec, mirroring the JAX oracles); on a CUDA tensor it launches its
@@ -31,12 +28,14 @@ kernel or raises. Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations  # kernel annotations stay strings until Triton reads them
 
 import functools
+import math
 from types import SimpleNamespace
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from . import _build
 from ._build import use_kernel
 
 # Bound at the first launch by _kernels(); the kernel bodies below read them
@@ -80,68 +79,25 @@ def gn_affine_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     return a, bias.float()[None] - mean_c * a
 
 
+def gn_affine_cost(x_shape, x_dtype: torch.dtype) -> Tuple[float, float]:
+    """(FLOP, bytes) of one call: 3 fp32 operations an element (a running
+    sum and sum of squares); x read once, fp32 a and b written once."""
+    n, B, C = math.prod(x_shape), x_shape[0], x_shape[-1]
+    esize = torch.empty((), dtype=x_dtype).element_size()
+    return 3.0 * n, float(n * esize + 2 * B * C * 4 + 2 * C * 4)
+
+
+def groupnorm_silu_cost(x_shape, x_dtype: torch.dtype) -> Tuple[float, float]:
+    """(FLOP, bytes) of one call (statistics and apply): 8 fp32 operations
+    an element; x read once and the output written once, in x's dtype."""
+    n = math.prod(x_shape)
+    esize = torch.empty((), dtype=x_dtype).element_size()
+    return 8.0 * n, float(2 * n * esize + 2 * x_shape[-1] * 4)
+
+
 # ---------------------------------------------------------------------------
 # Triton kernels (compiled on the card at first launch)
 # ---------------------------------------------------------------------------
-
-# Program (b, blk): per-channel mean and M2 of rows [blk*BLOCK_R, +BLOCK_R).
-def _gn_partial_kernel(x_ptr, mean_ptr, m2_ptr, S, C, NB,
-                       BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-    b = tl.program_id(0)
-    blk = tl.program_id(1)
-    rows = blk * BLOCK_R + tl.arange(0, BLOCK_R)
-    rmask = rows < S
-    n = tl.minimum(S - blk * BLOCK_R, BLOCK_R).to(tl.float32)
-    row_off = (b * S + rows).to(tl.int64) * C
-    for c0 in range(0, C, BLOCK_C):
-        cols = c0 + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        m = rmask[:, None] & cmask[None, :]
-        v = tl.load(x_ptr + row_off[:, None] + cols[None, :], mask=m, other=0.0).to(tl.float32)
-        mean = tl.sum(v, axis=0) / n
-        d = tl.where(m, v - mean[None, :], 0.0)
-        out = (b * NB + blk) * C + cols
-        tl.store(mean_ptr + out, mean, mask=cmask)
-        tl.store(m2_ptr + out, tl.sum(d * d, axis=0), mask=cmask)
-
-
-# Program (b, g): merge the (mean, M2) pairs of group g (Chan's formula), then
-# write a = rstd*scale and b = bias - mean*a for its channels. total = S*GW.
-def _gn_finalize_kernel(mean_ptr, m2_ptr, scale_ptr, bias_ptr, a_ptr, b_ptr,
-                        S, C, NB, GW, total, eps,
-                        BLOCK_R: tl.constexpr, BLOCK_NB: tl.constexpr,
-                        BLOCK_GW: tl.constexpr):
-    b = tl.program_id(0)
-    g = tl.program_id(1)
-    lane = tl.arange(0, BLOCK_GW)
-    cmask = lane < GW
-    cols = g * GW + lane
-    acc = tl.zeros((BLOCK_NB, BLOCK_GW), tl.float32)
-    for i0 in range(0, NB, BLOCK_NB):
-        blks = i0 + tl.arange(0, BLOCK_NB)
-        m = (blks < NB)[:, None] & cmask[None, :]
-        cnt = tl.minimum(S - blks * BLOCK_R, BLOCK_R).to(tl.float32)
-        mu = tl.load(mean_ptr + (b * NB + blks[:, None]) * C + cols[None, :], mask=m, other=0.0)
-        acc += tl.where(m, mu * cnt[:, None], 0.0)
-    mean = tl.sum(tl.sum(acc, axis=1), axis=0) / total
-    acc = tl.zeros((BLOCK_NB, BLOCK_GW), tl.float32)
-    for i0 in range(0, NB, BLOCK_NB):
-        blks = i0 + tl.arange(0, BLOCK_NB)
-        m = (blks < NB)[:, None] & cmask[None, :]
-        cnt = tl.minimum(S - blks * BLOCK_R, BLOCK_R).to(tl.float32)
-        idx = (b * NB + blks[:, None]) * C + cols[None, :]
-        mu = tl.load(mean_ptr + idx, mask=m, other=0.0)
-        m2 = tl.load(m2_ptr + idx, mask=m, other=0.0)
-        dm = mu - mean
-        acc += tl.where(m, m2 + cnt[:, None] * dm * dm, 0.0)
-    var = tl.sum(tl.sum(acc, axis=1), axis=0) / total
-    rstd = 1.0 / tl.sqrt(var + eps)
-    sc = tl.load(scale_ptr + cols, mask=cmask, other=0.0)
-    bi = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
-    a = rstd * sc
-    tl.store(a_ptr + b * C + cols, a, mask=cmask)
-    tl.store(b_ptr + b * C + cols, bi - mean * a, mask=cmask)
-
 
 # out = silu(x * a[b, c] + b[b, c]) over the flat channels-last tensor; SC = S*C.
 def _gn_silu_apply_kernel(x_ptr, a_ptr, b_ptr, out_ptr, N, SC, C, BLOCK: tl.constexpr):
@@ -158,13 +114,52 @@ def _kernels() -> SimpleNamespace:
     global triton, tl
     import triton
     import triton.language as tl
-    return SimpleNamespace(partial=triton.jit(_gn_partial_kernel),
-                           finalize=triton.jit(_gn_finalize_kernel),
-                           apply=triton.jit(_gn_silu_apply_kernel))
+    return SimpleNamespace(apply=triton.jit(_gn_silu_apply_kernel))
 
 
-_BLOCK_R = 128     # rows per statistics block
-_BLOCK_C = 64      # channels per statistics tile
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_STATS_THREADS = 256     # csrc/gn_stats.cu THREADS
+_MAX_BLOCKS = 256        # row blocks a sample: the last block merges this many
+_IN_BLOCK = 32 << 10     # bytes of a (sample, channel chunk) that one block reads and merges
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_plan(S: int, C: int, num_groups: int, esize: int,
+             sms: int = _build.H100_SMS) -> Tuple[int, int]:
+    """The statistics kernel's block: CC channels (the largest multiple of 8
+    and of the group width that divides C, at most 256) by R rows (about
+    1/(2 * sms) of the input, two blocks an SM; 16-64 KB a block, at most
+    256 blocks a sample, a multiple of the rows a block reads in parallel).
+    Up to 32 KB a channel chunk, R >= S: one block covers every row of its
+    channels and merges in the block."""
+    gw = C // num_groups
+    cands = [cc for cc in range(8, min(C, 256) + 1, 8) if C % cc == 0 and cc % gw == 0]
+    if C % 8 or not cands:
+        raise ValueError(f'the statistics kernel needs C % 8 == 0 and a group width dividing '
+                         f'a multiple of 8 up to 256; got C={C}, {num_groups} groups')
+    CC = cands[-1]
+    rp = _STATS_THREADS // (CC // 8)
+    if S * CC * esize <= _IN_BLOCK:
+        return CC, -(-S // rp) * rp
+    target = min(max(S * C * esize // (2 * sms), 16 << 10), 64 << 10)
+    R = max(rp, -(-target // (CC * esize * rp)) * rp, -(-S // (_MAX_BLOCKS * rp)) * rp)
+    return CC, R
+
+
+_scratch = {}      # (device, stream) -> (workspace, ticket)
+
+
+def _stats_scratch(device, stream: int, numel: int):
+    """The merge's workspace and ticket. Calls on one stream run in order and
+    share them (the last block leaves the ticket at 0); another stream gets
+    its own."""
+    work, ticket = _scratch.get((device, stream), (None, None))
+    if work is None or work.numel() < numel:
+        work = torch.empty(max(numel, 1 << 16), device=device, dtype=torch.float32)
+        if ticket is None:
+            ticket = torch.zeros(1, device=device, dtype=torch.int32)
+        _scratch[(device, stream)] = (work, ticket)
+    return work, ticket
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int):
@@ -182,31 +177,42 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups:
                            'torch.inference_mode() or torch.no_grad()')
 
 
+def _gn_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
+              eps: float, stream: int, round_bf16: bool = False):
+    """One launch of ``csrc/gn_stats.cu`` on ``stream`` (x's device current):
+    fp32 ``a, b`` (B, C), and with ``round_bf16`` (fp32 x only) x rounded to
+    bf16 as well, else None."""
+    _check(x, scale, bias, num_groups)
+    B, C = x.shape[0], x.shape[-1]
+    S = x.numel() // (B * C)
+    CC, R = _gn_plan(S, C, num_groups, x.element_size(), _build.sm_count(x.device.index or 0))
+    if x.data_ptr() % 16:
+        raise ValueError('x must be 16-byte aligned')
+    if round_bf16 and x.dtype != torch.float32:
+        raise ValueError('only an fp32 x is rounded to bf16')
+    work, ticket = _stats_scratch(x.device, stream, B * -(-S // R) * num_groups * 2)
+    a, b = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
+    xb = torch.empty(x.shape, device=x.device, dtype=torch.bfloat16) if round_bf16 else None
+    err = _build.lib().gn_stats(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], scale.float().contiguous().data_ptr(),
+        bias.float().contiguous().data_ptr(), a.data_ptr(), b.data_ptr(), work.data_ptr(),
+        ticket.data_ptr(), xb.data_ptr() if xb is not None else None, B, S, C, num_groups, CC, R,
+        float(eps), stream)
+    _build.check(err, 'gn_affine')
+    gn_affine.launches += 1
+    return a, b, xb
+
+
 def gn_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               num_groups: int = 32, eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(B, C) fp32 ``a, b`` with ``GroupNorm(x) = x*a + b``; x is
-    channels-last (B, ..., C) in any float dtype."""
+    channels-last (B, ..., C) in any float dtype. One launch of
+    ``csrc/gn_stats.cu`` on CUDA, with a scratch workspace and ticket of
+    the current stream's own."""
     if not use_kernel('gn_affine', x, scale, bias):
         return gn_affine_reference(x, scale, bias, num_groups, eps)
-    _check(x, scale, bias, num_groups)
-    k = _kernels()
-    B, C = x.shape[0], x.shape[-1]
-    S = x.numel() // (B * C)
-    NB = -(-S // _BLOCK_R)
-    GW = C // num_groups
-    mean = torch.empty((B, NB, C), device=x.device, dtype=torch.float32)
-    m2 = torch.empty_like(mean)
-    a = torch.empty((B, C), device=x.device, dtype=torch.float32)
-    b = torch.empty_like(a)
     with torch.cuda.device(x.device):
-        k.partial[(B, NB)](x, mean, m2, S, C, NB, BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C,
-                           num_warps=4)
-        k.finalize[(B, num_groups)](mean, m2, scale.float().contiguous(),
-                                    bias.float().contiguous(), a, b, S, C, NB, GW,
-                                    float(S * GW), eps,
-                                    BLOCK_R=_BLOCK_R, BLOCK_NB=256,
-                                    BLOCK_GW=triton.next_power_of_2(GW), num_warps=4)
-    gn_affine.launches += 1
+        a, b, _ = _gn_stats(x, scale, bias, num_groups, eps, torch.cuda.current_stream().cuda_stream)
     return a, b
 
 
@@ -218,8 +224,7 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """GroupNorm(num_groups) + SiLU over channels-last x; output in x's dtype."""
     if not use_kernel('groupnorm_silu', x, scale, bias):
         return groupnorm_silu_reference(x, scale, bias, num_groups, eps)
-    _check(x, scale, bias, num_groups)
-    a, b = gn_affine(x, scale, bias, num_groups, eps)
+    a, b = gn_affine(x, scale, bias, num_groups, eps)     # checks x, scale and bias
     out = torch.empty_like(x)
     N = x.numel()
     B, C = x.shape[0], x.shape[-1]

@@ -27,6 +27,7 @@ kernel or raises. It counts its launches in ``ancestral_update.launches``.
 from __future__ import annotations  # kernel annotations stay strings until Triton reads them
 
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -49,6 +50,13 @@ def ancestral_update_reference(x: torch.Tensor, eps_hat: torch.Tensor,
     x_mean = (x + beta * score) / torch.sqrt(1.0 - beta) * mask
     x_new = (x_mean + torch.sqrt(beta) * noise) * mask
     return x_new, x_mean
+
+
+def ancestral_update_cost(x_shape, mask_shape) -> Tuple[float, float]:
+    """(FLOP, bytes) of one call: 8 fp32 operations an element; x, eps_hat,
+    noise and the mask read once, x and x_mean written once (fp32)."""
+    n, nm = math.prod(x_shape), math.prod(mask_shape)
+    return 8.0 * n, 4.0 * (5 * n + nm)
 
 
 # Flat channels-last tensors of N elements, C channels, S voxels per sample;

@@ -31,6 +31,8 @@ rasterizer re-derives barycentrics with autograd), so there is no backward.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import _build
@@ -99,6 +101,16 @@ def tile_zmin_reference(cand: torch.Tensor, tile_tris: torch.Tensor,
         best_t = torch.where(upd, ct, best_t)
     best_t = torch.where(best_z < BIG, best_t, torch.full_like(best_t, -1))
     return best_t.view(N, TILE, TILE), best_z.view(N, TILE, TILE)
+
+
+def tile_zmin_cost(cand: torch.Tensor, tile_tris: torch.Tensor) -> Tuple[float, float]:
+    """(FLOP, bytes) of one call on these inputs: the three edge functions
+    (21 fp32 operations) at every pixel for every live candidate (id >= 0,
+    counted from the data); cand, ids and the depth floor read once, ids and
+    z written once."""
+    N, K, _ = cand.shape
+    live = int((tile_tris >= 0).sum())
+    return 21.0 * live * TILE * TILE, float(N * K * (9 + 1) * 4 + N * TILE * TILE * 3 * 4)
 
 
 def tile_zmin(cand: torch.Tensor, tile_tris: torch.Tensor, z_floor_tiles: torch.Tensor,

@@ -84,7 +84,7 @@ def test_extract_grid_matches_jax(grids, tmp_path):
     tg, jtg = grids
     g = np.moveaxis(sphere_grid(np.random.default_rng(3)), -1, 0)
     jv, jf = jax_extract_grid(g, jtg, str(tmp_path / 'jax.obj'), remesh=False)
-    v, f = extract_grid(g, tg, str(tmp_path / 'port.obj'), remesh=False)
+    v, f = extract_grid(g, tg, str(tmp_path / 'port.obj'), remesh=False, device='cpu')
     np.testing.assert_array_equal(f, jf)
     np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
     rv, rf = read_obj(str(tmp_path / 'port.obj'))

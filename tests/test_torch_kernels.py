@@ -72,14 +72,59 @@ def test_groupnorm_kernels_match_plain(cuda, rng, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_gn_silu_conv3d_kernel_matches_plain(cuda, rng, dtype):
-    """Relative L2 error against the plain bf16 composition at most 1e-2."""
-    x, sc, bi, k, cb = (_t(a).to(cuda) for a in _gsc_inputs(rng, 2, 5, 6, 7, 64, 32))
+@pytest.mark.parametrize('shape,dtype,in_block', [
+    ((1, 32, 32, 32, 256), torch.bfloat16, False),     # many blocks: the last-block merge
+    ((2, 16, 16, 16, 768), torch.float32, False),      # the up path's fp32 sums, 192-channel blocks
+    ((1, 4, 4, 4, 128), torch.bfloat16, True),         # one block a channel chunk: in-block merge
+    ((2, 4, 4, 4, 1024), torch.float32, False),
+])
+def test_gn_affine_one_launch_deterministic(cuda, rng, shape, dtype, in_block):
+    """gn_stats against its plain version within 1e-5, in one launch a call,
+    and bit-equal from one run to the next (the merge order is fixed)."""
+    from meshdiffusion_tpu_torch.ops.groupnorm import _gn_plan
+    B, C = shape[0], shape[-1]
+    S = int(np.prod(shape[1:-1]))
+    x = (_t(rng.normal(size=shape).astype(np.float32)) * 2 + 0.5).to(cuda, dtype)
+    sc = _t(1.0 + 0.1 * rng.normal(size=(C,)).astype(np.float32)).to(cuda)
+    bi = _t(0.1 * rng.normal(size=(C,)).astype(np.float32)).to(cuda)
+    assert (_gn_plan(S, C, 32, x.element_size())[1] >= S) == in_block
+    with torch.inference_mode():
+        n0 = ops.gn_affine.launches
+        a, b = ops.gn_affine(x, sc, bi)
+        a2, b2 = ops.gn_affine(x, sc, bi)
+        ra, rb = ops.gn_affine_reference(x, sc, bi)
+    assert ops.gn_affine.launches == n0 + 2
+    torch.testing.assert_close(a, ra, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b, rb, rtol=1e-5, atol=1e-5)
+    assert torch.equal(a, a2) and torch.equal(b, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,dtype', [
+    ((2, 5, 6, 7, 64, 32), torch.float32),
+    ((2, 5, 6, 7, 64, 32), torch.bfloat16),
+    ((1, 9, 10, 12, 128, 128), torch.bfloat16),      # ragged edges of the 4x8x8 tile
+    ((1, 9, 10, 12, 128, 128), torch.float32),
+    ((1, 8, 8, 8, 384, 128), torch.float32),         # the up path's odd width
+    ((1, 6, 7, 5, 96, 64), torch.bfloat16),          # a zero-padded 32-channel tail chunk
+    ((1, 16, 16, 16, 256, 256), torch.bfloat16),     # 128 x 256 tiling, split
+    ((1, 8, 8, 8, 1024, 512), torch.float32),
+    ((1, 4, 4, 4, 1024, 512), torch.bfloat16),       # 64 x 256 tiling, N split, many splits
+    ((1, 4, 4, 4, 1024, 512), torch.float32),
+    ((2, 4, 4, 4, 512, 512), torch.bfloat16),
+])
+def test_gn_silu_conv3d_kernel_matches_plain(cuda, rng, shape, dtype):
+    """Relative L2 error against the plain bf16 composition at most 1e-2,
+    finite, and bit-equal from one run to the next (split-K sums in split
+    order)."""
+    x, sc, bi, k, cb = (_t(a).to(cuda) for a in _gsc_inputs(rng, *shape))
     with torch.inference_mode():
         y = ops.gn_silu_conv3d(x.to(dtype), sc, bi, k, cb)
+        y2 = ops.gn_silu_conv3d(x.to(dtype), sc, bi, k, cb, packed=ops.pack_conv_weights(k))
         r = ops.gn_silu_conv3d_reference(x.to(dtype), sc, bi, k, cb)
+    assert torch.isfinite(y).all()
     assert (y.float() - r.float()).norm() / r.float().norm() < 1e-2
+    assert torch.equal(y, y2)
 
 
 @pytest.mark.cuda

@@ -107,14 +107,16 @@ def test_gn_silu_conv3d_plain_matches_jax(rng, shape):
     (1, 16, 16, 16, 768, 256), (1, 8, 8, 8, 1024, 512), (1, 4, 4, 4, 512, 512),
     (1, 4, 4, 4, 1024, 512), (2, 5, 6, 7, 64, 32), (4, 64, 64, 64, 128, 128)])
 def test_conv_launch_plan(shape):
-    """The brick holds at most 128 voxels within the volume, and the split
-    covers every 32-channel chunk with none empty."""
+    """The output tile holds at most its tiling's voxels within the volume,
+    shared memory fits, and the split covers every k-step (27 taps x
+    64-channel chunks) with none empty."""
+    from meshdiffusion_tpu_torch.ops.gn_silu_conv import _TILINGS, SMEM_LIMIT
     B, D, H, W, C, O = shape
-    TD, TH, TW, s = _plan(*shape)
-    assert TD * TH * TW <= 128 and TD <= D and TH <= H and TW <= W
-    chunks = C // 32
-    per = -(-chunks // s)
-    assert 1 <= s <= chunks and s * per >= chunks and (s - 1) * per < chunks
+    p = _plan(*shape)
+    assert p.TD * p.TH * p.TW <= _TILINGS[p.tiling][0] and p.smem <= SMEM_LIMIT
+    assert p.TD <= D and p.TH <= H and p.TW <= W
+    assert p.KS == 27 * -(-C // 64)
+    assert 1 <= p.splits <= p.KS and p.splits * p.per >= p.KS and (p.splits - 1) * p.per < p.KS
 
 
 def test_wrappers_route_by_device(rng):

@@ -1,0 +1,206 @@
+"""The port's kernel launch plans, weight layout, roofline counts and entry
+point devices, in pure Python on the CPU (no card, no JAX).
+
+* ``gn_silu_conv3d``'s plan at every conv shape of the res64 and res128
+  U-Nets (taken from a forward on the meta device), batch 1 and 4: every
+  output voxel in exactly one tile, every work item one (tile, N block,
+  split), the splits a partition of the k-steps with none empty, shared
+  memory within the H100's 232,448 bytes.
+* the statistics kernel's plan at every GroupNorm input of a res64 forward.
+* ``pack_conv_weights`` against the swizzle formula the wgmma descriptor reads.
+* each kernel's ``*_cost`` helper against counts made by hand.
+* ``create_model``, ``extract_grid`` and ``extract_batch`` run on the card
+  unless told otherwise, and every CPU test says ``device='cpu'``.
+"""
+
+import ast
+import collections
+import functools
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from meshdiffusion_tpu_torch import ops
+from meshdiffusion_tpu_torch.config import get_config
+from meshdiffusion_tpu_torch.models import get_model
+from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
+from meshdiffusion_tpu_torch.ops.gn_silu_conv import (_TILINGS, SMEM_LIMIT, _plan,
+                                                      gn_silu_conv3d_bound_ms, pack_conv_weights)
+from meshdiffusion_tpu_torch.ops.groupnorm import _gn_plan
+from meshdiffusion_tpu_torch.ops.roofline import bound_ms
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_calls(name: str):
+    """{(x shape, x dtype, O): calls} of gn_silu_conv3d in one batch-1
+    forward of the full-width U-Net ``name``, on the meta device."""
+    cfg = get_config(name)
+    R = cfg.data.image_size
+    with torch.device('meta'):
+        model = get_model(cfg.model.name).from_config(cfg, kernels=False)
+    calls = collections.Counter()
+
+    def hook(mod, args):
+        x = args[0]
+        calls[(tuple(x.shape), x.dtype, mod.out_ch)] += 1
+        calls[(tuple(x.shape[:-1]) + (mod.out_ch,), mod.dtype, mod.out_ch)] += 1
+
+    for m in model.modules():
+        if isinstance(m, ResnetBlockDDPM):
+            m.register_forward_pre_hook(hook)
+    with torch.inference_mode():
+        model(torch.empty((1, R, R, R, 4), device='meta'), torch.empty((1,), device='meta'),
+              torch.empty((1, R, R, R, 1), device='meta'))
+    return dict(calls)
+
+
+def _covers_once(n: int, t: int) -> bool:
+    count = np.zeros(n, int)
+    for o in range(0, n, t):
+        count[o:o + t] += 1
+    return bool((count == 1).all())
+
+
+@pytest.mark.parametrize('name,batch', [('res64', 1), ('res64', 4), ('res128', 1), ('res128', 4)])
+def test_conv_plan_covers_every_voxel_once(name, batch):
+    calls = _conv_calls(name)
+    assert sum(calls.values()) == {'res64': 74, 'res128': 64}[name]
+    for (xs, _, O) in calls:
+        _, D, H, W, C = xs
+        p = _plan(batch, D, H, W, C, O)
+        bm = _TILINGS[p.tiling][0]
+        assert p.TD * p.TH * p.TW <= bm and p.smem <= SMEM_LIMIT, (xs, p)
+        assert all(_covers_once(n, t) for n, t in ((D, p.TD), (H, p.TH), (W, p.TW))), (xs, p)
+        assert p.tiles == batch * -(-D // p.TD) * -(-H // p.TH) * -(-W // p.TW)
+        # the kernel's decode: item -> (tile, N block, split), each exactly once
+        seen = {(i % p.tiles, (i // p.tiles) % p.NB, i // p.tiles // p.NB) for i in range(p.items)}
+        assert len(seen) == p.items == p.tiles * p.NB * p.splits
+        assert max(s for _, _, s in seen) == p.splits - 1
+        # the splits partition the k-steps, none empty
+        ks = [k for s in range(p.splits) for k in range(s * p.per, min(p.KS, (s + 1) * p.per))]
+        assert ks == list(range(p.KS)) and (p.splits - 1) * p.per < p.KS, (xs, p)
+        assert 1 <= p.grid <= 132 and p.grid <= p.items
+
+
+@pytest.mark.parametrize('shape', [(1, 8, 8, 8, 48, 64), (1, 8, 8, 8, 100, 64),
+                                   (1, 8, 8, 8, 64, 12), (1, 8, 8, 8, 0, 64)])
+def test_conv_plan_raises_on_shapes_it_does_not_take(shape):
+    with pytest.raises(ValueError):
+        _plan(*shape)
+
+
+def test_gn_stats_plan_at_every_groupnorm_input():
+    """CC divides C into whole groups in 16-byte loads, at most 256
+    channels; R a whole number of the block's parallel rows; at most 256
+    row blocks a sample (the last block merges them); the smallest inputs
+    merge in one block."""
+    shapes = {(xs, dt) for xs, dt, _ in _conv_calls('res64')} | {((1, 64, 64, 64, 128), torch.float32)}
+    for xs, dt in shapes:
+        S, C = int(np.prod(xs[1:-1])), xs[-1]
+        esize = torch.empty((), dtype=dt).element_size()
+        CC, R = _gn_plan(S, C, 32, esize)
+        rp = 256 // (CC // 8)
+        assert CC % 8 == 0 and C % CC == 0 and CC % (C // 32) == 0 and CC <= 256
+        assert R % rp == 0 and -(-S // R) <= 256
+    assert _gn_plan(64, 128, 32, 2)[1] >= 64            # 4^3 x 128 bf16: one block
+    assert _gn_plan(64 ** 3, 128, 32, 2)[1] < 64 ** 3
+
+
+def test_pack_conv_weights_is_the_swizzled_tile_image():
+    """Tile (N block, chunk, tap) holds W[tap, chunk*64 + k, block*128 + n]
+    at n*64 + ((k//8) ^ (n%8))*8 + k%8, zero past C and O."""
+    rng = np.random.default_rng(0)
+    C, O = 96, 136                     # a zero-padded tail chunk and N block
+    k = torch.from_numpy(rng.standard_normal((3, 3, 3, C, O)).astype(np.float32))
+    packed = pack_conv_weights(k).float().view(2, 2, 27, 128 * 64)
+    kb = F.pad(k.reshape(27, C, O).to(torch.bfloat16).float(), (0, 256 - O, 0, 128 - C))
+    n, kk = torch.arange(128)[:, None], torch.arange(64)[None, :]
+    pos = (n * 64 + ((kk // 8) ^ (n % 8)) * 8 + kk % 8).reshape(-1)
+    for nb in range(2):
+        for ck in range(2):
+            tile = kb[:, ck * 64:(ck + 1) * 64, nb * 128:(nb + 1) * 128].permute(0, 2, 1)
+            want = torch.zeros(27, 128 * 64)
+            want[:, pos] = tile.reshape(27, -1)
+            assert torch.equal(packed[nb, ck], want)
+
+
+def _head_and_ancestral_shapes():
+    return (1, 64, 64, 64, 128), (1, 64, 64, 64, 4), (1, 64, 64, 64, 1)
+
+
+@pytest.mark.parametrize('kernel', ['gn_silu_conv3d', 'gn_affine', 'groupnorm_silu',
+                                    'ancestral_update', 'tile_zmin'])
+def test_cost_helpers_match_hand_counts(kernel):
+    """FLOP and bytes behind each kernel's bound_ms, against counts made by
+    hand for a res64 forward (989 TFLOP/s bf16, 67 fp32, 3.35 TB/s)."""
+    calls = _conv_calls('res64')
+    head, xs4, ms4 = _head_and_ancestral_shapes()
+    if kernel == 'gn_silu_conv3d':
+        # 2 R^3 27 C O a call: 5.13 TFLOP and a 5.26 ms bound over the 74 calls
+        flop = sum(n * ops.gn_silu_conv3d_cost(xs, dt, O)[0] for (xs, dt, O), n in calls.items())
+        ms = sum(n * gn_silu_conv3d_bound_ms(xs, dt, O)[0] for (xs, dt, O), n in calls.items())
+        assert abs(flop / 5.13e12 - 1) < 2e-3 and abs(ms / 5.26 - 1) < 2e-3, (flop, ms)
+        assert gn_silu_conv3d_bound_ms((1, 64, 64, 64, 128), torch.bfloat16, 128) \
+            == pytest.approx((2 * 64 ** 3 * 27 * 128 * 128 / 989e12 * 1e3, 'operations'))
+        assert gn_silu_conv3d_bound_ms((1, 4, 4, 4, 512), torch.bfloat16, 512)[1] == 'bytes'
+    elif kernel == 'gn_affine':
+        # x read once: 0.566 ms over the 74 conv inputs, 0.04 ms at the head (fp32)
+        convs = sum(n * bound_ms(*ops.gn_affine_cost(xs, dt))[0] for (xs, dt, O), n in calls.items())
+        at_head = bound_ms(*ops.gn_affine_cost(head, torch.float32))[0]
+        assert abs(convs / 0.566 - 1) < 5e-3 and abs(at_head / 0.04 - 1) < 0.01, (convs, at_head)
+    elif kernel == 'groupnorm_silu':
+        flop, nbytes = ops.groupnorm_silu_cost(head, torch.float32)
+        assert nbytes == 2 * 64 ** 3 * 128 * 4 + 2 * 128 * 4 and flop == 8 * 64 ** 3 * 128
+    elif kernel == 'ancestral_update':
+        # x, eps, noise and the mask read, x and x_mean written: about 6.6 us
+        ms, by = bound_ms(*ops.ancestral_update_cost(xs4, ms4))
+        assert by == 'bytes' and abs(ms / 6.57e-3 - 1) < 1e-3, ms
+    else:
+        cand = torch.zeros((2, 3, 9))
+        ids = torch.tensor([[0, -1, 2], [1, 1, -1]], dtype=torch.int32)
+        flop, nbytes = ops.tile_zmin_cost(cand, ids)
+        assert flop == 21 * 4 * 1024 and nbytes == 2 * 3 * 10 * 4 + 2 * 1024 * 12
+
+
+@pytest.mark.parametrize('entry', ['create_model', 'extract_grid', 'extract_batch'])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
+    """Called with no device, ``create_model`` and the extraction
+    functions ask for the card, and raise where CUDA is missing instead of
+    falling back."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    from meshdiffusion_tpu_torch import extract
+    from meshdiffusion_tpu_torch.models import create_model
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        if entry == 'create_model':
+            create_model(get_config('res64'))
+        elif entry == 'extract_grid':
+            extract.extract_grid(np.zeros((4, 8, 8, 8), np.float32), None, str(tmp_path / 'a.obj'))
+        else:
+            np.save(tmp_path / 's.npy', np.zeros((1, 4, 8, 8, 8), np.float32))
+            extract.extract_batch(str(tmp_path / 's.npy'), str(tmp_path), resolution=8,
+                                  tet_root=str(tmp_path))
+
+
+def test_cpu_tests_name_their_device():
+    """Every call of the port's create_model, extract_grid or extract_batch
+    in the port's test files passes ``device=`` (the default is the card)."""
+    missing = []
+    for path in sorted(glob.glob(os.path.join(HERE, 'test_torch_*.py'))):
+        tree = ast.parse(open(path).read())
+        names = {a.asname or a.name for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and (node.module or '').startswith('meshdiffusion_tpu_torch')
+                 for a in node.names if a.name in ('create_model', 'extract_grid', 'extract_batch')}
+        for fn in ast.walk(tree):
+            if not isinstance(fn, ast.FunctionDef) or fn.name == 'test_entry_points_default_to_cuda':
+                continue          # that test leaves the device out on purpose
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
+                        and node.func.id in names and not any(k.arg == 'device' for k in node.keywords):
+                    missing.append(f'{os.path.basename(path)}:{node.lineno}')
+    assert not missing, missing

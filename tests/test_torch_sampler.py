@@ -60,7 +60,7 @@ def test_uncond_sampler_matches_jax():
                            jax.random.key(seed), params=params)
     want = np.asarray(want)
 
-    model = create_model(pcfg)
+    model = create_model(pcfg, device='cpu')
     model.load_state_dict(from_jax_params(params, pcfg), strict=True)
     tmask = torch.from_numpy(mask)
     noise = replayed_jax_noise(seed, shape, N - 1)

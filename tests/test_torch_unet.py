@@ -69,7 +69,7 @@ def test_unet_forward_matches_jax(name):
     apply = jax.jit(lambda p, *a: jmodel.apply(p, *a, train=False))
     want = np.asarray(apply(params, jnp.asarray(x), jnp.asarray(labels), jnp.asarray(mask)))
 
-    model = create_model(pcfg)
+    model = create_model(pcfg, device='cpu')
     model.load_state_dict(from_jax_params(params, pcfg), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x), torch.from_numpy(labels),
@@ -86,7 +86,7 @@ def test_weight_layout_round_trip(name):
     from_jax_params of a flax-initialised tree loads with strict=True."""
     jcfg, pcfg = tiny_configs(name)
     _, params = jax_params(name)
-    model = create_model(pcfg)
+    model = create_model(pcfg, device='cpu')
     model.load_state_dict(from_jax_params(params, pcfg), strict=True)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     back = convert_model_state(sd, jcfg)
@@ -162,8 +162,8 @@ def test_cached_conv_weights_follow_the_parameters():
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, R, R, R, 4))
                          .astype(np.float32))
     labels = torch.tensor([7.0])
-    model = create_model(pcfg)
-    fresh = create_model(pcfg)
+    model = create_model(pcfg, device='cpu')
+    fresh = create_model(pcfg, device='cpu')
     with torch.no_grad():
         model.load_state_dict(from_jax_params(params_a, pcfg))
         model(x, labels)
