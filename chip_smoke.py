@@ -34,15 +34,24 @@ iterations only. Phases, in order:
    2.0) then ``main --mode extract``, with every launch counter set to 0
    just before and read just after the generation run;
 6. the tile z-test kernel against its plain version at the fit path's
-   shapes: both depth layers of a 512^2, batch-4 render of the GT mesh
-   (a torus united with a box, marching tets on the 64 grid, written with
-   geometry/obj_io.py), ids exactly equal, z within 1e-6;
-7. the entry point ``main --mode fit_dmtets`` on that mesh (10 iterations
+   shapes, every depth layer in one launch, in three cases of a 512^2,
+   batch-4 render: the GT mesh (a torus united with a box, marching tets
+   on the 64 grid, written with geometry/obj_io.py) binned at the GT
+   renders' capacity K 256 + Kg 64, the same binned at 4096 + 64 (the
+   capacity a fit grows to), and the fit's own pass-1 start (the noise-soup
+   mesh of ``DMTetFitter.init_state`` on the 64 grid) at 4096 + 64; ids
+   equal and z bit-equal on both layers, with device time (torch.profiler)
+   and CUDA-event time, the bound, the live (candidate, tile) pairs and the
+   heaviest tile's count of each; the device time counts only when
+   torch.profiler recorded at least half the launches of its window and it
+   fits in the CUDA-event time, else it is printed as not measured;
+7. the entry point ``main --mode fit_dmtets`` on the GT mesh (10 iterations
    a pass, a pool of 4 GT view batches), every launch counter set to 0
-   just before and read just after: tile_zmin runs once a depth layer for
-   all 4 views, so 2 x (GT renders + fit steps run); both dicts written
-   with the JAX package's keys and shapes, signs in pass 2, every loss
-   finite;
+   just before and read just after: tile_zmin runs once a render, both
+   layers of all 4 views, so once per GT render and fit step run; both
+   dicts written with the JAX package's keys and shapes, signs in pass 2,
+   every loss finite; seconds a step run and the peak device memory above
+   what was held before the fit;
 8. one JSON line of kernel results (each kernel's launches from the path
    that runs it, its launches a forward or fit step, its bound and its
    ``library_ms``), the card's name and power limit, and the last line
@@ -84,9 +93,8 @@ def _time_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters=10) -> dict:
-    """Device time a call of each kernel that ``fn`` launches, from
-    torch.profiler (CUPTI): {kernel name: ms a call of fn}, warm."""
+def _profile(fn, iters):
+    """torch.profiler's (CUPTI) averages by name over ``iters`` warm calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -95,11 +103,20 @@ def _device_ms(fn, iters=10) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def _dev_us(e) -> float:
+    return getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0)
+
+
+def _device_ms(fn, iters=10) -> dict:
+    """Device time a call of each kernel that ``fn`` launches: {kernel name:
+    ms a call of fn}, warm."""
     out = {}
-    for e in prof.key_averages():
-        t = getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0)
-        if t:
-            out[e.key] = out.get(e.key, 0.0) + t / iters / 1000.0
+    for e in _profile(fn, iters):
+        if _dev_us(e):
+            out[e.key] = out.get(e.key, 0.0) + _dev_us(e) / iters / 1000.0
     return out
 
 
@@ -111,6 +128,27 @@ _KERNEL_NAMES = {
     'gn_silu_conv3d': ('gn_silu_conv3d_kernel', 'splitk_reduce_kernel'),
     'tile_zmin': ('tile_zmin_kernel',),
 }
+
+
+def _kernel_ms(fn, wrapper: str, per_call: int = 1, iters: int = 10, tries: int = 3):
+    """Device time a call of ``fn`` spends in ``wrapper``'s kernel, which it
+    launches ``per_call`` times, from the first of ``tries`` torch.profiler
+    windows that recorded at least half the launches it issued: (the mean
+    over the recorded launches times ``per_call``, launches recorded,
+    launches issued). (The profiler has dropped some or all of the
+    cluster-launched z-test's records in a window, so the sum over a window
+    undercounts.) The time is None, not measured, if no window did."""
+    issued, n = iters * per_call, 0
+    for _ in range(tries):
+        hits = [e for e in _profile(fn, iters) if any(k in e.key for k in _KERNEL_NAMES[wrapper])]
+        n = sum(e.count for e in hits)
+        if 2 * n >= issued:
+            return sum(_dev_us(e) for e in hits) / n * per_call / 1000.0, n, issued
+    return None, n, issued
+
+
+def _ms(t) -> str:
+    return 'not measured' if t is None else f'{t:.4f}'
 
 
 def _of(prof: dict, wrapper: str) -> float:
@@ -142,7 +180,7 @@ class _Records(logging.Handler):
             self.fit_losses.append(record.fit_loss)
 
 
-def _gt_mesh(path: str) -> None:
+def gt_mesh(path: str) -> None:
     """The fit target: a torus united with a box, as marching tets of its
     SDF on the bundled 64 tet grid, written as an .obj."""
     import numpy as np
@@ -158,6 +196,87 @@ def _gt_mesh(path: str) -> None:
     sdf = -np.minimum(torus, box).astype(np.float32)
     v, f = compact_mesh(marching_tets(grid, torch.from_numpy(grid.verts), torch.from_numpy(sdf)))
     write_obj(path, v, f)
+
+
+def zmin_cases(gt_path: str, dev):
+    """The z-test's inputs in phase 6's three cases, each a render of
+    FitConfig's defaults (512^2, batch 4, Kg 64): [(name, K, zargs,
+    overflow)], ``zargs`` the arguments of ``ops.tile_zmin`` before ``res``
+    and ``overflow`` each view's (tile, global) binning overflow."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch.fitting.dataset import TargetRenderer
+    from meshdiffusion_tpu_torch.fitting.fit import FitConfig
+    from meshdiffusion_tpu_torch.fitting.geometry import DMTetFitter
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    from meshdiffusion_tpu_torch.render import mesh as mesh_mod
+    from meshdiffusion_tpu_torch.render import obj as obj_mod
+    from meshdiffusion_tpu_torch.render import ops as render_ops
+    from meshdiffusion_tpu_torch.render import rasterize as raster
+    fcfg = FitConfig()
+    B = fcfg.batch
+    ref = obj_mod.load_mesh(gt_path, dev)
+    ref = mesh_mod.auto_normals(mesh_mod.center_by_reference(ref, mesh_mod.aabb(ref.v_pos), 1.0))
+    ren = TargetRenderer(ref_mesh=ref, envlight=None, cam_radius=fcfg.cam_radius,
+                         train_res=fcfg.train_res)
+    _, mvp, _ = ren.random_cameras(B, np.random.default_rng(0))
+    mvp = torch.as_tensor(mvp, device=dev)
+    fitter = DMTetFitter(grid=TetGrid.load(fcfg.dmtet_grid), scale=fcfg.mesh_scale,
+                         deform_scale=fcfg.first_stage_deform)
+    soup = fitter.get_mesh(fitter.init_state(torch.Generator(device=dev).manual_seed(0), dev))
+    cases = []
+    for name, m, fmask, K in (('GT, K 256 + 64', ref, None, fcfg.raster_K),
+                              ('GT, K 4096 + 64', ref, None, 4096),
+                              ('noise-soup start, K 4096 + 64', soup, soup.face_mask, 4096)):
+        with torch.inference_mode():
+            # the live-face capacity the fit grows raster_live to for this mesh
+            live_cap = fcfg.raster_live
+            n_live = m.t_pos_idx.shape[0] if fmask is None else int(fmask.sum())
+            while live_cap < n_live:
+                live_cap *= 2
+            v_clip = render_ops.xfm_points(m.v_pos[None].expand(B, -1, -1), mvp)
+            bins = raster.ViewBins(*zip(*(raster.tile_candidates(
+                v_clip[b], m.t_pos_idx, fcfg.train_res, fmask, K, fcfg.raster_Kg, live_cap)
+                for b in range(B))))
+            zargs = (torch.stack(bins.coords), torch.cat(bins.tile_tris),
+                     torch.cat(bins.tile_counts), torch.stack(bins.global_tris),
+                     torch.stack(bins.global_count))
+            over = [(int(a), int(b)) for a, b in zip(bins.tile_over, bins.global_over)]
+        cases.append((name, K, zargs, over))
+    return cases
+
+
+FIT_ITERS, FIT_POOL = 10, 4     # phase 7: iterations a pass, GT view batches
+
+
+def fit_run(entry, rec, gt_path: str, out_dir: str):
+    """One ``main --mode fit_dmtets`` run through ``entry`` on the GT mesh,
+    FIT_ITERS iterations a pass and a pool of FIT_POOL GT view batches:
+    (written, peak device memory above what was held before it, the passes'
+    log records)."""
+    import torch
+    cfg_path = out_dir + '.json'
+    with open(cfg_path, 'w') as f:
+        json.dump({'target_pool': FIT_POOL, 'log_interval': 1}, f)
+    rec.fit_passes.clear()
+    rec.fit_losses.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    written = entry(['--mode', 'fit_dmtets', '--meta_path', gt_path, '--out_dir', out_dir,
+                     '--fit_config', cfg_path, '--iter', str(FIT_ITERS), '--device', 'cuda'])
+    torch.cuda.synchronize()
+    return written, torch.cuda.max_memory_allocated() - base, list(rec.fit_passes)
+
+
+def show_fit(who: str, passes, peak: int) -> None:
+    for pi, n_it, n_run, pass_s, pool_s in passes:
+        print(f'{who}fit pass {pi + 1}: {n_it} iterations, {n_run} steps run (capacity '
+              f'redos included), {pass_s:.3f} s, {pass_s / n_run:.3f} s per step run'
+              + (f' (GT pool of {FIT_POOL} view batches built in {pool_s:.3f} s, inside)'
+                 if pi == 0 else ''))
+    print(f'{who}fit peak device memory {peak / 2 ** 30:.3f} GiB above what was held '
+          f'before it')
 
 
 def main() -> int:
@@ -228,7 +347,7 @@ def main() -> int:
 
     out_dir = args.out or os.path.join(HERE, 'chip_smoke_out')
     os.makedirs(out_dir, exist_ok=True)
-    per_shape = []   # per-shape rows of phase 3, also written to out_dir/kernel_shapes.json
+    per_shape = []   # per-shape rows of phases 3 and 6, written to out_dir/kernel_shapes.json
     cfg = get_config('res64')
     R = cfg.data.image_size
     mask = torch.as_tensor(TetGrid.load(R).grid_mask(), device=dev)[None, ..., None]
@@ -385,8 +504,6 @@ def main() -> int:
           f'weighted by calls a forward: device {fwd_dev:.3f} ms against a bound of {fwd_bnd:.3f} ms')
     slower = [(r['x'], r['dtype'], r['O']) for r in k3 if r['ms'] >= r['plain_ms']]
     assert not slower, f'K3 slower than its plain version at {slower}'
-    with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
-        json.dump(per_shape, f, indent=1)
 
     # ---- 4. the full-width forward, kernels on against off ----
     with torch.inference_mode():
@@ -465,77 +582,79 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- 6. the tile z-test kernel at the fit path's shapes ----
-    from meshdiffusion_tpu_torch.fitting.dataset import TargetRenderer
     from meshdiffusion_tpu_torch.fitting.fit import FitConfig
-    from meshdiffusion_tpu_torch.render import mesh as mesh_mod
-    from meshdiffusion_tpu_torch.render import obj as obj_mod
-    from meshdiffusion_tpu_torch.render import ops as render_ops
-    from meshdiffusion_tpu_torch.render import rasterize as raster
     fcfg = FitConfig()
     H, W = fcfg.train_res
     B = fcfg.batch
     tmp = tempfile.mkdtemp(prefix='chip_smoke_fit_')
     try:
         gt = os.path.join(tmp, 'gt.obj')
-        _gt_mesh(gt)
-        ref = obj_mod.load_mesh(gt, dev)
-        ref = mesh_mod.auto_normals(mesh_mod.center_by_reference(ref, mesh_mod.aabb(ref.v_pos), 1.0))
-        ren = TargetRenderer(ref_mesh=ref, envlight=None, cam_radius=fcfg.cam_radius,
-                             train_res=fcfg.train_res)
-        _, mvp, _ = ren.random_cameras(B, np.random.default_rng(0))
-        with torch.inference_mode():
-            v_clip = render_ops.xfm_points(ref.v_pos[None].expand(B, -1, -1),
-                                           torch.as_tensor(mvp, device=dev))
-            per_view = [raster.tile_candidates(v_clip[b], ref.t_pos_idx, (H, W), None,
-                                               fcfg.raster_K, fcfg.raster_Kg) for b in range(B)]
-            cand = torch.stack([p[0] for p in per_view])          # (B, T, K + Kg, 9)
-            tt = torch.stack([p[1] for p in per_view])
-            T, Kt = tt.shape[1], tt.shape[2]
-            ntx = W // raster.TILE
-            z_floor, err, ms, pms, bnd = None, 0.0, 0.0, 0.0, 0.0
-            for layer in range(2):
-                zf = raster.floor_tiles(z_floor, B, (H, W), dev)
-                args = (cand.reshape(B * T, Kt, 9), tt.reshape(B * T, Kt), zf, ntx, T)
-                kt, kz = ops.tile_zmin(*args)
-                pt, pz = ops.tile_zmin_reference(*args)
-                bad = int((kt != pt).sum())
-                hit = pt >= 0
+        gt_mesh(gt)
+        for name, K, zargs, over in zmin_cases(gt, dev):
+            with torch.inference_mode():
+                call = lambda: ops.tile_zmin(*zargs, (H, W), num_layers=2)
+                kt, kz = call()
+                pt, pz = ops.tile_zmin_reference(*zargs, (H, W), num_layers=2)
+                hits = [int((pt[li] >= 0).sum()) for li in range(2)]
+                assert torch.equal(kt, pt) and torch.equal(kz, pz) and hits[0] > 10000, (name, hits)
                 zerr = float((kz - pz).abs().max())
-                assert bad == 0 and zerr <= 1e-6 and int(hit.sum()) > 10000, (layer, bad, zerr)
-                lm = _time_ms(lambda: ops.tile_zmin(*args), 20)
-                lp = _time_ms(lambda: ops.tile_zmin_reference(*args), 5)
-                b_ms, b_by = bound_ms(*ops.tile_zmin_cost(args[0], args[1]))
-                err, ms, pms, bnd = max(err, zerr), ms + lm, pms + lp, bnd + b_ms
-                print(f'tile_zmin layer {layer}: cand {tuple(args[0].shape)} (4 views x {T} '
-                      f'tiles): ids equal, {int(hit.sum())} pixels hit, z max_abs_err {zerr:.3e} '
-                      f'(bound 1e-6); kernel {lm:.4f} ms plain {lp:.3f} ms')
-                img = lambda t: t.view(B, H // raster.TILE, ntx, raster.TILE, raster.TILE) \
-                    .permute(0, 1, 3, 2, 4).reshape(B, H, W)
-                z_floor = torch.where(img(kt) >= 0, img(kz), raster.BIG)
-        record('tile_zmin', err, ms, pms, bnd, b_by)
-        print(f'tile_zmin both layers: kernel {ms:.4f} ms plain {pms:.3f} ms bound {bnd:.4f} ms '
-              f'({b_by}, this data\'s live candidates); GT render binning '
-              f'overflow (tile, global) {[(int(p[3]), int(p[4])) for p in per_view]}')
+                N = zargs[1].shape[0]
+                live = zargs[2].view(B, -1) + zargs[4][:, None]
+                pairs, heaviest = int(live.sum()), int(live.max())
+                ms = _time_ms(call, 20)
+                dms, seen, issued = _kernel_ms(call, 'tile_zmin')
+                # with the wrapper's sort of the tiles by live count; a call's
+                # device time cannot exceed its CUDA-event time
+                sort_ms = sum(t for k, t in _device_ms(call).items() if 'tile_zmin_kernel' not in k)
+                call_dev = None if dms is None else dms + sort_ms
+                check = ''
+                if call_dev is not None and call_dev > 1.05 * ms:
+                    check = f' (the profiler gave {dms:.4f} ms, more than the events allow)'
+                    dms = call_dev = None
+                pms = _time_ms(lambda: ops.tile_zmin_reference(*zargs, (H, W), num_layers=2), 3, 1)
+                # the second layer tests only the pixels the first hit; the
+                # count over every pixel is kept beside it for comparison
+                bnd, by = ops.tile_zmin_bound_ms(zargs[0], zargs[2], zargs[4], (H, W),
+                                                 num_layers=2, best_z=kz)
+                bnd_all = ops.tile_zmin_bound_ms(zargs[0], zargs[2], zargs[4], (H, W),
+                                                 num_layers=2)[0]
+                row = {'name': 'tile_zmin', 'case': name, 'tiles': N, 'K': K,
+                       'Kg': zargs[3].shape[1], 'faces': zargs[0].shape[1], 'pairs': pairs,
+                       'heaviest_tile': heaviest, 'hits': hits, 'ms': ms, 'device_ms': dms,
+                       'launches_recorded': [seen, issued], 'call_device_ms': call_dev,
+                       'plain_ms': pms, 'bound_ms': bnd, 'bound_by': by,
+                       'bound_every_pixel_ms': bnd_all, 'library_ms': None, 'overflow': over}
+                share = '' if dms is None else f', {100 * bnd / dms:.0f} % reached'
+                print(f'tile_zmin {name}: {B} views x {N // B} tiles, {zargs[0].shape[1]} faces a '
+                      f'view, {pairs} live (candidate, tile) pairs, the heaviest tile {heaviest}; '
+                      f'both layers in one launch: ids equal and z bit-equal to plain, {hits} '
+                      f'pixels hit; device {_ms(dms)} ms (profiler recorded {seen} of {issued} '
+                      f'launches{check}; with the sort {_ms(call_dev)}), CUDA events {ms:.4f} ms '
+                      f'(less the sort {ms - sort_ms:.4f}); plain {pms:.2f} ms; bound {bnd:.4f} ms '
+                      f'({by}{share}; {bnd_all:.4f} ms if the second layer tested every pixel); '
+                      f'binning overflow (tile, global) a view {over}')
+                if K == fcfg.raster_K:
+                    gt_out = (kt, kz)
+                elif name.startswith('GT'):
+                    # the K 256 lists again, in rows of K: what the padding alone costs
+                    cut = zargs[:2] + (zargs[2].clamp(max=fcfg.raster_K),) + zargs[3:]
+                    cut_call = lambda: ops.tile_zmin(*cut, (H, W), num_layers=2)
+                    ct, cz = cut_call()
+                    assert torch.equal(ct, gt_out[0]) and torch.equal(cz, gt_out[1]), name
+                    row['cut_device_ms'], seen, issued = _kernel_ms(cut_call, 'tile_zmin')
+                    print(f'  {name}: the K {fcfg.raster_K} lists in rows of {K}: the same ids '
+                          f'and z as at K {fcfg.raster_K}, device {_ms(row["cut_device_ms"])} ms '
+                          f'(profiler recorded {seen} of {issued} launches)')
+                per_shape.append(row)
+            record('tile_zmin', zerr, ms, pms, bnd, by)
 
         # ---- 7. the fit path through its entry point ----
-        iters, pool = 10, 4
-        cfg_path = os.path.join(tmp, 'fit.json')
-        with open(cfg_path, 'w') as f:
-            json.dump({'target_pool': pool, 'log_interval': 1}, f)
-        rec.fit_passes.clear()
-        rec.fit_losses.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        written = port_main(['--mode', 'fit_dmtets', '--meta_path', gt, '--out_dir',
-                             os.path.join(tmp, 'fit'), '--fit_config', cfg_path, '--iter',
-                             str(iters), '--device', 'cuda'])
-        torch.cuda.synchronize()
+        written, peak, passes = fit_run(port_main, rec, gt, os.path.join(tmp, 'fit'))
         fit_launches = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        assert len(written) == 1 and len(rec.fit_passes) == 2, (written, rec.fit_passes)
-        steps_run = sum(p[2] for p in rec.fit_passes)
-        expect = 2 * (pool + steps_run)       # one launch a depth layer: GT pool + fit steps
+        assert len(written) == 1 and len(passes) == 2, (written, passes)
+        steps_run = sum(p[2] for p in passes)
+        expect = FIT_POOL + steps_run         # one launch a render: GT pool + fit steps
         assert fit_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
                                 'gn_silu_conv3d': 0, 'tile_zmin': expect}, (fit_launches, expect)
         V = TetGrid.load(64).num_verts
@@ -548,21 +667,18 @@ def main() -> int:
             assert all(torch.isfinite(t).all() for t in d.values())
         assert set(fin['sdf'].unique().tolist()) <= {-1.0, 1.0}
         losses = [loss for _, _, loss in rec.fit_losses]
-        assert len(losses) >= 2 * (iters - 1) and all(np.isfinite(losses)), rec.fit_losses
-        for pi, n_it, n_run, pass_s, pool_s in rec.fit_passes:
-            print(f'fit pass {pi + 1}: {n_it} iterations, {n_run} steps run (capacity redos '
-                  f'included), {pass_s:.3f} s, {pass_s / n_run:.3f} s per step run'
-                  + (f' (GT pool of {pool} view batches built in {pool_s:.3f} s, inside)'
-                     if pi == 0 else ''))
+        assert len(losses) >= 2 * (FIT_ITERS - 1) and all(np.isfinite(losses)), rec.fit_losses
         first, last = rec.fit_losses[0], rec.fit_losses[-1]
+        show_fit('', passes, peak)
         print(f'fit_dmtets: V={V}, losses pass{first[0] + 1} iter {first[1]} {first[2]:.4f} -> '
-              f'pass{last[0] + 1} iter {last[1]} {last[2]:.4f}; peak device memory '
-              f'{peak / 2 ** 30:.2f} GiB; launches {fit_launches} (= 2 x ({pool} GT renders '
-              f'+ {steps_run} fit steps))')
+              f'pass{last[0] + 1} iter {last[1]} {last[2]:.4f}; launches {fit_launches} '
+              f'(= {FIT_POOL} GT renders + {steps_run} fit steps)')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- 8. results ----
+    with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
+        json.dump(per_shape, f, indent=1)
     meta = {
         'ancestral_update': ('triton', 'meshdiffusion_tpu_torch/ops/sampler_step.py',
                              'meshdiffusion_tpu/ops/sampler_step.py:52'),
@@ -578,9 +694,9 @@ def main() -> int:
     path_launches = dict(launches, tile_zmin=fit_launches['tile_zmin'])
     # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted
     assert launches['ancestral_update'] % steps == 0, (launches, steps)
-    assert fit_launches['tile_zmin'] % (pool + steps_run) == 0, (fit_launches, pool, steps_run)
+    assert fit_launches['tile_zmin'] % (FIT_POOL + steps_run) == 0, (fit_launches, steps_run)
     per_step = dict(per_fwd, ancestral_update=launches['ancestral_update'] // steps,
-                    tile_zmin=fit_launches['tile_zmin'] // (pool + steps_run))
+                    tile_zmin=fit_launches['tile_zmin'] // (FIT_POOL + steps_run))
     kernels = [{'name': n, 'route': route, 'source': src, 'replaces': rep,
                 'launches': path_launches[n], 'launches_per_forward': per_step[n],
                 'device_ms_per_forward': per_fwd_dev[n] or None, **results[n]}

@@ -6,13 +6,14 @@
 | :func:`gn_affine` | CUDA C++, sm_90a (gn_stats, one launch) | statistics phase of ``ops/groupnorm.py:94`` |
 | :func:`groupnorm_silu` | Triton (apply) | ``meshdiffusion_tpu/ops/groupnorm.py:94`` |
 | :func:`gn_silu_conv3d` | CUDA C++, sm_90a (wgmma) | ``meshdiffusion_tpu/ops/gn_silu_conv.py:142`` |
-| :func:`tile_zmin` | CUDA C++, sm_90a | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
+| :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches.
 Each kernel module also has a ``*_cost`` helper, the (FLOP, bytes) of a
 call, from which ``roofline.bound_ms`` gives the least time an H100 could
-take for it.
+take for it (the z-test's counts fp32 and ALU operations apart, and
+``tile_zmin_bound_ms`` takes the busier pipe).
 """
 
 from .gn_silu_conv import (gn_silu_conv3d, gn_silu_conv3d_cost,  # noqa: F401
@@ -22,7 +23,8 @@ from .groupnorm import (gn_affine, gn_affine_cost, gn_affine_reference,  # noqa:
                         groupnorm_silu_reference)
 from .sampler_step import (ancestral_update, ancestral_update_cost,  # noqa: F401
                            ancestral_update_reference)
-from .tile_zmin import tile_zmin, tile_zmin_cost, tile_zmin_reference  # noqa: F401
+from .tile_zmin import (tile_zmin, tile_zmin_bound_ms, tile_zmin_cost,  # noqa: F401
+                        tile_zmin_reference)
 
 KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, tile_zmin)
 

@@ -42,8 +42,10 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dtype, scale, bias, a, b, work, ticket, xb, B, S, C, G, CC, R, eps, stream
     'gn_stats': [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    # cand, tile_tris, z_floor, best_tri, best_z, N, K, ntx, tpv, stream
-    'tile_zmin': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # coords, tile_tris, tile_counts, global_tris, global_count, z_floor, order, best_tri,
+    # best_z, N, F, K, Kg, ntx, tpv, H, W, layers, stream
+    'tile_zmin': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,46 +1,71 @@
-"""The rasterizer's per-tile z-min candidate test.
+"""The rasterizer's per-tile z-min candidate test, all depth layers at once.
 
 Replaces the TPU kernel ``meshdiffusion_tpu/ops/tile_raster.py``
 (``tile_zmin_pallas``, pallas_call at :153), the inner loop of the
-differentiable rasterizer (``render/rasterize.py::_rasterize_tiles``).
-Every TILE x TILE screen tile tests its K binned candidate triangles at
-each pixel centre (x + 0.5, y + 0.5):
+differentiable rasterizer (``render/rasterize.py::rasterize_select``).
+Every TILE x TILE screen tile tests its binned candidate triangles at each
+pixel centre (x + 0.5, y + 0.5):
 
 * three edge functions; inside on either winding; |area| > 1e-12; id >= 0;
 * screen-linear z = l0*az + l1*bz + (1 - l0 - l1)*cz, l_i = w_i * (1/area);
-* only z > floor + 1e-7 and -1 <= z <= 1 count (the depth-peel floor is
-  -1e30 for the first layer and the previous layer's z, +1e30 where it is
-  empty, after that);
-* the nearest (z, id) is kept: candidates go in groups of 8 in list order,
-  within a group the smallest z wins and on an exact z tie the smallest
-  id, and across groups a strict ``<`` keeps the earlier group (the Pallas
-  kernel's tie-break, which the plain version below reproduces).
+* only z > floor + 1e-7 and -1 <= z <= 1 count;
+* the nearest (z, id) is kept: candidates go in groups of 8 slots in list
+  order, within a group the smallest z wins and on an exact z tie the
+  smallest id, and across groups a strict ``<`` keeps the earlier group (the
+  Pallas kernel's tie-break, which the plain version below reproduces).
 
-Outputs: best_tri (N, TILE, TILE) int32, -1 where nothing was hit, and
-best_z (N, TILE, TILE) f32, 1e30 there. Ids travel as int32 (the Pallas
-kernel carried them as f32 lanes). Tile n sits at pixel origin
-((n % tpv) % ntx * TILE, (n % tpv) // ntx * TILE), where tpv is the
-number of tiles of one view, so one call may hold the tiles of several
-views back to back.
+Inputs, for B views of T tiles each (N = B*T tiles, tile n of view n // T):
+
+* ``coords`` (B, F, 9) f32: each view's screen coords [ax ay az bx by bz cx
+  cy cz] of every (compacted) face; a list entry is a row of its view;
+* ``tile_tris`` (N, K) int32 and ``tile_counts`` (N,) int32: each tile's
+  binned ids, of which only slots [0, min(count, K)) are read;
+* ``global_tris`` (B, Kg) int32 and ``global_count`` (B,) int32: each view's
+  big-triangle list, tested by every tile of the view, of which slots
+  [0, min(count, Kg)) are read.
+
+Every id read lies in [0, F) or is negative (no candidate), as
+``render/rasterize.py::bin_triangles`` gives them; the kernel does not check.
+
+Tile slot s < K is ``tile_tris[n, s]`` and slot K + j is ``global_tris[b, j]``:
+the tie-break group of a candidate is its slot // 8 in that layout, the one
+the JAX package pads and tests. Layer 0's floor is ``z_floor`` (N, TILE,
+TILE), or -1e30 everywhere when it is None; layer l + 1's is layer l's z
+where it hit, 1e30 where it did not and at the pixels past the image (the
+padding of the last tile row and column), as the depth peel of
+``rasterize_select`` sets it.
+
+Outputs: best_tri (L, N, TILE, TILE) int32, -1 where nothing was hit, and
+best_z (L, N, TILE, TILE) f32, 1e30 there. Tile n sits at pixel origin
+((n % T) % ntx * TILE, (n % T) // ntx * TILE), ntx = ceil(W / TILE).
 
 On a CPU tensor :func:`tile_zmin` runs :func:`tile_zmin_reference`; on a
-CUDA tensor it launches ``csrc/tile_zmin.cu`` or raises, and counts the
-launch in ``tile_zmin.launches``. Selection is not differentiable (the
-rasterizer re-derives barycentrics with autograd), so there is no backward.
+CUDA tensor it launches ``csrc/tile_zmin.cu`` once for all layers or raises,
+and counts the launch in ``tile_zmin.launches``. Selection is not
+differentiable (the rasterizer re-derives barycentrics with autograd), so
+there is no backward.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
+from .roofline import PEAK_ALU_OPS, PEAK_FP32_UNFUSED_OPS, pipes_bound_ms
 
 TILE = 32
 BIG = 1e30
 _CHUNK = 64        # candidates per step of the plain version
 _GROUP = 8         # the tie-break group
+
+
+def tile_grid(res: Tuple[int, int]):
+    """(tiles a row, tiles a column, tiles a view) of an (H, W) image."""
+    H, W = res
+    ntx, nty = -(-W // TILE), -(-H // TILE)
+    return ntx, nty, ntx * nty
 
 
 def _tile_pixels(N: int, ntx: int, tpv: int, device):
@@ -52,21 +77,38 @@ def _tile_pixels(N: int, ntx: int, tpv: int, device):
     return px.float() + 0.5, py.float() + 0.5
 
 
-def tile_zmin_reference(cand: torch.Tensor, tile_tris: torch.Tensor,
-                        z_floor_tiles: torch.Tensor, ntx: int, tpv: int = 0):
-    """Plain version: vectorised over tiles and 64-candidate chunks, with
-    the kernel's group tie-break and its exact arithmetic order (every
-    product and sum rounded on its own, as the kernel's ``__f*_rn`` do).
-    cand (N, K, 9) f32; tile_tris (N, K) int32; z_floor_tiles (N, TILE,
-    TILE) f32; tpv: tiles per view (0 = N)."""
+def padded_candidates(coords: torch.Tensor, tile_tris: torch.Tensor, tile_counts: torch.Tensor,
+                      global_tris: torch.Tensor, global_count: torch.Tensor):
+    """The padded layout the kernel reads in place: (cand (N, K + Kg, 9),
+    ids (N, K + Kg) int32), ids -1 past each list's count and cand the
+    coords of row 0 there."""
+    B = coords.shape[0]
+    N, K = tile_tris.shape
+    Kg = global_tris.shape[1]
+    dev = coords.device
+    tt = torch.where(torch.arange(K, device=dev) < tile_counts[:, None], tile_tris, -1)
+    gl = torch.where(torch.arange(Kg, device=dev) < global_count[:, None], global_tris, -1)
+    ids = torch.cat([tt.view(B, N // B, K), gl[:, None].expand(B, N // B, Kg)], 2).view(N, K + Kg)
+    view = torch.arange(N, device=dev) // (N // B)
+    cand = coords[view[:, None], ids.clamp(min=0).long()]
+    return cand, ids.to(torch.int32)
+
+
+def _zmin_padded(cand: torch.Tensor, tids: torch.Tensor, z_floor: torch.Tensor, ntx: int,
+                 tpv: int):
+    """One layer on the padded layout: vectorised over tiles and
+    64-candidate chunks, with the kernel's group tie-break and its exact
+    arithmetic order (every product and sum rounded on its own, as the
+    kernel's ``__f*_rn`` do). cand (N, K, 9); tids (N, K); z_floor (N,
+    TILE*TILE). Returns (best_t, best_z), each (N, TILE*TILE)."""
     N, K, _ = cand.shape
     dev = cand.device
-    px, py = _tile_pixels(N, ntx, tpv or N, dev)
+    px, py = _tile_pixels(N, ntx, tpv, dev)
     px, py = px[:, None], py[:, None]                       # (N, 1, P)
-    zf = z_floor_tiles.reshape(N, 1, TILE * TILE) + 1e-7
+    zf = z_floor[:, None] + 1e-7
     pad = (-K) % _CHUNK
     cand = torch.cat([cand, cand.new_zeros((N, pad, 9))], 1)
-    tids = torch.cat([tile_tris, tile_tris.new_full((N, pad), -1)], 1)
+    tids = torch.cat([tids, tids.new_full((N, pad), -1)], 1)
     imax = torch.iinfo(torch.int32).max
     best_z = torch.full((N, TILE * TILE), BIG, device=dev)
     best_t = torch.full((N, TILE * TILE), -1, dtype=torch.int32, device=dev)
@@ -100,44 +142,132 @@ def tile_zmin_reference(cand: torch.Tensor, tile_tris: torch.Tensor,
         best_z = torch.where(upd, cz_, best_z)
         best_t = torch.where(upd, ct, best_t)
     best_t = torch.where(best_z < BIG, best_t, torch.full_like(best_t, -1))
-    return best_t.view(N, TILE, TILE), best_z.view(N, TILE, TILE)
+    return best_t, best_z
 
 
-def tile_zmin_cost(cand: torch.Tensor, tile_tris: torch.Tensor) -> Tuple[float, float]:
-    """(FLOP, bytes) of one call on these inputs: the three edge functions
-    (21 fp32 operations) at every pixel for every live candidate (id >= 0,
-    counted from the data); cand, ids and the depth floor read once, ids and
-    z written once."""
-    N, K, _ = cand.shape
-    live = int((tile_tris >= 0).sum())
-    return 21.0 * live * TILE * TILE, float(N * K * (9 + 1) * 4 + N * TILE * TILE * 3 * 4)
+def tile_zmin_reference(coords: torch.Tensor, tile_tris: torch.Tensor, tile_counts: torch.Tensor,
+                        global_tris: torch.Tensor, global_count: torch.Tensor,
+                        res: Tuple[int, int], num_layers: int = 1,
+                        z_floor: Optional[torch.Tensor] = None):
+    """Plain version: rebuilds the padded candidate tensor from the coords
+    table and peels the layers one at a time; see the module docstring."""
+    H, W = res
+    ntx, _, T = tile_grid(res)
+    N = tile_tris.shape[0]
+    dev = coords.device
+    cand, ids = padded_candidates(coords, tile_tris, tile_counts, global_tris, global_count)
+    px, py = _tile_pixels(N, ntx, T, dev)
+    in_image = (px < W) & (py < H)
+    floor = (torch.full((N, TILE * TILE), -BIG, device=dev) if z_floor is None
+             else z_floor.reshape(N, TILE * TILE))
+    tris, zs = [], []
+    for _ in range(num_layers):
+        t, z = _zmin_padded(cand, ids, floor, ntx, T)
+        tris.append(t.view(N, TILE, TILE))
+        zs.append(z.view(N, TILE, TILE))
+        floor = torch.where(in_image & (t >= 0), z, BIG)
+    return torch.stack(tris), torch.stack(zs)
 
 
-def tile_zmin(cand: torch.Tensor, tile_tris: torch.Tensor, z_floor_tiles: torch.Tensor,
-              ntx: int, tpv: int = 0):
-    """Nearest candidate triangle at every pixel of every tile; see the
-    module docstring. Returns (best_tri int32, best_z f32), each (N, TILE,
-    TILE)."""
-    if not _build.use_kernel('tile_zmin', cand, tile_tris, z_floor_tiles):
-        return tile_zmin_reference(cand, tile_tris, z_floor_tiles, ntx, tpv)
-    N, K, nine = cand.shape
-    tpv = tpv or N
-    if nine != 9 or cand.dtype != torch.float32 or tile_tris.dtype != torch.int32 \
-            or z_floor_tiles.dtype != torch.float32:
-        raise ValueError('need cand (N, K, 9) float32, tile_tris int32, z_floor float32')
-    if tile_tris.shape != (N, K) or z_floor_tiles.shape != (N, TILE, TILE):
-        raise ValueError(f'shapes {tuple(tile_tris.shape)}, {tuple(z_floor_tiles.shape)} '
-                         f'do not match cand {tuple(cand.shape)}')
-    if N % tpv or K < 1:
-        raise ValueError(f'N={N} is not a multiple of tpv={tpv}, or K={K} < 1')
-    cand, tile_tris, z_floor_tiles = (t.contiguous() for t in (cand, tile_tris, z_floor_tiles))
-    best_t = torch.empty((N, TILE, TILE), dtype=torch.int32, device=cand.device)
-    best_z = torch.empty((N, TILE, TILE), dtype=torch.float32, device=cand.device)
+def tile_zmin_cost(coords: torch.Tensor, tile_counts: torch.Tensor, global_count: torch.Tensor,
+                   res: Tuple[int, int], num_layers: int = 1,
+                   z_floor: Optional[torch.Tensor] = None, best_z: Optional[torch.Tensor] = None
+                   ) -> Tuple[float, float, float]:
+    """(fp32 operations, ALU operations, bytes) of one call on these inputs:
+    what the function cannot do without, whatever the kernel does. Per
+    layer, for every live (candidate, tile) pair (the global list counted
+    for every tile of its view) and every pixel of the tile that the layer's
+    floor leaves open (below 1e30): the last difference of each of the three
+    edge functions (3 fp32) and the inside test, six compares and their
+    combination (7 ALU); for every row and every column of a tile with an
+    open pixel, each edge's offset and product (6 fp32 a row, 6 a column);
+    once a pair, its edge deltas, area and 1/area (12 fp32, 1 ALU). The
+    z of the pairs that cover a pixel (as many as the geometry gives) is
+    left out, so the count is a floor. Open pixels: in the first layer every
+    pixel, or those of ``z_floor``; in a later one, given the call's output
+    ``best_z``, the pixels of the image that the layer before hit, else
+    every pixel (the most a layer could need). Bytes: the live ids, each
+    view's coords table and the floor read once, ids and z of every layer
+    written once. None depends on the lists' capacities K and Kg."""
+    N, B = tile_counts.shape[0], global_count.shape[0]
+    pairs = (tile_counts.view(B, N // B) + global_count[:, None]).reshape(N).double()
+    every = torch.full_like(pairs, TILE * TILE)
+    open_px = [every if z_floor is None else (z_floor.reshape(N, -1) < BIG).sum(1).double()]
+    if num_layers > 1 and best_z is not None:
+        ntx, _, T = tile_grid(res)
+        px, py = _tile_pixels(N, ntx, T, best_z.device)
+        in_image = (px < res[1]) & (py < res[0])
+        open_px += [((best_z[li].reshape(N, -1) < BIG) & in_image).sum(1).double()
+                    for li in range(num_layers - 1)]
+    open_px += [every] * (num_layers - len(open_px))
+    fp32 = 12.0 * float(pairs.sum()) + sum(
+        float((pairs * (3 * o + 12 * TILE * (o > 0))).sum()) for o in open_px)
+    alu = float(pairs.sum()) + sum(7.0 * float((pairs * o).sum()) for o in open_px)
+    nbytes = 4 * int(tile_counts.sum() + global_count.sum()) + 4 * coords.numel() \
+        + num_layers * N * TILE * TILE * 8
+    if z_floor is not None:
+        nbytes += 4 * z_floor.numel()
+    return fp32, alu, float(nbytes)
+
+
+def tile_zmin_bound_ms(*args, **kwargs) -> Tuple[float, str]:
+    """The least time an H100 could take for a call (arguments as
+    :func:`tile_zmin_cost`): the kernel rounds every operation on its own
+    (no FMA), so each fp32 operation is one instruction at the unfused
+    rate; the ALU pipe runs at half that, beside it; and the schedulers
+    issue both kinds at the fp32 rate in all."""
+    fp32, alu, nbytes = tile_zmin_cost(*args, **kwargs)
+    return pipes_bound_ms(nbytes, (fp32, PEAK_FP32_UNFUSED_OPS), (alu, PEAK_ALU_OPS),
+                          (fp32 + alu, PEAK_FP32_UNFUSED_OPS))
+
+
+def tile_zmin(coords: torch.Tensor, tile_tris: torch.Tensor, tile_counts: torch.Tensor,
+              global_tris: torch.Tensor, global_count: torch.Tensor, res: Tuple[int, int],
+              num_layers: int = 1, z_floor: Optional[torch.Tensor] = None):
+    """Nearest candidate triangle at every pixel of every tile, for
+    ``num_layers`` depth layers; see the module docstring. Returns
+    (best_tri int32, best_z f32), each (num_layers, N, TILE, TILE)."""
+    tensors = (coords, tile_tris, tile_counts, global_tris, global_count) \
+        + (() if z_floor is None else (z_floor,))
+    if not _build.use_kernel('tile_zmin', *tensors):
+        return tile_zmin_reference(coords, tile_tris, tile_counts, global_tris, global_count,
+                                   res, num_layers, z_floor)
+    H, W = res
+    ntx, _, T = tile_grid(res)
+    B, F, nine = coords.shape
+    N, K = tile_tris.shape
+    Kg = global_tris.shape[1]
+    if nine != 9 or coords.dtype != torch.float32 or any(
+            t.dtype != torch.int32 for t in (tile_tris, tile_counts, global_tris, global_count)):
+        raise ValueError('need coords (B, F, 9) float32 and int32 lists and counts')
+    if N != B * T or tile_counts.shape != (N,) or global_tris.shape[0] != B \
+            or global_count.shape != (B,) or num_layers < 1 or K < 1:
+        raise ValueError(f'{B} views of {T} tiles at {res}: tile_tris {tuple(tile_tris.shape)}, '
+                         f'tile_counts {tuple(tile_counts.shape)}, global_tris '
+                         f'{tuple(global_tris.shape)}, global_count {tuple(global_count.shape)}, '
+                         f'num_layers {num_layers}')
+    if z_floor is not None and (z_floor.shape != (N, TILE, TILE) or z_floor.dtype != torch.float32):
+        raise ValueError(f'z_floor {tuple(z_floor.shape)} {z_floor.dtype}: need ({N}, {TILE}, '
+                         f'{TILE}) float32')
+    # the kernel reads slots [0, count): a raw bin count above the capacity
+    # would run past the list
+    tile_counts, global_count = tile_counts.clamp(0, K), global_count.clamp(0, Kg)
+    coords, tile_tris, tile_counts, global_tris, global_count = (
+        t.contiguous() for t in (coords, tile_tris, tile_counts, global_tris, global_count))
+    if z_floor is not None:
+        z_floor = z_floor.contiguous()
+    # the heaviest tiles first, so that the longest blocks start at once
+    live = (tile_counts.view(B, T) + global_count[:, None]).view(N)
+    order = torch.argsort(live, descending=True, stable=True).to(torch.int32)
+    best_t = torch.empty((num_layers, N, TILE, TILE), dtype=torch.int32, device=coords.device)
+    best_z = torch.empty((num_layers, N, TILE, TILE), dtype=torch.float32, device=coords.device)
     lib = _build.lib()
-    with torch.cuda.device(cand.device):
-        err = lib.tile_zmin(cand.data_ptr(), tile_tris.data_ptr(), z_floor_tiles.data_ptr(),
-                            best_t.data_ptr(), best_z.data_ptr(), N, K, ntx, tpv,
-                            torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(coords.device):
+        err = lib.tile_zmin(coords.data_ptr(), tile_tris.data_ptr(), tile_counts.data_ptr(),
+                            global_tris.data_ptr(), global_count.data_ptr(),
+                            None if z_floor is None else z_floor.data_ptr(), order.data_ptr(),
+                            best_t.data_ptr(), best_z.data_ptr(), N, F, K, Kg, ntx, T, H, W,
+                            num_layers, torch.cuda.current_stream().cuda_stream)
     _build.check(err, 'tile_zmin')
     tile_zmin.launches += 1
     return best_t, best_z

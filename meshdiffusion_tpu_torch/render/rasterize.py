@@ -11,7 +11,8 @@ nvdiffrast's rasterize/interpolate/antialias (reference
   Triangles spanning more tiles go to a global list of Kg every tile tests.
 * **Dense per-tile z-test** through the hand-written kernel
   :func:`~meshdiffusion_tpu_torch.ops.tile_zmin` (CUDA on the card, its
-  plain version on the CPU), depth-peeled over the layers.
+  plain version on the CPU): every view and depth layer in one launch,
+  reading each listed face's coords from the view's table.
 * **Hard visibility, soft attributes.** Selection is detached; barycentrics
   are recomputed with autograd from the winning triangle's vertices, and
   silhouette gradients come from the analytic edge-AA pass
@@ -27,11 +28,12 @@ sentinel row off.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..ops import tile_zmin
+from ..ops.tile_zmin import tile_grid
 from ..utils.gather import gather
 
 TILE = 32          # tile side in pixels
@@ -68,19 +70,13 @@ def _edge(ax, ay, bx, by, px, py):
     return (bx - ax) * (py - ay) - (by - ay) * (px - ax)
 
 
-def _tiles(res):
-    H, W = res
-    ntx, nty = -(-W // TILE), -(-H // TILE)
-    return ntx, nty, ntx * nty
-
-
 def bin_triangles(xs, ys, face_mask, res: Tuple[int, int], K: int, Kg: int = 64):
     """Sort-based binning with a global big-triangle list. xs, ys (F, 3)
     screen coords. Returns (tile_tris (T, K) int32 with -1 padding,
     tile_counts (T,), global_tris (min(Kg, F),) int32 with -1 padding,
     global_count ())."""
     H, W = res
-    ntx, nty, T = _tiles(res)
+    ntx, nty, T = tile_grid(res)
     dev = xs.device
     xmin, xmax = xs.min(1).values, xs.max(1).values
     ymin, ymax = ys.min(1).values, ys.max(1).values
@@ -125,18 +121,29 @@ def bin_triangles(xs, ys, face_mask, res: Tuple[int, int], K: int, Kg: int = 64)
     return tile_tris, counts, global_tris, big.sum()
 
 
+class ViewBins(NamedTuple):
+    """One view's binning: the z-test's inputs and the overflow counters."""
+    coords: torch.Tensor        # (F', 9) f32 screen coords [ax ay az bx by bz cx cy cz]
+    tile_tris: torch.Tensor     # (T, K) int32, -1 past each tile's count
+    tile_counts: torch.Tensor   # (T,) int32, min(count, K)
+    global_tris: torch.Tensor   # (Kg',) int32, -1 past global_count
+    global_count: torch.Tensor  # () int32, min(big triangles, Kg')
+    sel: Optional[torch.Tensor]  # (live_cap,) compacted id -> face, or None
+    tile_over: torch.Tensor     # triangles dropped from the fullest tile
+    global_over: torch.Tensor   # big triangles dropped from the global list
+    live_over: torch.Tensor     # live faces dropped by the compaction
+
+
 def tile_candidates(v_clip: torch.Tensor, faces: torch.Tensor, res: Tuple[int, int],
                     face_mask: Optional[torch.Tensor] = None, K: int = 256, Kg: int = 64,
-                    live_cap: int = 65536):
-    """Binning for one view (v_clip (V, 4)): the z-test's inputs.
-
-    Returns (cand (T, K + Kg', 9) f32 candidate screen coords [ax ay az bx
-    by bz cx cy cz], tile_tris (T, K + Kg') int32, sel, tile_over,
-    global_over, live_over). When the face list is longer than
+                    live_cap: int = 65536) -> ViewBins:
+    """Binning for one view (v_clip (V, 4)): the z-test's inputs. The
+    z-test gathers each listed face's coords itself, so no per-tile
+    candidate tensor is built. When the face list is longer than
     ``live_cap`` (the marching-tets list is ~318k slots of which ~20k are
     live), live faces are compacted into ``live_cap`` slots first and
-    ``sel`` (live_cap,) maps a compacted id back to its face (else None);
-    dropped live faces count in live_over."""
+    ``sel`` maps a compacted id back to its face; dropped live faces count
+    in live_over. Kg' = min(Kg, F')."""
     F = faces.shape[0]
     dev = v_clip.device
     v_clip = v_clip.detach()
@@ -163,41 +170,21 @@ def tile_candidates(v_clip: torch.Tensor, faces: torch.Tensor, res: Tuple[int, i
 
     tile_tris, tile_counts, global_tris, global_count = bin_triangles(
         xs, ys, face_ok_b, res, K, Kg)
-    T = tile_tris.shape[0]
     Kg = global_tris.shape[0]            # bin_triangles clamps Kg to F'
-    tile_tris = torch.cat([tile_tris, global_tris[None].expand(T, Kg)], 1)
-    tile_over = (tile_counts.max() - K).clamp(min=0)
-    global_over = (global_count - Kg).clamp(min=0)
     coords = torch.stack([xs, ys, zs], dim=2).reshape(-1, 9)  # ax ay az bx by bz cx cy cz
-    cand = coords[tile_tris.clamp(min=0).long()]
-    return cand, tile_tris, sel, tile_over, global_over, live_over
+    return ViewBins(coords, tile_tris, tile_counts.clamp(max=K).to(torch.int32), global_tris,
+                    global_count.clamp(max=Kg).to(torch.int32), sel,
+                    (tile_counts.max() - K).clamp(min=0), (global_count - Kg).clamp(min=0),
+                    live_over)
 
 
-def floor_tiles(z_floor: Optional[torch.Tensor], B: int, res: Tuple[int, int], device):
-    """(B, H, W) depth-peel floor -> (B*T, TILE, TILE) tiles, padded with
-    BIG; None (the first layer) -> -BIG everywhere."""
+def _tile_image(t: torch.Tensor, B: int, res: Tuple[int, int]) -> torch.Tensor:
+    """(..., B*T, TILE, TILE) tiles -> (..., B, H, W) images."""
     H, W = res
-    ntx, nty, T = _tiles(res)
-    if z_floor is None:
-        return torch.full((B * T, TILE, TILE), -BIG, device=device)
-    zf = torch.nn.functional.pad(z_floor, (0, ntx * TILE - W, 0, nty * TILE - H), value=BIG)
-    return zf.reshape(B, nty, TILE, ntx, TILE).permute(0, 1, 3, 2, 4).reshape(B * T, TILE, TILE)
-
-
-def _rasterize_tiles(cand, tile_tris, res, z_floor: Optional[torch.Tensor]):
-    """The z-test of every view's tiles in one kernel launch. cand (B, T,
-    K, 9); tile_tris (B, T, K); z_floor (B, H, W) or None. Returns
-    (tri_id, zbuf) images (B, H, W)."""
-    H, W = res
-    ntx, nty, T = _tiles(res)
-    B, _, Kt = tile_tris.shape
-    tri_t, z_t = tile_zmin(cand.reshape(B * T, Kt, 9), tile_tris.reshape(B * T, Kt),
-                           floor_tiles(z_floor, B, res, cand.device), ntx, T)
-
-    def image(t):
-        t = t.reshape(B, nty, ntx, TILE, TILE).permute(0, 1, 3, 2, 4)
-        return t.reshape(B, nty * TILE, ntx * TILE)[:, :H, :W]
-    return image(tri_t).long(), image(z_t)
+    ntx, nty, _ = tile_grid(res)
+    lead = t.shape[:-3]
+    t = t.reshape(lead + (B, nty, ntx, TILE, TILE)).transpose(-3, -2)
+    return t.reshape(lead + (B, nty * TILE, ntx * TILE))[..., :H, :W]
 
 
 @torch.no_grad()
@@ -205,32 +192,26 @@ def rasterize_select(v_clip: torch.Tensor, faces: torch.Tensor, res: Tuple[int, 
                      face_mask: Optional[torch.Tensor] = None, num_layers: int = 1,
                      K: int = 256, Kg: int = 64, live_cap: int = 65536):
     """The non-differentiable half of rasterization: binning + the tile
-    z-test, depth-peeled over ``num_layers``, for a batch of views.
+    z-test of every view and depth layer in one kernel launch.
 
     v_clip (B, V, 4). Returns (tri_imgs (B, L, H, W) int64, tile_over (B,),
     global_over (B,), live_over (B,)). Kept apart from
     :func:`rasterize_apply` so that callers run selection once, outside a
     checkpointed region."""
     B = v_clip.shape[0]
-    per_view = [tile_candidates(v_clip[b], faces, res, face_mask, K, Kg, live_cap)
-                for b in range(B)]
-    cand, tile_tris = (torch.stack([pv[i] for pv in per_view]) for i in (0, 1))
-    sel = None if per_view[0][2] is None else torch.stack([pv[2] for pv in per_view])
-    tile_over, global_over, live_over = (torch.stack([pv[i] for pv in per_view])
-                                         for i in (3, 4, 5))
-    tri_imgs = []
-    z_floor = None
-    for _ in range(num_layers):
-        tri_img, z_img = _rasterize_tiles(cand, tile_tris, res, z_floor)
-        hit = tri_img >= 0
-        if sel is not None:
-            # map compacted ids back to the original face list
-            orig = sel.gather(1, tri_img.clamp(min=0).reshape(B, -1)).view_as(tri_img)
-            tri_imgs.append(torch.where(hit, orig, -1))
-        else:
-            tri_imgs.append(tri_img)
-        z_floor = torch.where(hit, z_img, BIG)
-    return torch.stack(tri_imgs, dim=1), tile_over, global_over, live_over
+    bins = ViewBins(*zip(*(tile_candidates(v_clip[b], faces, res, face_mask, K, Kg, live_cap)
+                           for b in range(B))))     # each field a tuple over the views
+    tri_t, _ = tile_zmin(torch.stack(bins.coords), torch.cat(bins.tile_tris),
+                         torch.cat(bins.tile_counts), torch.stack(bins.global_tris),
+                         torch.stack(bins.global_count), res, num_layers)
+    tri_img = _tile_image(tri_t, B, res).transpose(0, 1).long()     # (B, L, H, W)
+    if bins.sel[0] is not None:
+        # map compacted ids back to the original face list
+        sel = torch.stack(bins.sel)
+        orig = sel.gather(1, tri_img.clamp(min=0).reshape(B, -1)).view_as(tri_img)
+        tri_img = torch.where(tri_img >= 0, orig, -1)
+    return tri_img, torch.stack(bins.tile_over), torch.stack(bins.global_over), \
+        torch.stack(bins.live_over)
 
 
 def _barycentrics_at(v_clip, faces, tri_id, px, py, res):

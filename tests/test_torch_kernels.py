@@ -127,30 +127,111 @@ def test_gn_silu_conv3d_kernel_matches_plain(cuda, rng, shape, dtype):
     assert torch.equal(y, y2)
 
 
-@pytest.mark.cuda
-def test_tile_zmin_kernel_matches_plain(cuda, rng):
-    """Both depth layers of 4 views at 512^2 (1024 tiles, K = 256 + 64):
-    many small triangles and a few big ones, binned by the port's
-    rasterizer; triangle ids equal, z to the bit (the kernel rounds every
-    operation as the plain version does)."""
+def _blobs(rng, res, n=20000):
+    """Screen coords (n, 9) of many small triangles (a few pixels) and 20
+    that span the view, z in [-0.9, 0.9]."""
+    H, W = res
+    c = rng.uniform(0.05, 0.95, (n, 1, 2)) * (W, H)
+    xy = c + rng.normal(0.0, 2.56, (n, 3, 2))
+    xy[:20] = rng.uniform(0.0, 1.0, (20, 3, 2)) * (W, H)
+    z = rng.uniform(-0.9, 0.9, (n, 3, 1))
+    return np.concatenate([xy, z], 2).reshape(n, 9).astype(np.float32)
+
+
+def _slivers(rng, res):
+    """Near-degenerate triangles over a few thousand ordinary ones: slivers
+    whose base joins two pixel centres (half of them along a row or column)
+    and whose apex sits 0 to 3 ulps off its midpoint (0: area 0, dead; the
+    pixel centres on the base lie on an edge), some spanning many tiles
+    (the global list), and slivers by x = 0 whose |area| lies just above or
+    below 1e-12."""
+    H, W = res
+    parts = [_blobs(rng, res, 4000)]
+    for n, span in ((3000, 40), (30, 300)):
+        a = np.floor(rng.uniform(0, 1, (n, 2)) * (W - span, H - span)) + 0.5 + span / 2
+        d = rng.integers(-span // 2, span // 2 + 1, (n, 2)).astype(np.float64)
+        d[rng.random(n) < 0.5, rng.integers(0, 2)] = 0.0      # half along a row or column
+        a32, b32 = a.astype(np.float32), (a + d).astype(np.float32)
+        c32 = ((a32 + b32) * np.float32(0.5)).astype(np.float32)
+        across = (np.abs(d[:, 0]) >= np.abs(d[:, 1])).astype(int)   # the axis off the base
+        for i, k in enumerate(rng.integers(0, 4, n)):
+            for _ in range(k):
+                c32[i, across[i]] = np.nextafter(c32[i, across[i]], np.float32(np.inf))
+        xy = np.stack([a32, b32, c32], 1).astype(np.float64)
+        parts.append(np.concatenate([xy, rng.uniform(-0.9, 0.9, (n, 3, 1))], 2).reshape(n, 9))
+    n = 1000
+    y0 = rng.uniform(0.5, H - 40, n)
+    L = rng.uniform(5.0, 30.0, n)
+    h = rng.uniform(0.5, 3.0, n) * 1e-12 / L                  # |area| = L * h around 1e-12
+    x0 = np.float32(1e-7)
+    tri = np.stack([np.full(n, x0), y0, np.full(n, x0), y0 + L, x0 + h, y0 + L / 2], 1)
+    parts.append(np.concatenate([tri.reshape(n, 3, 2), rng.uniform(-0.9, 0.9, (n, 3, 1))],
+                                2).reshape(n, 9))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def _crowd(rng, res):
+    """6000 triangles of a few pixels in one tile, over 2000 spread ones:
+    that tile's list fills K = 4096, longer than the four blocks of its
+    cluster hold in shared memory, so they stream it once a layer."""
+    H, W = res
+    c = rng.uniform(0.0, 1.0, (6000, 1, 2)) * 32 + (5 * 32, 5 * 32)
+    xy = c + rng.normal(0.0, 1.5, (6000, 3, 2))
+    z = rng.uniform(-0.9, 0.9, (6000, 3, 1))
+    crowd = np.concatenate([xy, z], 2).reshape(6000, 9).astype(np.float32)
+    return np.concatenate([_blobs(rng, res, 2000), crowd])
+
+
+def _zmin_inputs(coords, res, K, Kg, clamp=True):
+    """Binning by the port's rasterizer: the z-test's arguments for views
+    coords (B, F, 9) on the card, with the live counts cut to the
+    capacities, or with the raw bin counts (which may exceed them)."""
     from meshdiffusion_tpu_torch.render import rasterize as R
-    n, res, B = 20000, (512, 512), 4
-    views = []
-    for _ in range(B):
-        c = rng.uniform(-0.9, 0.9, (n, 1, 2))
-        xy = c + rng.normal(0.0, 0.01, (n, 3, 2))
-        xy[:20] = rng.uniform(-1.0, 1.0, (20, 3, 2))
-        v = np.concatenate([xy.reshape(-1, 2), rng.uniform(-0.9, 0.9, (3 * n, 1)),
-                            np.ones((3 * n, 1))], 1).astype(np.float32)
-        views.append(_t(v).to(cuda))
-    faces = torch.arange(3 * n, device=cuda).view(n, 3)
-    per = [R.tile_candidates(v, faces, res, K=256, Kg=64) for v in views]
-    cand = torch.stack([p[0] for p in per]).flatten(0, 1)
-    tt = torch.stack([p[1] for p in per]).flatten(0, 1)
-    zf = R.floor_tiles(None, B, res, cuda)
-    for _ in range(2):
-        kt, kz = ops.tile_zmin(cand, tt, zf, 16, 256)
-        pt, pz = ops.tile_zmin_reference(cand, tt, zf, 16, 256)
-        assert (pt >= 0).sum() > 100000
-        assert torch.equal(kt, pt) and torch.equal(kz, pz)
-        zf = torch.where(kt >= 0, kz, R.BIG)
+    B, F, _ = coords.shape
+    ok = torch.ones(F, dtype=torch.bool, device=coords.device)
+    per = [R.bin_triangles(c[:, 0::3], c[:, 1::3], ok, res, K, Kg) for c in coords]
+    cap = (lambda t, n: t.clamp(max=n)) if clamp else (lambda t, n: t)
+    return (coords, torch.cat([p[0] for p in per]),
+            torch.cat([cap(p[1], K) for p in per]).int(), torch.stack([p[2] for p in per]),
+            torch.stack([cap(p[3], p[2].shape[0]) for p in per]).int())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene,res,K,layers', [
+    ('blobs', (512, 512), 256, 2),        # the fit path's capacity, K + Kg = 320
+    ('blobs', (512, 512), 4096, 2),       # the capacity a noise-soup fit grows to, 4160
+    ('blobs', (512, 512), 256, 1),        # one layer, above a given floor
+    ('blobs', (500, 470), 256, 2),        # ragged: the last tile row and column part outside
+    ('slivers', (512, 512), 256, 2),
+    ('crowd', (512, 512), 4096, 2),       # a tile of 4096 + 20: streamed, not resident
+    ('overflow', (512, 512), 256, 2),     # the crowd at K 256, raw counts above K
+])
+def test_tile_zmin_kernel_matches_plain(cuda, rng, scene, res, K, layers):
+    """Every depth layer of 4 views in one launch, binned by the port's
+    rasterizer (Kg 64), short lists, split ones (> 64 live) and streamed
+    ones (> 4 x 768): triangle ids equal and z to the bit against the
+    plain version (the kernel rounds every operation as it does), and equal
+    from one launch to the next. The one-layer case starts from a given
+    floor, uniform in [-0.5, 0.5); the overflow case passes the raw bin
+    counts, above K, which the wrapper cuts to K."""
+    make = {'blobs': _blobs, 'slivers': _slivers, 'crowd': _crowd, 'overflow': _crowd}[scene]
+    views = np.stack([make(rng, res) for _ in range(4)])
+    args = _zmin_inputs(torch.from_numpy(views).to(cuda), res, K, 64, clamp=scene != 'overflow')
+    floor = None
+    if layers == 1:
+        floor = _t(rng.uniform(-0.5, 0.5, (args[1].shape[0], 32, 32)).astype(np.float32)).to(cuda)
+    n0 = ops.tile_zmin.launches
+    kt, kz = ops.tile_zmin(*args, res, num_layers=layers, z_floor=floor)
+    kt2, kz2 = ops.tile_zmin(*args, res, num_layers=layers, z_floor=floor)
+    pt, pz = ops.tile_zmin_reference(*args, res, num_layers=layers, z_floor=floor)
+    assert ops.tile_zmin.launches == n0 + 2
+    assert kt.shape == (layers, args[1].shape[0], 32, 32)
+    assert (pt[0] >= 0).sum() > 50000 and (layers == 1 or (pt[1] >= 0).sum() > 10000)
+    if scene == 'slivers':      # ids 4000..7029: pixel-aligned slivers, won somewhere
+        assert ((pt >= 4000) & (pt < 7030)).sum() > 100
+    if scene == 'crowd':
+        assert int((args[2].view(4, -1) + args[4][:, None]).max()) > 4 * 3 * 256
+    if scene == 'overflow':
+        assert int(args[2].max()) > K
+    assert torch.equal(kt, pt) and torch.equal(kz, pz)
+    assert torch.equal(kt, kt2) and torch.equal(kz, kz2)

@@ -31,7 +31,7 @@ from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
 from meshdiffusion_tpu_torch.ops.gn_silu_conv import (_TILINGS, SMEM_LIMIT, _plan,
                                                       gn_silu_conv3d_bound_ms, pack_conv_weights)
 from meshdiffusion_tpu_torch.ops.groupnorm import _gn_plan
-from meshdiffusion_tpu_torch.ops.roofline import bound_ms
+from meshdiffusion_tpu_torch.ops.roofline import PEAK_ALU_OPS, PEAK_FP32_UNFUSED_OPS, bound_ms
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -138,7 +138,8 @@ def _head_and_ancestral_shapes():
                                     'ancestral_update', 'tile_zmin'])
 def test_cost_helpers_match_hand_counts(kernel):
     """FLOP and bytes behind each kernel's bound_ms, against counts made by
-    hand for a res64 forward (989 TFLOP/s bf16, 67 fp32, 3.35 TB/s)."""
+    hand for a res64 forward (989 TFLOP/s bf16, 67 fp32, 3.35 TB/s), and for
+    the z-test on a small input (33.5 T unfused fp32 operations/s)."""
     calls = _conv_calls('res64')
     head, xs4, ms4 = _head_and_ancestral_shapes()
     if kernel == 'gn_silu_conv3d':
@@ -162,10 +163,42 @@ def test_cost_helpers_match_hand_counts(kernel):
         ms, by = bound_ms(*ops.ancestral_update_cost(xs4, ms4))
         assert by == 'bytes' and abs(ms / 6.57e-3 - 1) < 1e-3, ms
     else:
-        cand = torch.zeros((2, 3, 9))
-        ids = torch.tensor([[0, -1, 2], [1, 1, -1]], dtype=torch.int32)
-        flop, nbytes = ops.tile_zmin_cost(cand, ids)
-        assert flop == 21 * 4 * 1024 and nbytes == 2 * 3 * 10 * 4 + 2 * 1024 * 12
+        # 2 views of 2 tiles (a 32 x 40 image: the second tile has 8 columns
+        # inside): 6 tile entries and 3 global ones, each global one tested by
+        # both tiles of its view: pairs 4, 1, 3, 4 a tile, whatever K and Kg
+        res = (32, 40)
+        coords = torch.zeros((2, 5, 9))
+        counts = torch.tensor([3, 0, 1, 2], dtype=torch.int32)
+        gcount = torch.tensor([1, 2], dtype=torch.int32)
+        # per layer and (pair, open pixel) 3 fp32 and 7 ALU operations, per
+        # (pair, tile with an open pixel) 12 fp32 a row and a column, per
+        # pair once 12 fp32 and 1 ALU
+        line = 12 * 32
+        fp32, alu, nbytes = ops.tile_zmin_cost(coords, counts, gcount, res, num_layers=2)
+        assert fp32 == 2 * 12 * (3 * 1024 + line) + 12 * 12 and alu == 2 * 7 * 12 * 1024 + 12
+        assert nbytes == 4 * 9 + 4 * 90 + 2 * 4 * 1024 * 8
+        floor = torch.zeros((4, 32, 32))
+        floor[1] = 1e30                 # the second tile of view 0 is closed
+        assert ops.tile_zmin_cost(coords, counts, gcount, res, 2, floor) \
+            == ((11 + 12) * (3 * 1024 + line) + 12 * 12, 7 * (11 + 12) * 1024 + 12,
+                nbytes + 4 * 4096)
+        # the second layer tests only the pixels of the image the first hit:
+        # 10 in each first tile, 16 in row 0 of each second tile of which 8
+        # lie inside the image
+        best_z = torch.full((2, 4, 32, 32), 1e30)
+        best_z[0, 0::2, :2, :5] = 0.5
+        best_z[0, 1::2, 0, :16] = 0.5
+        best_z[1] = 0.5                 # the last layer opens nothing
+        second = 4 * 10 + 1 * 8 + 3 * 10 + 4 * 8
+        assert ops.tile_zmin_cost(coords, counts, gcount, res, 2, best_z=best_z)[:2] \
+            == (3 * (12 * 1024 + second) + 2 * 12 * line + 12 * 12, 7 * (12 * 1024 + second) + 12)
+        # no FMA: one fp32 instruction an operation, 132 x 128 lanes at 1.98
+        # GHz; compares and predicate logic at half that on the ALU pipe
+        assert PEAK_FP32_UNFUSED_OPS == pytest.approx(33.454e12, rel=1e-4)
+        assert PEAK_ALU_OPS == pytest.approx(PEAK_FP32_UNFUSED_OPS / 2)
+        busy = torch.full((4,), 4000, dtype=torch.int32)        # the ALU pipe bounds it
+        assert ops.tile_zmin_bound_ms(coords, busy, gcount, res) == pytest.approx(
+            ((7 * 1024 + 1) * (16000 + 2 * 3) / 16.72704e12 * 1e3, 'operations'))
 
 
 @pytest.mark.parametrize('entry', ['create_model', 'extract_grid', 'extract_batch'])

@@ -15,6 +15,8 @@ differs from JAX's by a few ulps: measured 1.4e-6 at most on these scenes,
 hence z atol 2e-6.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,7 @@ import torch
 
 from meshdiffusion_tpu.ops.tile_raster import tile_zmin_pallas
 from meshdiffusion_tpu.render import rasterize as JR
-from meshdiffusion_tpu_torch.ops import tile_zmin, tile_zmin_reference
+from meshdiffusion_tpu_torch.ops import tile_zmin
 from meshdiffusion_tpu_torch.render import rasterize as R
 
 Z_ATOL = 2e-6     # FMA (XLA) against op-by-op rounding (port), see above
@@ -55,92 +57,160 @@ def small_scene(seed, n_tris=400, res=64):
     return v, np.arange(n_tris * 3, dtype=np.int32).reshape(-1, 3)
 
 
-def _candidates(v, f, res, K):
-    """The JAX rasterizer's z-test inputs for one view (rasterize_select's
-    first half), as numpy."""
+def _binned(v, f, res, K, Kg=64):
+    """The JAX rasterizer's binning of one view as the port's z-test takes
+    it, as numpy: (coords (1, F, 9), tile_tris (T, K), tile_counts (T,) =
+    min(count, K), global_tris (1, Kg'), global_count (1,))."""
     x, y, z, _ = JR._screen_coords(jnp.asarray(v), res)
     f = jnp.asarray(f)
     xs, ys, zs = (jnp.stack([a[f[:, 0]], a[f[:, 1]], a[f[:, 2]]], 1) for a in (x, y, z))
-    tt, _, gt, _ = JR.bin_triangles(xs, ys, jnp.ones((f.shape[0],), bool), res, K=K)
-    T = tt.shape[0]
-    tt = jnp.concatenate([tt, jnp.broadcast_to(gt[None], (T, gt.shape[0]))], 1)
-    cand = jnp.stack([xs[:, 0], ys[:, 0], zs[:, 0], xs[:, 1], ys[:, 1], zs[:, 1],
-                      xs[:, 2], ys[:, 2], zs[:, 2]], 1)[jnp.maximum(tt, 0)]
-    return np.asarray(cand), np.asarray(tt)
+    tt, counts, gt, gcount = JR.bin_triangles(xs, ys, jnp.ones((f.shape[0],), bool), res, K=K,
+                                              Kg=Kg)
+    coords = jnp.stack([xs, ys, zs], 2).reshape(-1, 9)
+    i32 = lambda a: np.asarray(a).astype(np.int32)
+    return (np.asarray(coords)[None], i32(tt), np.minimum(i32(counts), K), i32(gt)[None],
+            np.minimum(i32(gcount), gt.shape[0]).reshape(1))
 
 
-def _two_layers(fn, cand, tt, ntx, floor0, to_np):
-    """Run a z-test twice, peeling the second layer at the first's z."""
-    out, zf = [], floor0
-    for _ in range(2):
-        tri, z = fn(cand, tt, zf, ntx)
-        tri, z = to_np(tri), to_np(z)
+def _padded(coords, tt, counts, gt, gcount):
+    """The padded layout the JAX z-test reads: (cand (N, K + Kg, 9), ids),
+    ids -1 past each list's count, tile n of view n // (N / B)."""
+    B, N, K = coords.shape[0], tt.shape[0], tt.shape[1]
+    ids = np.concatenate([np.where(np.arange(K) < counts[:, None], tt, -1),
+                          np.repeat(np.where(np.arange(gt.shape[1]) < gcount[:, None], gt, -1),
+                                    N // B, axis=0)], 1).astype(np.int32)
+    view = np.arange(N) // (N // B)
+    return coords[view[:, None], np.maximum(ids, 0)], ids
+
+
+def _to_tiles(img, res, fill=1e30):
+    """(H, W) image -> (T, 32, 32) tiles, padded with ``fill``."""
+    H, W = res
+    ntx, nty = -(-W // 32), -(-H // 32)
+    img = np.pad(img, ((0, nty * 32 - H), (0, ntx * 32 - W)), constant_values=img.dtype.type(fill))
+    return img.reshape(nty, 32, ntx, 32).transpose(0, 2, 1, 3).reshape(-1, 32, 32)
+
+
+def _to_image(tiles, res):
+    H, W = res
+    ntx, nty = -(-W // 32), -(-H // 32)
+    return tiles.reshape(nty, ntx, 32, 32).transpose(0, 2, 1, 3).reshape(nty * 32, ntx * 32)[:H, :W]
+
+
+def _peeled(fn, cand, ids, res, layers):
+    """Peel ``layers`` layers with a one-layer z-test ``fn(cand, ids, floor
+    tiles, floor image or None) -> (tri, z)`` tiles: the first floor -1e30
+    everywhere, each next one the image's z where it hit, 1e30 elsewhere
+    and past the image (as rasterize_select peels). Returns (tri, z)
+    images."""
+    out, img = [], None
+    zf = np.full((ids.shape[0], 32, 32), -1e30, np.float32)
+    for _ in range(layers):
+        tri, z = (_to_image(np.asarray(a), res) for a in fn(cand, ids, zf, img))
         out.append((tri, z))
-        zf = np.where(tri >= 0, z, np.float32(1e30)).astype(np.float32)
+        img = np.where(tri >= 0, z, np.float32(1e30)).astype(np.float32)
+        zf = _to_tiles(img, res)
     return out
 
 
-@pytest.mark.parametrize('seed', [0, 1])
-def test_tile_zmin_reference_matches_pallas_and_scan(seed):
-    """Two peeled layers on tests/test_tile_raster.py's scenes: ids exactly
-    equal to the Pallas kernel (interpret mode) and to the jnp scan path."""
+@functools.lru_cache(maxsize=None)
+def _jax_layers(seed, res, K, Kg, cut, layers=2):
+    """A random scene binned by JAX (tile counts cut to ``cut`` of K, and
+    the global list to ``Kg``), and its peeled layers from the Pallas kernel
+    (interpret mode) and the jnp scan path."""
     v, f = random_scene(seed)
-    res = (96, 96)
-    cand, tt = _candidates(v, f, res, K=128)
-    T = tt.shape[0]
-    floor0 = np.full((T, 32, 32), -1e30, np.float32)
-    port = _two_layers(lambda c, t, zf, ntx: tile_zmin(_t(c), _t(t), _t(zf), ntx),
-                       cand, tt, 3, floor0, lambda a: a.numpy())
-    pallas = _two_layers(lambda c, t, zf, ntx: tile_zmin_pallas(
+    coords, tt, counts, gt, gcount = _binned(v, f, res, K, Kg)
+    counts = np.minimum(counts, int(K * cut)).astype(np.int32)
+    cand, ids = _padded(coords, tt, counts, gt, gcount)
+    ntx = -(-res[1] // 32)
+    pallas = _peeled(lambda c, t, zf, _: tile_zmin_pallas(
         jnp.asarray(c), jnp.asarray(t), jnp.asarray(zf), ntx, 32, interpret=True),
-        cand, tt, 3, floor0, np.asarray)
+        cand, ids, res, layers)
 
-    def scan(c, t, zf, ntx):          # the jnp path, on the image, back to tiles
-        img = np.asarray(zf).reshape(3, 3, 32, 32).transpose(0, 2, 1, 3).reshape(96, 96)
-        tri, z = JR._rasterize_tiles(jnp.asarray(c), jnp.asarray(t), res, jnp.asarray(img),
-                                     use_pallas=False)
-        back = lambda a: np.asarray(a).reshape(3, 32, 3, 32).transpose(0, 2, 1, 3).reshape(9, 32, 32)
-        return back(tri), back(z)
-    scanned = _two_layers(scan, cand, tt, 3, floor0, np.asarray)
-    for li in range(2):
-        tri, z = port[li]
-        assert (tri >= 0).sum() > 5000
+    def scan(c, t, _, img):           # the jnp path, on the image, back to tiles
+        tri, z = JR._rasterize_tiles(jnp.asarray(c), jnp.asarray(t), res,
+                                     None if img is None else jnp.asarray(img), use_pallas=False)
+        return _to_tiles(np.asarray(tri), res, -1), _to_tiles(np.asarray(z), res)
+    return (coords, tt, counts, gt, gcount), pallas, _peeled(scan, cand, ids, res, layers)
+
+
+@pytest.mark.parametrize('seed,res,K,Kg,cut,num_layers', [
+    (0, (96, 96), 128, 64, 1.0, 2),
+    (0, (96, 96), 128, 64, 1.0, 1),
+    (1, (96, 96), 128, 64, 1.0, 2),
+    (2, (80, 112), 128, 64, 1.0, 2),     # past the image: the second layer's floor is 1e30
+    (6, (96, 96), 12, 64, 1.0, 2),       # K % 8 != 0: a group spans both lists
+    (4, (96, 96), 128, 64, 0.25, 2),     # counts cut below what the lists hold
+    (5, (96, 96), 128, 0, 1.0, 2),       # no global list
+])
+def test_tile_zmin_reference_matches_pallas_and_scan(seed, res, K, Kg, cut, num_layers):
+    """Peeled layers on tests/test_tile_raster.py's scenes, binned by JAX:
+    the port's z-test (every layer in one call, reading only each list's
+    live slots) against the Pallas kernel (interpret mode) and the jnp scan
+    path on the padded layout: ids exactly equal, z within Z_ATOL."""
+    inputs, pallas, scanned = _jax_layers(seed, res, K, Kg, cut)
+    tri, z = tile_zmin(*(_t(a) for a in inputs), res, num_layers=num_layers)
+    assert tri.shape == z.shape == (num_layers, inputs[1].shape[0], 32, 32)
+    for li in range(num_layers):
+        lt, lz = _to_image(tri[li].numpy(), res), _to_image(z[li].numpy(), res)
+        assert (lt >= 0).sum() > 5000
         for name, (rt, rz) in (('pallas', pallas[li]), ('scan', scanned[li])):
-            np.testing.assert_array_equal(tri, rt, err_msg=f'{name} layer {li}')
+            np.testing.assert_array_equal(lt, rt, err_msg=f'{name} layer {li}')
             hit = rt >= 0
-            np.testing.assert_allclose(z[hit], rz[hit], atol=Z_ATOL, rtol=0)
-            assert (z[~hit] == 1e30).all()
+            np.testing.assert_allclose(lz[hit], rz[hit], atol=Z_ATOL, rtol=0)
+            assert (lz[~hit] == 1e30).all()
 
 
-def test_tile_zmin_ties_match_pallas():
-    """Coincident triangles (equal z at every pixel): inside one group of 8
-    the smallest id wins, across groups the earlier group wins; a dead
-    candidate (id -1) and a degenerate one never win."""
+@pytest.mark.parametrize('layout', ['tile_list', 'straddle'])
+def test_tile_zmin_ties_match_pallas(layout):
+    """Coincident triangles (equal z at every pixel) in two views of one
+    32x32 tile each: inside one group of 8 slots the smallest id wins,
+    across groups the earlier group wins; a dead list entry (id -1, whose
+    clamped row 0 would be nearer) and a degenerate triangle never win.
+    ``tile_list``: 24 slots, no global list. ``straddle``: K = 12 with 10
+    live, so slots 8..15 (one group) hold tile slots 8, 9, two padding slots
+    and global slots 0..3."""
     rng = np.random.default_rng(5)
     tri = np.array([2.0, 3.0, 0.25, 30.0, 5.0, 0.25, 12.0, 29.0, 0.25], np.float32)
-    K = 24
-    cand = np.tile(tri, (2, K, 1))
-    cand[:, :, 2::3] += rng.uniform(0.1, 0.5, (2, K, 1)).astype(np.float32)   # behind
-    ids = np.tile(np.arange(100, 100 + K, dtype=np.int32), (2, 1))
-    # tile 0: positions 1 and 5 (one group), nearest, ids 7 and 3 -> 3 wins
-    # tile 1: positions 6 (group 0, id 9) and 9 (group 1, id 1) -> 9 wins
-    for t, pos, tid in ((0, (1, 5), (7, 3)), (1, (6, 9), (9, 1))):
-        for p, i in zip(pos, tid):
-            cand[t, p] = tri
-            ids[t, p] = i
-    cand[:, 0] = tri - np.float32([0, 0, 0.1, 0, 0, 0.1, 0, 0, 0.1])   # nearer, but dead
-    ids[:, 0] = -1
-    cand[:, 2] = np.float32([4, 4, -0.5, 8, 8, -0.5, 12, 12, -0.5])     # degenerate (area 0)
-    cand[1, :, 0::3] += 32.0            # tile 1 sits right of tile 0
-    zf = np.full((2, 32, 32), -1e30, np.float32)
-    want_t, want_z = tile_zmin_pallas(jnp.asarray(cand), jnp.asarray(ids), jnp.asarray(zf),
-                                      2, 32, interpret=True)
-    got_t, got_z = tile_zmin_reference(_t(cand), _t(ids), _t(zf), ntx=2)
+    F = 140
+    coords = np.tile(tri, (2, F, 1))
+    coords[:, :, 2::3] += rng.uniform(0.1, 0.5, (2, F, 1)).astype(np.float32)   # behind
+    coords[:, 0] = tri - np.float32([0, 0, 0.1, 0, 0, 0.1, 0, 0, 0.1])    # nearer, never listed
+    coords[:, 102] = np.float32([4, 4, -0.5, 8, 8, -0.5, 12, 12, -0.5])   # degenerate (area 0)
+    for view, ids in ((0, (7, 3)), (1, (9, 1))):
+        coords[view, list(ids)] = tri
+    if layout == 'tile_list':
+        K, count, Kg, gcount = 24, 24, 4, 0
+        # view 0: slots 1 and 5 (one group), ids 7 and 3 -> 3 wins
+        # view 1: slots 6 (group 0, id 9) and 9 (group 1, id 1) -> 9 wins
+        slots = {0: ((1, 7), (5, 3)), 1: ((6, 9), (9, 1))}
+    else:
+        K, count, Kg, gcount = 12, 10, 8, 6
+        # view 0: tile slot 9 (group 1, id 7), global slot 1 = slot 13 (group 1, id 3) -> 3
+        # view 1: tile slot 6 (group 0, id 9), global slot 5 = slot 17 (group 2, id 1) -> 9
+        slots = {0: ((9, 7), (13, 3)), 1: ((6, 9), (17, 1))}
+    tt = np.tile(np.arange(100, 100 + K, dtype=np.int32), (2, 1))
+    gt = np.tile(np.arange(120, 120 + Kg, dtype=np.int32), (2, 1))
+    for view, pairs in slots.items():
+        for s, i in pairs:
+            if s < K:
+                tt[view, s] = i
+            else:
+                gt[view, s - K] = i
+    tt[:, 0] = -1                       # dead: coords row 0 is nearer
+    counts = np.full(2, count, np.int32)
+    gcounts = np.full(2, gcount, np.int32)
+    cand, ids = _padded(coords, tt, counts, gt, gcounts)
+    cand[1, :, 0::3] += 32.0            # the Pallas kernel sees one 64-wide view
+    want_t, want_z = tile_zmin_pallas(jnp.asarray(cand), jnp.asarray(ids),
+                                      jnp.full((2, 32, 32), -1e30, jnp.float32), 2, 32,
+                                      interpret=True)
+    got_t, got_z = tile_zmin(_t(coords), _t(tt), _t(counts), _t(gt), _t(gcounts), (32, 32))
     want_t = np.asarray(want_t)
     assert (want_t[0] == 3).sum() > 100 and (want_t[1] == 9).sum() > 100
-    np.testing.assert_array_equal(got_t.numpy(), want_t)
+    np.testing.assert_array_equal(got_t[0].numpy(), want_t)
     hit = want_t >= 0
-    np.testing.assert_allclose(got_z.numpy()[hit], np.asarray(want_z)[hit], atol=Z_ATOL, rtol=0)
+    np.testing.assert_allclose(got_z[0].numpy()[hit], np.asarray(want_z)[hit], atol=Z_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize('case', ['small_big', 'k_overflow', 'live_cap'])
