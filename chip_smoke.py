@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Drives the port's two paths through their hand-written kernels, and fails
+Drives the port's paths through their hand-written kernels, and fails
 (non-zero exit, no result line) on any error: res64 unconditional
 generation at full width (nf 128, ch_mult (1,1,2,4,4), 3 ResnetBlocks a
-level, attention at 16^3, batch 1, the bundled 64 tet grid), and DMTet
+level, attention at 16^3, batch 1, the bundled 64 tet grid); DMTet
 dataset fitting at full width (FitConfig's defaults: 512^2, batch 4, the
 64 tet grid, raster_K 256 + raster_Kg 64, compact shading and AA), cut in
-iterations only. Phases, in order:
+iterations only; and single-view conditional generation (fit_singleview
+at FitConfig's defaults -> cond_gen at full width from a reference-format
+checkpoint -> extract), with DDIM interpolation. Phases, in order:
 
 1. the card: name and power limit, versions; TF32 off for fp32 comparisons;
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
@@ -21,7 +23,8 @@ iterations only. Phases, in order:
    (warm) of kernel and plain; for K3 and the statistics also the device
    time from torch.profiler beside the CUDA-event time (the host's share
    shows at the small levels), the bound, and ``library_ms``: one PyTorch
-   call for the same function (``torch.var_mean`` for the statistics; for K3
+   call for the same function (``torch.var_mean`` for the statistics, its
+   CUDA-event and its device time; for K3
    there is none, so ``library_ms`` is null and cuDNN's ``F.conv3d`` alone
    on the already-normalized bf16 input stands beside it as a conv-only
    yardstick, ``conv_only_ms``);
@@ -52,10 +55,34 @@ iterations only. Phases, in order:
    dicts written with the JAX package's keys and shapes, signs in pass 2,
    every loss finite; seconds a step run and the peak device memory above
    what was held before the fit;
-8. one JSON line of kernel results (each kernel's launches from the path
-   that runs it, its launches a forward or fit step, its bound and its
-   ``library_ms``), the card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+8. the entry point ``main --mode fit_singleview`` on the GT mesh
+   (FitConfig's defaults, SV_ITERS iterations, the GT bootstrap every 10):
+   tile_zmin launches once a render (the GT target, every step, the
+   one-layer visibility render), whose one-layer z-test is held against
+   its plain version (ids equal, z bit-equal) and timed beside its bound;
+   the dict {sdf, deform, vis, vis_rast} with its shapes, sdf in {-1, +1},
+   0 < vis < V, vis_rast containing vis; seconds a step, peak device
+   memory, the largest overflow counts (the single-view fit grows no
+   capacity, as in the JAX package);
+9. a checkpoint in the reference's format written by
+   ``utils/checkpoint.py`` from the seeded full-width model (module.
+   keys, an EMA list of values distinct from the weights), loaded onto a
+   fresh eval model: every parameter bit-equal to its EMA entry;
+10. ``main --mode cond_gen`` at full width, batch 1 (num_scales 10,
+    beta_max 2.0, freeze_iters 8) from that checkpoint and phase 8's dict,
+    counters set to 0 just before and read just after; the sample finite,
+    zero outside the grid mask, its SDF sign agreeing with the partial's
+    at more than 0.6 of the visible vertices; then ``main --mode extract``
+    (no remesh) to a non-empty .obj;
+11. ``main --mode uncond_gen_interp`` (DDIM, the default 1000 scales and
+    100-step quad schedule, batch 2, the checkpoint's EMA weights): 99
+    forwards' launches and no ancestral update;
+12. a JSON line of each path's launches, one JSON line of kernel results
+    (each kernel's launches summed over every path that runs it, its
+    launches a forward or fit step, its bound and its ``library_ms``; for
+    the statistics also ``library_device_ms``, torch.var_mean's device
+    time), the card's name and power limit, and the last line
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
 not beside this file.
@@ -163,7 +190,8 @@ def _rel_l2(a, b) -> float:
 class _Records(logging.Handler):
     """Keeps the fields the port's drivers log: timings (sample_s,
     postprocess_s, ...), each fit pass's (pass, iterations, steps run,
-    seconds, pool seconds), and the logged fit losses."""
+    seconds, pool seconds), the logged fit losses, and the single-view
+    fit's (iterations, seconds, largest overflow counts)."""
 
     def __init__(self):
         super().__init__(logging.INFO)
@@ -174,6 +202,8 @@ class _Records(logging.Handler):
         for k in ('sample_s', 'steps', 'marching_s', 'postprocess_s'):
             if hasattr(record, k):
                 self.fields[k] = getattr(record, k)
+        if hasattr(record, 'singleview_fit'):
+            self.fields['singleview_fit'] = record.singleview_fit
         if hasattr(record, 'fit_pass'):
             self.fit_passes.append(record.fit_pass)
         if hasattr(record, 'fit_loss'):
@@ -279,6 +309,40 @@ def show_fit(who: str, passes, peak: int) -> None:
           f'before it')
 
 
+SV_ITERS = 20              # phase 8: single-view iterations (the GT bootstrap every 10)
+COND_STEPS, FREEZE = 10, 8  # phase 10: cond_gen's num_scales and freeze_iters
+
+
+def singleview_run(entry, gt_path: str, out_dir: str):
+    """One ``main --mode fit_singleview`` run through ``entry`` on the GT
+    mesh at FitConfig's defaults, SV_ITERS iterations: (the dict's path,
+    peak device memory above what was held before it, the inputs and
+    outputs of every one-layer z-test call (the visibility render's))."""
+    import torch
+    from meshdiffusion_tpu_torch.render import rasterize as raster
+    cfg_path = out_dir + '.json'
+    with open(cfg_path, 'w') as f:
+        json.dump({'log_interval': 10}, f)
+    one_layer, launch = [], raster.tile_zmin
+
+    def recording(*args):
+        out = launch(*args)
+        if args[6] == 1:
+            one_layer.append((args, out))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    raster.tile_zmin = recording
+    try:
+        path = entry(['--mode', 'fit_singleview', '--meta_path', gt_path, '--out_dir', out_dir,
+                      '--fit_config', cfg_path, '--iter', str(SV_ITERS), '--device', 'cuda'])
+    finally:
+        raster.tile_zmin = launch
+    torch.cuda.synchronize()
+    return path, torch.cuda.max_memory_allocated() - base, one_layer
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -333,7 +397,7 @@ def main() -> int:
     # over the shapes compared (each distinct main-path shape once)
     results = {}
 
-    def record(name, err, ms, plain_ms, bound, by, library_ms=None):
+    def record(name, err, ms, plain_ms, bound, by, library_ms=None, library_device_ms=None):
         r = results.setdefault(name, {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
                                       'bound_ms': 0.0, 'bound_by': by, 'library_ms': None})
         r['max_abs_err'] = max(r['max_abs_err'], err)
@@ -344,6 +408,8 @@ def main() -> int:
             r['bound_by'] = 'operations' if 'operations' in (by, r['bound_by']) else by
         if library_ms is not None:
             r['library_ms'] = (r['library_ms'] or 0.0) + library_ms
+        if library_device_ms is not None:
+            r['library_device_ms'] = r.get('library_device_ms', 0.0) + library_device_ms
 
     out_dir = args.out or os.path.join(HERE, 'chip_smoke_out')
     os.makedirs(out_dir, exist_ok=True)
@@ -410,10 +476,12 @@ def main() -> int:
               f'kernel {ms:.4f} ms plain {pms:.4f} ms')
 
         def _var_mean_ms(xg):
-            """torch.var_mean over (B, S, G, C/G): the statistics in one call."""
+            """torch.var_mean over (B, S, G, C/G), the statistics in one call:
+            (CUDA-event ms, device ms from torch.profiler) a call."""
             B, C = xg.shape[0], xg.shape[-1]
             v = xg.view(B, -1, 32, C // 32)
-            return _time_ms(lambda: torch.var_mean(v, dim=(1, 3), correction=0), 20)
+            call = lambda: torch.var_mean(v, dim=(1, 3), correction=0)
+            return _time_ms(call, 20), sum(_device_ms(call).values())
 
         C = head['shape'][-1]
         sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
@@ -439,7 +507,7 @@ def main() -> int:
                   f'{err_a:.3e} (bound {tol:g}) kernel {ms_a:.4f} ms plain {pms_a:.4f} ms')
             if dt == head['dtype']:       # the JSON line reports the main path's dtype
                 record('gn_affine', err_s, ms_s, pms_s,
-                       *bound_ms(*ops.gn_affine_cost(xg.shape, dt)), library_ms=_var_mean_ms(xg))
+                       *bound_ms(*ops.gn_affine_cost(xg.shape, dt)), *_var_mean_ms(xg))
                 record('groupnorm_silu', err_a, ms_a, pms_a,
                        *bound_ms(*ops.groupnorm_silu_cost(xg.shape, dt)))
 
@@ -485,16 +553,16 @@ def main() -> int:
             s_ms = _time_ms(lambda: ops.gn_affine(xc, sc, bi), 20)
             s_pms = _time_ms(lambda: ops.gn_affine_reference(xc, sc, bi), 20)
             s_dms = _of(_device_ms(lambda: ops.gn_affine(xc, sc, bi)), 'gn_affine')
-            s_lms = _var_mean_ms(xc)
+            s_lms, s_ldms = _var_mean_ms(xc)
             s_bnd, s_by = bound_ms(*ops.gn_affine_cost(xs, xdt))
-            record('gn_affine', err_s, s_ms, s_pms, s_bnd, s_by, library_ms=s_lms)
+            record('gn_affine', err_s, s_ms, s_pms, s_bnd, s_by, s_lms, s_ldms)
             per_shape.append({'name': 'gn_affine', 'x': list(xs), 'dtype': str(xdt)[6:],
                               'calls_per_forward': n, 'ms': s_ms, 'device_ms': s_dms,
                               'plain_ms': s_pms, 'bound_ms': s_bnd, 'bound_by': s_by,
-                              'library_ms': s_lms})
+                              'library_ms': s_lms, 'library_device_ms': s_ldms})
             print(f'K2 gn_affine (gn_stats) x{xs} {str(xdt)[6:]}: max_abs_err {err_s:.3e} (bound '
                   f'1e-5); call {s_ms:.4f} ms, device {s_dms:.4f} ms; plain {s_pms:.4f} ms; bound '
-                  f'{s_bnd:.4f} ms ({s_by}); torch.var_mean {s_lms:.4f} ms')
+                  f'{s_bnd:.4f} ms ({s_by}); torch.var_mean {s_lms:.4f} ms, device {s_ldms:.4f} ms')
     k3 = [r for r in per_shape if r['name'] == 'gn_silu_conv3d']
     results['gn_silu_conv3d']['conv_only_ms'] = sum(r['conv_only_ms'] for r in k3)
     fwd_dev = sum(r['calls_per_forward'] * r['device_ms'] for r in k3)
@@ -673,10 +741,134 @@ def main() -> int:
         print(f'fit_dmtets: V={V}, losses pass{first[0] + 1} iter {first[1]} {first[2]:.4f} -> '
               f'pass{last[0] + 1} iter {last[1]} {last[2]:.4f}; launches {fit_launches} '
               f'(= {FIT_POOL} GT renders + {steps_run} fit steps)')
+
+        # ---- 8. single-view fitting through its entry point ----
+        ops.reset_launch_counts()
+        dmtet, peak, one_layer = singleview_run(port_main, gt, os.path.join(tmp, 'sv'))
+        sv_launches = ops.launch_counts()
+        # one launch a render: the GT target, every step, the visibility render
+        assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
+                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + SV_ITERS + 1}, sv_launches
+        n_it, sv_s, sv_over = rec.fields['singleview_fit']
+        assert n_it == SV_ITERS and len(one_layer) == 1, (n_it, len(one_layer))
+        zargs, (kt, kz) = one_layer[0]
+        with torch.inference_mode():
+            pt, pz = ops.tile_zmin_reference(*zargs)
+            assert torch.equal(kt, pt) and torch.equal(kz, pz) and int((pt >= 0).sum()) > 1000
+            call = lambda: ops.tile_zmin(*zargs)
+            ms = _time_ms(call, 20)
+            dms, seen, issued = _kernel_ms(call, 'tile_zmin')
+            pms = _time_ms(lambda: ops.tile_zmin_reference(*zargs), 3, 1)
+            bnd, by = ops.tile_zmin_bound_ms(zargs[0], zargs[2], zargs[4], zargs[5], num_layers=1,
+                                             best_z=kz)
+        if dms is not None and dms > 1.05 * ms:
+            dms = None
+        record('tile_zmin', 0.0, ms, pms, bnd, by)
+        live = zargs[2].view(zargs[4].shape[0], -1) + zargs[4][:, None]
+        per_shape.append({'name': 'tile_zmin', 'case': 'single-view visibility render, one layer',
+                          'tiles': zargs[1].shape[0], 'faces': zargs[0].shape[1],
+                          'pairs': int(live.sum()), 'heaviest_tile': int(live.max()),
+                          'hits': [int((pt >= 0).sum())], 'ms': ms, 'device_ms': dms,
+                          'launches_recorded': [seen, issued], 'plain_ms': pms, 'bound_ms': bnd,
+                          'bound_by': by, 'library_ms': None})
+        d = torch.load(dmtet)
+        assert set(d) == {'sdf', 'deform', 'vis', 'vis_rast'}, set(d)
+        assert d['sdf'].shape == d['vis'].shape == d['vis_rast'].shape == (V,)
+        assert d['deform'].shape == (V, 3) and d['vis_rast'].dtype == torch.bool
+        assert set(d['sdf'].unique().tolist()) <= {-1.0, 1.0}
+        assert 0 < float(d['vis'].sum()) < V and bool((d['vis_rast'] >= (d['vis'] > 0)).all())
+        print(f'fit_singleview: {SV_ITERS} iterations in {sv_s:.3f} s, {sv_s / SV_ITERS:.3f} s a '
+              f'step (the GT bootstrap every 10 inside); peak device memory {peak / 2 ** 30:.3f} '
+              f'GiB above what was held before it; largest overflow counts a step {sv_over}; '
+              f'launches {sv_launches} (= 1 GT render + {SV_ITERS} steps + 1 visibility render); '
+              f'vis {int(d["vis"].sum())} of {V} vertices, vis_rast {int(d["vis_rast"].sum())}')
+        print(f'tile_zmin one layer (the visibility render, 512^2, 1 view, K '
+              f'{FitConfig().raster_K} + 64): ids equal and z bit-equal to plain, {int((pt >= 0).sum())} pixels hit; '
+              f'device {_ms(dms)} ms (profiler recorded {seen} of {issued} launches), CUDA events '
+              f'{ms:.4f} ms; plain {pms:.2f} ms; bound {bnd:.4f} ms ({by})')
+
+        # ---- 9. a checkpoint in the reference's format ----
+        from meshdiffusion_tpu_torch.utils.checkpoint import EMA, load_eval_weights, save_checkpoint
+        gk = torch.Generator(device=dev).manual_seed(1)
+        model = create_model(cfg, dev, gk)
+        ema = EMA(model)
+        with torch.no_grad():
+            for v in ema.shadow.values():           # shadow values distinct from the weights
+                v.add_(1e-3 * torch.randn(v.shape, device=dev, generator=gk))
+        t0 = time.perf_counter()
+        ckpt = save_checkpoint(os.path.join(tmp, 'checkpoint.pth'),
+                               {'model': model, 'ema': ema, 'optimizer': None, 'step': 0}, cfg)
+        save_s = time.perf_counter() - t0
+        raw = torch.load(ckpt, map_location='cpu', weights_only=True)
+        n_params = sum(1 for _ in model.parameters())
+        assert all(k.startswith('module.') for k in raw['model']) and \
+            len(raw['ema']['shadow_params']) == len(raw['model']) == n_params
+        del raw
+        eval_model = create_model(cfg, dev, torch.Generator(device=dev).manual_seed(2))
+        t0 = time.perf_counter()
+        load_eval_weights(ckpt, eval_model, cfg)
+        load_s = time.perf_counter() - t0
+        for k, p in eval_model.named_parameters():
+            assert torch.equal(p, ema.shadow[k]), k
+        print(f'checkpoint: {n_params} tensors, {os.path.getsize(ckpt) / 2 ** 30:.2f} GiB written '
+              f'in {save_s:.2f} s (model with module. keys + EMA list); loaded onto a fresh eval '
+              f'model in {load_s:.2f} s, every parameter bit-equal to its EMA shadow')
+        del model, ema, eval_model
+        torch.cuda.empty_cache()
+
+        # ---- 10. cond_gen from that checkpoint and the single-view dict, then extract ----
+        ops.reset_launch_counts()
+        npy = port_main(['--config', 'res64', '--mode', 'cond_gen', '--device', 'cuda',
+                         f'--config.model.num_scales={COND_STEPS}', '--config.model.beta_max=2.0',
+                         '--config.eval.batch_size=1', f'--config.eval.freeze_iters={FREEZE}',
+                         f'--config.eval.ckpt_path={ckpt}',
+                         f'--config.eval.partial_dmtet_path={dmtet}',
+                         f'--config.eval.eval_dir={os.path.join(tmp, "cond")}'])
+        torch.cuda.synchronize()
+        cond_launches = ops.launch_counts()
+        assert cond_launches == {'ancestral_update': COND_STEPS, 'gn_affine': 75 * COND_STEPS,
+                                 'groupnorm_silu': COND_STEPS, 'gn_silu_conv3d': 74 * COND_STEPS,
+                                 'tile_zmin': 0}, cond_launches
+        cond_s = rec.fields['sample_s']
+        sample = np.load(npy)
+        m = mask[0, ..., 0].cpu().numpy()
+        assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
+        assert not (sample[0] * (1 - m)).any(), 'cond sample is non-zero outside the grid mask'
+        c = TetGrid.load(R).vert_grid_coords
+        seen = d['vis'].numpy() > 0
+        agree = float((np.sign(sample[0, 0, c[seen, 0], c[seen, 1], c[seen, 2]])
+                       == d['sdf'].numpy()[seen]).mean())
+        assert agree > 0.6, agree
+        objs = port_main(['--mode', 'extract', '--sample_path', npy, '--out_dir',
+                          os.path.join(tmp, 'cond_mesh'), '--device', 'cuda', '--no_remesh'])
+        v, f = read_obj(objs[0])
+        assert len(f) >= 1 and np.isfinite(v).all()
+        print(f'cond_gen: {COND_STEPS} steps (freeze_iters {FREEZE}) in {cond_s:.3f} s, '
+              f'{1000 * cond_s / COND_STEPS:.2f} ms per step; launches {cond_launches}; the SDF '
+              f'sign agrees with the partial at {agree:.4f} of the {int(seen.sum())} visible '
+              f'vertices; extract (smooth 3, no remesh): {len(v)} verts, {len(f)} faces')
+
+        # ---- 11. uncond_gen_interp: DDIM, 1000 scales, the 100-step quad schedule ----
+        ops.reset_launch_counts()
+        npy = port_main(['--config', 'res64', '--mode', 'uncond_gen_interp', '--device', 'cuda',
+                         '--config.eval.batch_size=2', f'--config.eval.ckpt_path={ckpt}',
+                         f'--config.eval.eval_dir={os.path.join(tmp, "interp")}'])
+        torch.cuda.synchronize()
+        interp_launches = ops.launch_counts()
+        fwd = 99                                 # 100 quad-schedule times, 99 pairs
+        assert interp_launches == {'ancestral_update': 0, 'gn_affine': 75 * fwd,
+                                   'groupnorm_silu': fwd, 'gn_silu_conv3d': 74 * fwd,
+                                   'tile_zmin': 0}, interp_launches
+        interp_s = rec.fields['sample_s']
+        sample = np.load(npy)
+        assert sample.shape == (2, 4, R, R, R) and np.isfinite(sample).all()
+        assert not (sample * (1 - m)).any(), 'interp sample is non-zero outside the grid mask'
+        print(f'uncond_gen_interp (DDIM): {fwd} forwards at batch 2 in {interp_s:.3f} s, '
+              f'{1000 * interp_s / fwd:.2f} ms per step; launches {interp_launches}')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 8. results ----
+    # ---- 12. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
     meta = {
@@ -691,7 +883,10 @@ def main() -> int:
         'tile_zmin': ('cuda', 'meshdiffusion_tpu_torch/csrc/tile_zmin.cu',
                       'meshdiffusion_tpu/ops/tile_raster.py:126'),
     }
-    path_launches = dict(launches, tile_zmin=fit_launches['tile_zmin'])
+    by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
+               'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches}
+    print(json.dumps({'launches_by_path': by_path}))
+    path_launches = {n: sum(p[n] for p in by_path.values()) for n in launches}
     # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted
     assert launches['ancestral_update'] % steps == 0, (launches, steps)
     assert fit_launches['tile_zmin'] % (FIT_POOL + steps_run) == 0, (fit_launches, steps_run)

@@ -9,6 +9,7 @@ write the .obj.
 
 from __future__ import annotations
 
+import glob
 import logging
 import os
 import time
@@ -88,4 +89,14 @@ def extract_batch(sample_path: str, out_dir: str, resolution: int = 64,
         extract_grid(data_all[i], tg, p, mesh_scale, deform_scale, num_smooth_steps,
                      unnormalized_sdf, remesh=remesh, device=device)
         paths.append(p)
+    return paths
+
+
+def extract_dir(sample_dir: str, out_dir: str, **kw):
+    """Every ``.npy`` batch under ``sample_dir``, in name order, to
+    ``out_dir/time{k:03d}/mesh/`` (trajectory evaluation, reference
+    eval_traj.py:398-452); ``kw`` as :func:`extract_batch` takes them."""
+    paths = []
+    for k, f in enumerate(sorted(glob.glob(os.path.join(sample_dir, '*.npy')))):
+        paths += extract_batch(f, os.path.join(out_dir, f'time{k:03d}'), **kw)
     return paths

@@ -1,13 +1,13 @@
 """Ground-truth renders for fitting.
 
 Counterpart of ``meshdiffusion_tpu/fitting/dataset.py`` (reference
-``nvdiffrec/lib/dataset/dataset_mesh.py``: random poses:78-94, the target
-dict:132-163): the GT mesh is rendered by the same renderer at random
-cameras (radius fixed, fov 45 degrees, random rigid jitter +-0.2), and the
-target carries images, depths, masks and surface samples. Cameras come from
-a numpy ``Generator`` with the JAX package's calls in the same order, so
-they match it bit for bit; the surface samples draw from the renderer's
-``torch.Generator``.
+``nvdiffrec/lib/dataset/dataset_mesh.py``: random poses:78-94, circular
+validation poses:67-76, the target dict:132-163): the GT mesh is rendered
+by the same renderer at random cameras (radius fixed, fov 45 degrees,
+random rigid jitter +-0.2), and the target carries images, depths, masks
+and surface samples. Cameras come from a numpy ``Generator`` with the JAX
+package's calls in the same order, so they match it bit for bit; the
+surface samples draw from the renderer's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ class TargetRenderer:
     envlight: object
     cam_radius: float = 2.0
     train_res: tuple = (512, 512)
+    display_res: tuple = (512, 512)
     cam_near_far: tuple = (0.1, 1000.0)
     fovy: float = float(np.deg2rad(45))
     layers: int = 2
@@ -66,6 +67,16 @@ class TargetRenderer:
             camposes.append(np.linalg.inv(mv)[:3, 3])
         return (np.stack(mvs).astype(np.float32), np.stack(mvps).astype(np.float32),
                 np.stack(camposes).astype(np.float32))
+
+    def rotate_camera(self, itr: int):
+        """Validation pose ``itr`` on a circle of 50 (reference
+        dataset_mesh.py:67-76): (mv, mvp, campos), each with a batch of 1."""
+        proj = U.perspective(self.fovy, self.display_res[1] / self.display_res[0],
+                             *self.cam_near_far)
+        mv = U.translate(0, 0, -self.cam_radius) @ (U.rotate_x(-0.4)
+                                                    @ U.rotate_y((itr / 50) * np.pi * 2))
+        return (mv[None].astype(np.float32), (proj @ mv)[None].astype(np.float32),
+                np.linalg.inv(mv)[:3, 3][None].astype(np.float32))
 
     def _spts(self) -> torch.Tensor:
         m = self.ref_mesh

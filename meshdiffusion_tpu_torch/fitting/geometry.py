@@ -76,6 +76,11 @@ class DMTetFitter:
             v_pos=mt.verts, t_pos_idx=mt.faces, face_mask=mt.face_mask, material=material,
             valid_vert_idx=mt.valid_vert_mask))
 
+    def tet_centers(self, state: FitState) -> torch.Tensor:
+        """(T, 3) centroids of the deformed tets."""
+        v = self.get_deformed(state)
+        return v[self.grid.tensor('indices', v.device)].mean(dim=1)
+
     # ---- in-loop state maintenance ----
 
     def clamp(self, state: FitState) -> FitState:

@@ -7,6 +7,7 @@ Counterpart of ``meshdiffusion_tpu/geometry/fit_losses.py``:
   the JAX package's;
 * chamfer distance (kaolin convention), chunked so that no (N, N)
   matrix exists, with the index-only backward;
+* the exact chunked k-nearest distance (``knn_dist``);
 * the SDF sign-consistency BCE over crossing edges (reference
   dmtet.py:169-175);
 * the uniform Laplacian (reference regularizer.py:41-60).
@@ -98,6 +99,23 @@ def chamfer_distance(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096) -> tor
     """Mean squared bidirectional nearest-neighbour distance: mean over a
     of min ||a - b||^2 plus mean over b of min ||b - a||^2."""
     return _Chamfer.apply(a, b, chunk)
+
+
+def knn_dist(points: torch.Tensor, queries: torch.Tensor, k: int = 1,
+             chunk: int = 4096) -> torch.Tensor:
+    """k-th smallest squared distance from each query to ``points`` (the
+    pytorch3d ``knn_points`` of reference dmtet.py:249-251): an exact
+    top-k carried over chunks of points, the last chunk padded with points
+    at 1e9 as the JAX package pads it."""
+    pad = (-points.shape[0]) % chunk
+    pp = torch.cat([points, points.new_full((pad, 3), 1e9)]) if pad else points
+    q2 = torch.sum(queries ** 2, -1)[:, None]
+    best = torch.full((queries.shape[0], k), float('inf'), device=queries.device)
+    for off in range(0, pp.shape[0], chunk):
+        pc = pp[off:off + chunk]
+        d2 = torch.clamp(q2 - 2 * queries @ pc.T + torch.sum(pc ** 2, -1)[None, :], min=0.0)
+        best = torch.topk(torch.cat([best, d2], dim=1), k, dim=1, largest=False).values
+    return best[:, k - 1]
 
 
 def sdf_reg_loss(sdf: torch.Tensor, all_edges: torch.Tensor) -> torch.Tensor:

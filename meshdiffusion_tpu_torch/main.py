@@ -2,11 +2,20 @@
 
 Usage:
   python -m meshdiffusion_tpu_torch.main --config res64 --mode uncond_gen \
-      --config.eval.eval_dir out/ [--device cuda]
+      --config.eval.eval_dir=out/ [--config.eval.ckpt_path=ckpt.pth] [--traj] [--device cuda]
+  python -m meshdiffusion_tpu_torch.main --config res64 --mode uncond_gen_interp \
+      --config.eval.batch_size=5 --config.eval.eval_dir=out/ [--config.eval.ckpt_path=ckpt.pth]
+  python -m meshdiffusion_tpu_torch.main --config res64 --mode cond_gen \
+      --config.eval.ckpt_path=ckpt.pth --config.eval.partial_dmtet_path=sv/tets/dmtet.pt \
+      --config.eval.eval_dir=out/ [--config.eval.freeze_iters=950]
   python -m meshdiffusion_tpu_torch.main --mode extract --sample_path out/0.npy \
       --out_dir meshes/ [--device cuda]
+  python -m meshdiffusion_tpu_torch.main --mode extract_traj --sample_path out/ \
+      --out_dir meshes/
   python -m meshdiffusion_tpu_torch.main --mode fit_dmtets --meta_path meshes.json \
       --out_dir fits/ [--fit_config cfg.json] [--device cuda]
+  python -m meshdiffusion_tpu_torch.main --mode fit_singleview --meta_path mesh.obj \
+      --out_dir sv/ [--angle_ind 25] [--fit_config cfg.json] [--device cuda]
 
 ``--config`` takes a preset (res64/res128/default) or a Python file that
 defines ``get_config()``; ``--config.a.b=value`` overrides one key. The
@@ -49,7 +58,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format='%(asctime)s %(levelname)s %(message)s')
     parser = argparse.ArgumentParser('meshdiffusion_tpu_torch')
     parser.add_argument('--config', default='res64', help='preset name or config .py file')
-    parser.add_argument('--mode', required=True, choices=['uncond_gen', 'extract', 'fit_dmtets'])
+    parser.add_argument('--mode', required=True,
+                        choices=['uncond_gen', 'uncond_gen_interp', 'cond_gen', 'extract',
+                                 'extract_traj', 'fit_dmtets', 'fit_singleview'])
     parser.add_argument('--device', default='cuda')
     parser.add_argument('--idx', default='0')
     parser.add_argument('--seed', type=int, default=None)
@@ -63,11 +74,15 @@ def main(argv=None):
     parser.add_argument('--no_remesh', action='store_true',
                         help='extract: skip the isotropic remeshing post-process')
     parser.add_argument('--unnormalized_sdf', action='store_true')
+    parser.add_argument('--traj', action='store_true',
+                        help='uncond_gen: save the x0-prediction trajectory')
+    parser.add_argument('--angle_ind', type=int, default=25,
+                        help='fit_singleview: the validation pose fitted')
     # fitting flags (reference nvdiffrec argparse)
     parser.add_argument('--meta_path', default=None,
-                        help='fit_dmtets: a json list of mesh paths, or one .obj')
+                        help='fit modes: a json list of mesh paths, or one .obj')
     parser.add_argument('--fit_config', default=None,
-                        help='fit_dmtets: an nvdiffrec-style json config')
+                        help='fit modes: an nvdiffrec-style json config')
     parser.add_argument('--iter', type=int, default=5000)
     parser.add_argument('--batch', type=int, default=4)
     parser.add_argument('--index', type=int, default=0)
@@ -83,32 +98,40 @@ def main(argv=None):
     args = parser.parse_args(rest)
     device = _device(args.device)
 
-    if args.mode == 'extract':
-        from .extract import extract_batch
+    if args.mode in ('extract', 'extract_traj'):
+        from .extract import extract_batch, extract_dir
         if not args.sample_path:
-            raise SystemExit('--sample_path is required for --mode extract')
-        return extract_batch(args.sample_path, args.out_dir, resolution=args.resolution,
-                             mesh_scale=args.mesh_scale, deform_scale=args.deform_scale,
-                             num_smooth_steps=args.num_smooth_steps,
-                             unnormalized_sdf=args.unnormalized_sdf,
-                             remesh=not args.no_remesh, device=device)
+            raise SystemExit(f'--sample_path is required for --mode {args.mode}')
+        fn = extract_batch if args.mode == 'extract' else extract_dir
+        return fn(args.sample_path, args.out_dir, resolution=args.resolution,
+                  mesh_scale=args.mesh_scale, deform_scale=args.deform_scale,
+                  num_smooth_steps=args.num_smooth_steps, unnormalized_sdf=args.unnormalized_sdf,
+                  remesh=not args.no_remesh, device=device)
 
     if args.mode == 'fit_dmtets':
         return _fit_dmtets(args, device)
+    if args.mode == 'fit_singleview':
+        from .fitting.singleview import fit_singleview
+        fcfg, mesh_list = _fit_inputs(args)
+        return fit_singleview(mesh_list[args.index], fcfg, args.out_dir,
+                              angle_ind=args.angle_ind, seed=args.seed or 0, device=device)
 
     config = apply_overrides(_load_config(args.config), overrides)
-    from .diffusion.evaler import uncond_gen
-    return uncond_gen(config, idx=args.idx, seed=args.seed, device=device)
+    from .diffusion import evaler
+    if args.mode == 'uncond_gen':
+        return evaler.uncond_gen(config, idx=args.idx, seed=args.seed, device=device,
+                                 return_traj=args.traj)
+    if args.mode == 'uncond_gen_interp':
+        return evaler.uncond_gen_interp(config, idx=args.idx, seed=args.seed, device=device)
+    return evaler.cond_gen(config, save_fname=args.idx, seed=args.seed, device=device)
 
 
-def _fit_dmtets(args, device):
-    """Fit meshes ``index*split_size .. +split_size`` of the list; a mesh
-    whose ``tets/`` dict exists is skipped, and one that fails is logged
-    and skipped (reference fit_dmtets.py:657-810). Returns the written
-    paths, one dict per fitted mesh."""
-    from .fitting.fit import FitConfig, fit_one_mesh
+def _fit_inputs(args):
+    """(FitConfig from ``--iter``, ``--batch`` and ``--fit_config``, the
+    mesh list of ``--meta_path``)."""
+    from .fitting.fit import FitConfig
     if not args.meta_path:
-        raise SystemExit('--meta_path is required for --mode fit_dmtets')
+        raise SystemExit(f'--meta_path is required for --mode {args.mode}')
     fcfg = FitConfig(iter=args.iter, batch=args.batch)
     if args.fit_config:
         with open(args.fit_config) as f:
@@ -116,10 +139,18 @@ def _fit_dmtets(args, device):
                 if hasattr(fcfg, k):
                     setattr(fcfg, k, tuple(v) if isinstance(v, list) else v)
     if args.meta_path.endswith('.obj'):
-        mesh_list = [args.meta_path]
-    else:
-        with open(args.meta_path) as f:
-            mesh_list = json.load(f)
+        return fcfg, [args.meta_path]
+    with open(args.meta_path) as f:
+        return fcfg, json.load(f)
+
+
+def _fit_dmtets(args, device):
+    """Fit meshes ``index*split_size .. +split_size`` of the list; a mesh
+    whose ``tets/`` dict exists is skipped, and one that fails is logged
+    and skipped (reference fit_dmtets.py:657-810). Returns the written
+    paths, one dict per fitted mesh."""
+    from .fitting.fit import fit_one_mesh
+    fcfg, mesh_list = _fit_inputs(args)
     written = []
     for k in range(args.split_size):
         gi = k + args.index * args.split_size

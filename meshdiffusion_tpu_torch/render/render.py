@@ -19,9 +19,10 @@ render_mesh:235-409) on the port's rasterizer, for the fitting path:
 
 The shading path is bsdf 'diffuse' with a constant kd and an environment
 light (reference render.py:100-104), plus the 'normal', 'kd' and 'ks'
-debug BSDFs, on a black background, one sample a pixel. Textured and
-neural materials, supersampling, flat shading, light rotation,
-``visible_tets`` and ``render_uv`` are not ported yet.
+debug BSDFs, on a black background, one sample a pixel, and the
+visible-tet test of the single-view fit (``tet_centers=``,
+:func:`visible_tets`). Textured and neural materials, supersampling, flat
+shading, light rotation and ``render_uv`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.gather import gather
@@ -120,14 +122,16 @@ def render_mesh(mesh: Mesh, mtx_in: torch.Tensor, view_pos: torch.Tensor, lgt,
                 resolution: Tuple[int, int], num_layers: int = 2, bsdf=None,
                 raster_K: int = 256, raster_Kg: int = 64, aa: bool = True,
                 aa_budget: Optional[int] = None, raster_live: int = 65536,
-                remat: bool = False, shade_cap: Optional[int] = None
-                ) -> Dict[str, torch.Tensor]:
+                remat: bool = False, shade_cap: Optional[int] = None,
+                tet_centers: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Depth-peeled render of a camera batch (reference render.py:235-409).
 
     mtx_in (B, 4, 4) mvp; view_pos (B, 3). Returns (B, H, W, C) buffers and
     the overflow counters raster_overflow (grow raster_K),
     raster_overflow_global (raster_Kg), raster_overflow_live
-    (raster_live), aa_overflow (aa_budget) and shade_overflow (shade_cap).
+    (raster_live), aa_overflow (aa_budget) and shade_overflow (shade_cap);
+    with ``tet_centers`` (T, 3) also ``visible_tet_mask`` (T,)
+    (:func:`visible_tets`).
     """
     dev = mesh.v_pos.device
     mtx_in = torch.as_tensor(mtx_in, dtype=torch.float32, device=dev)
@@ -227,4 +231,37 @@ def render_mesh(mesh: Mesh, mtx_in: torch.Tensor, view_pos: torch.Tensor, lgt,
     tri0 = view_rasts[0].tri_id.reshape(-1)
     out['rast_triangle_mask'] = torch.zeros(faces.shape[0], dtype=torch.int32, device=dev) \
         .scatter_reduce(0, tri0.clamp(min=0), (tri0 >= 0).int(), 'amax') > 0
+    if tet_centers is not None:
+        out['visible_tet_mask'] = visible_tets(tet_centers, mtx_in, view_pos, out['depth'],
+                                               view_rasts[0].valid, full_res)
     return out
+
+
+def visible_tets(tet_centers: torch.Tensor, mtx_in: torch.Tensor, view_pos: torch.Tensor,
+                 depth_img: torch.Tensor, rast_valid: torch.Tensor, full_res,
+                 depth_search_range: int = 7) -> torch.Tensor:
+    """Tets not occluded in any view (reference render.py:346-407): a tet
+    centre projected into the image is visible where the minimum depth in
+    a SAME (2r+1)^2 window (empty pixels at 100) is at least its distance
+    from the camera, or where every pixel of the window is empty. Like the JAX
+    package, it compares camera distance on both sides (the reference
+    compares a clip-space z with the distance image). Returns (T,) bool,
+    the union over the views."""
+    B = mtx_in.shape[0]
+    H, W = full_res
+    k, r = 2 * depth_search_range + 1, depth_search_range
+    homo = ops.xfm_points(tet_centers[None].expand(B, -1, -1), mtx_in)
+    w = homo[..., 3:4]
+    ndc = homo[..., :3] / torch.where(w.abs() > 1e-9, w, torch.full_like(w, 1e-9))
+    px = torch.round((ndc[..., 0] * 0.5 + 0.5) * (W - 1)).long()
+    py = torch.round((ndc[..., 1] * 0.5 + 0.5) * (H - 1)).long()
+    in_view = (px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)
+    pxc, pyc = px.clamp(0, W - 1), py.clamp(0, H - 1)
+    # max_pool2d pads with -inf: a SAME window over the image only
+    d = torch.where(rast_valid, depth_img[..., 0], 100.0)
+    dmin = -F.max_pool2d(-d[:, None], k, stride=1, padding=r)[:, 0]
+    empty_all = -F.max_pool2d(-(~rast_valid).float()[:, None], k, stride=1, padding=r)[:, 0] > 0.5
+    tet_depth = torch.sqrt(torch.sum((tet_centers[None] - view_pos[:, None, :]) ** 2, dim=-1))
+    b = torch.arange(B, device=tet_centers.device)[:, None]
+    vis = in_view & ((dmin[b, pyc, pxc] >= tet_depth) | empty_all[b, pyc, pxc])
+    return vis.any(dim=0)

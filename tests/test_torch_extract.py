@@ -3,17 +3,20 @@ bundled 64 tet grid, on the CPU: marching tets faces exactly equal, vertex
 positions to fp32 tolerance; Laplacian smoothing; the whole extract_grid
 without remeshing; and the grid mask."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from meshdiffusion_tpu.extract import extract_dir as jax_extract_dir
 from meshdiffusion_tpu.extract import extract_grid as jax_extract_grid
 from meshdiffusion_tpu.extract import make_grid_to_mesh as jax_grid_to_mesh
 from meshdiffusion_tpu.geometry.marching_tets import compact_mesh as jax_compact_mesh
 from meshdiffusion_tpu.geometry.smoothing import laplacian_smooth as jax_smooth
 from meshdiffusion_tpu.geometry.tet_grid import TetGrid as JaxTetGrid
-from meshdiffusion_tpu_torch.extract import extract_grid, make_grid_to_mesh
+from meshdiffusion_tpu_torch.extract import extract_dir, extract_grid, make_grid_to_mesh
 from meshdiffusion_tpu_torch.geometry.marching_tets import compact_mesh
 from meshdiffusion_tpu_torch.geometry.obj_io import read_obj
 from meshdiffusion_tpu_torch.geometry.smoothing import laplacian_smooth
@@ -90,3 +93,25 @@ def test_extract_grid_matches_jax(grids, tmp_path):
     rv, rf = read_obj(str(tmp_path / 'port.obj'))
     np.testing.assert_array_equal(rf, f)
     np.testing.assert_allclose(rv, v, atol=1e-6)
+
+
+def test_extract_dir_matches_jax(tmp_path):
+    """Trajectory extraction: every .npy of a directory, in name order, to
+    time{k:03d}/mesh/; here two single-sample batches on the 64 grid, no
+    remesh or smoothing, faces exact."""
+    rng = np.random.default_rng(4)
+    samples = tmp_path / 'traj'
+    samples.mkdir()
+    for t in range(2):
+        np.save(samples / f'0_time{t:03d}.npy', np.moveaxis(sphere_grid(rng), -1, 0)[None])
+    kw = dict(num_smooth_steps=0, remesh=False)
+    want = jax_extract_dir(str(samples), str(tmp_path / 'jax'), **kw)
+    got = extract_dir(str(samples), str(tmp_path / 'port'), device='cpu', **kw)
+    assert [os.path.relpath(p, tmp_path / 'port') for p in got] == \
+        [os.path.relpath(p, tmp_path / 'jax') for p in want] == \
+        ['time000/mesh/000000.obj', 'time001/mesh/000000.obj']
+    for a, b in zip(got, want):
+        (v, f), (jv, jf) = read_obj(a), read_obj(b)
+        assert len(f) > 100
+        np.testing.assert_array_equal(f, jf)
+        np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)

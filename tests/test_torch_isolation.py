@@ -1,6 +1,8 @@
 """The port stands alone: ``meshdiffusion_tpu_torch`` and its entry point
 import no jax, flax, ml_collections or JAX package, and its command line
-runs its slices on the CPU: uncond_gen -> extract, and fit_dmtets."""
+runs its slices on the CPU: uncond_gen -> extract, fit_dmtets, and
+fit_singleview -> cond_gen (with uncond_gen --traj and uncond_gen_interp)
+in a process where the JAX modules cannot be imported."""
 
 import json
 import os
@@ -65,11 +67,10 @@ print('RESULT', json.dumps({'written': written, 'bad': bad}))
 ''' % (FORBIDDEN,)
 
 
-def test_fit_cli_runs_without_jax(tmp_path):
-    """Every module of the package imports without jax; then ``main --mode
-    fit_dmtets --device cpu`` fits a sphere on an 8^3 tet grid (written
-    where ``tet_root`` points) for 3 iterations a pass at 48^2, batch 2:
-    both dicts, with the JAX package's keys and shapes, signs in pass 2."""
+def _write_tiny_grid_and_sphere(tmp_path):
+    """An 8^3 Kuhn tet grid as ``tmp_path/8_tets_cropped.npz``, a sphere
+    ``.obj`` marched on it, ``meshes.json`` and a 48^2 ``fit.json``;
+    returns the grid."""
     from meshdiffusion_tpu_torch.geometry.marching_tets import compact_mesh, marching_tets
     from meshdiffusion_tpu_torch.geometry.obj_io import write_obj
     from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
@@ -90,7 +91,15 @@ def test_fit_cli_runs_without_jax(tmp_path):
     (tmp_path / 'fit.json').write_text(json.dumps({
         'train_res': [48, 48], 'dmtet_grid': n, 'tet_root': str(tmp_path), 'mesh_scale': 1.0,
         'surface_samples': 1000, 'cam_radius': 2.0, 'target_pool': 2}))
+    return grid
 
+
+def test_fit_cli_runs_without_jax(tmp_path):
+    """Every module of the package imports without jax; then ``main --mode
+    fit_dmtets --device cpu`` fits a sphere on an 8^3 tet grid (written
+    where ``tet_root`` points) for 3 iterations a pass at 48^2, batch 2:
+    both dicts, with the JAX package's keys and shapes, signs in pass 2."""
+    grid = _write_tiny_grid_and_sphere(tmp_path)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, '-c', _FIT_CHILD, str(tmp_path)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -109,6 +118,67 @@ def test_fit_cli_runs_without_jax(tmp_path):
         assert all(torch.isfinite(t).all() for t in d.values())
     assert set(fin['sdf'].unique().tolist()) <= {-1.0, 1.0}
     assert (fin['sdf'] > 0).any() and (fin['sdf'] < 0).any()
+
+
+_COND_CHILD = r'''
+import sys
+for name in %r:
+    sys.modules[name] = None          # importing any of them now raises
+from meshdiffusion_tpu_torch.config import apply_overrides, get_config
+from meshdiffusion_tpu_torch.main import main
+from meshdiffusion_tpu_torch.models import create_model
+from meshdiffusion_tpu_torch.utils.checkpoint import EMA, save_checkpoint
+import torch
+out = sys.argv[1]
+dmtet = main(['--mode', 'fit_singleview', '--device', 'cpu', '--meta_path', out + '/sphere.obj',
+              '--out_dir', out + '/sv', '--fit_config', out + '/fit.json', '--iter', '3',
+              '--angle_ind', '10'])
+tiny = ['--config.data.image_size=8', '--config.gpu.tet_root=' + out, '--config.model.nf=32',
+        '--config.model.ch_mult=(1,2)', '--config.model.num_res_blocks=1',
+        '--config.model.attn_resolutions=(4,)', '--config.model.num_scales=3',
+        '--config.model.beta_max=2.0', '--config.gpu.compute_dtype=float32']
+cfg = apply_overrides(get_config('res64'), [a[len('--config.'):].split('=', 1) for a in tiny])
+model = create_model(cfg, device='cpu', generator=torch.Generator().manual_seed(0))
+ckpt = save_checkpoint(out + '/ckpt.pth', {'model': model, 'ema': EMA(model), 'step': 7}, cfg)
+cond = main(['--mode', 'cond_gen', '--device', 'cpu', *tiny, '--config.eval.batch_size=1',
+             '--config.eval.ckpt_path=' + ckpt, '--config.eval.partial_dmtet_path=' + dmtet,
+             '--config.eval.freeze_iters=2', '--config.eval.eval_dir=' + out + '/gen'])
+traj = main(['--mode', 'uncond_gen', '--traj', '--device', 'cpu', *tiny,
+             '--config.eval.batch_size=1', '--config.eval.eval_dir=' + out + '/traj'])
+interp = main(['--mode', 'uncond_gen_interp', '--device', 'cpu', *tiny,
+               '--config.eval.batch_size=3', '--config.eval.ckpt_path=' + ckpt,
+               '--config.eval.eval_dir=' + out + '/interp'])
+print('RESULT', dmtet, cond, traj[0], interp)
+''' % (FORBIDDEN,)
+
+
+def test_cond_cli_runs_without_jax(tmp_path):
+    """In a process where jax, flax and the JAX package cannot be imported:
+    ``main --mode fit_singleview --device cpu`` fits one view of a sphere on
+    the 8^3 tet grid (3 iterations at 48^2) and writes the dict
+    {sdf, deform, vis, vis_rast}; a tiny U-Net saved by ``save_checkpoint``
+    then conditions ``main --mode cond_gen`` on it; ``uncond_gen --traj``
+    and ``uncond_gen_interp`` (batch 3) run too."""
+    grid = _write_tiny_grid_and_sphere(tmp_path)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', _COND_CHILD, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith('RESULT')][-1]
+    _, dmtet, cond, traj, interp = line.split(' ')
+    d = torch.load(dmtet)
+    V = grid.num_verts
+    assert set(d) == {'sdf', 'deform', 'vis', 'vis_rast'}
+    assert d['sdf'].shape == d['vis'].shape == d['vis_rast'].shape == (V,)
+    assert d['deform'].shape == (V, 3) and d['vis_rast'].dtype == torch.bool
+    assert set(d['sdf'].unique().tolist()) <= {-1.0, 1.0}
+    assert 0 < d['vis'].sum() < V and bool((d['vis_rast'] >= (d['vis'] > 0)).all())
+    mask = grid.grid_mask()
+    for path, batch in ((cond, 1), (traj, 1), (interp, 3)):
+        sample = np.load(path)
+        assert sample.shape == (batch, 4, 8, 8, 8) and np.isfinite(sample).all()
+        assert not (sample * (1 - mask)).any()
+    assert np.abs(np.load(cond)).max() > 0 and np.abs(np.load(interp)).max() > 0
 
 
 def test_sources_import_nothing_of_jax():

@@ -201,39 +201,67 @@ def test_cost_helpers_match_hand_counts(kernel):
             ((7 * 1024 + 1) * (16000 + 2 * 3) / 16.72704e12 * 1e3, 'operations'))
 
 
-@pytest.mark.parametrize('entry', ['create_model', 'extract_grid', 'extract_batch'])
+_ENTRY_POINTS = ('create_model', 'extract_grid', 'extract_batch', 'extract_dir', 'uncond_gen',
+                 'uncond_gen_interp', 'cond_gen', 'fit_singleview')
+
+
+@pytest.mark.parametrize('entry', ['create_model', 'extract_grid', 'extract_batch',
+                                   'uncond_gen', 'uncond_gen_interp', 'cond_gen', 'fit_singleview']
+                         + [f'main --mode {m}' for m in ('uncond_gen', 'uncond_gen_interp',
+                                                         'cond_gen', 'extract', 'extract_traj',
+                                                         'fit_dmtets', 'fit_singleview')])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
-    """Called with no device, ``create_model`` and the extraction
-    functions ask for the card, and raise where CUDA is missing instead of
-    falling back."""
+    """Called with no device, ``create_model``, the extraction functions,
+    the generation drivers, the single-view fit and every mode of the
+    command line ask for the card, and raise where CUDA is missing instead
+    of falling back."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     from meshdiffusion_tpu_torch import extract
+    from meshdiffusion_tpu_torch.diffusion import evaler
+    from meshdiffusion_tpu_torch.fitting.fit import FitConfig
+    from meshdiffusion_tpu_torch.fitting.singleview import fit_singleview
+    from meshdiffusion_tpu_torch.main import main
     from meshdiffusion_tpu_torch.models import create_model
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         if entry == 'create_model':
             create_model(get_config('res64'))
         elif entry == 'extract_grid':
             extract.extract_grid(np.zeros((4, 8, 8, 8), np.float32), None, str(tmp_path / 'a.obj'))
-        else:
+        elif entry == 'extract_batch':
             np.save(tmp_path / 's.npy', np.zeros((1, 4, 8, 8, 8), np.float32))
             extract.extract_batch(str(tmp_path / 's.npy'), str(tmp_path), resolution=8,
                                   tet_root=str(tmp_path))
+        elif entry == 'fit_singleview':
+            fit_singleview(str(tmp_path / 'none.obj'), FitConfig(), str(tmp_path))
+        elif entry.startswith('main'):
+            main(entry.split()[1:])
+        else:
+            getattr(evaler, entry)(get_config('res64'))
 
 
 def test_cpu_tests_name_their_device():
-    """Every call of the port's create_model, extract_grid or extract_batch
-    in the port's test files passes ``device=`` (the default is the card)."""
+    """Every call of one of the port's entry points (create_model, the
+    extraction functions, the generation drivers, fit_singleview) in the
+    port's test files passes ``device=`` (the default is the card), whether
+    called by its imported name or through an imported port module."""
     missing = []
     for path in sorted(glob.glob(os.path.join(HERE, 'test_torch_*.py'))):
         tree = ast.parse(open(path).read())
-        names = {a.asname or a.name for node in ast.walk(tree)
-                 if isinstance(node, ast.ImportFrom) and (node.module or '').startswith('meshdiffusion_tpu_torch')
-                 for a in node.names if a.name in ('create_model', 'extract_grid', 'extract_batch')}
+        port = [node for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
+                and (node.module or '').startswith('meshdiffusion_tpu_torch')]
+        names = {a.asname or a.name for node in port for a in node.names
+                 if a.name in _ENTRY_POINTS}
+        modules = {a.asname or a.name for node in port for a in node.names
+                   if a.name not in _ENTRY_POINTS}
         for fn in ast.walk(tree):
             if not isinstance(fn, ast.FunctionDef) or fn.name == 'test_entry_points_default_to_cuda':
                 continue          # that test leaves the device out on purpose
             for node in ast.walk(fn):
-                if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
-                        and node.func.id in names and not any(k.arg == 'device' for k in node.keywords):
+                if not isinstance(node, ast.Call) or any(k.arg == 'device' for k in node.keywords):
+                    continue
+                f = node.func
+                if (isinstance(f, ast.Name) and f.id in names) or (
+                        isinstance(f, ast.Attribute) and f.attr in _ENTRY_POINTS
+                        and isinstance(f.value, ast.Name) and f.value.id in modules):
                     missing.append(f'{os.path.basename(path)}:{node.lineno}')
     assert not missing, missing

@@ -67,7 +67,7 @@ def test_uncond_sampler_matches_jax():
     sampler = get_sampling_fn(pcfg, VPSDE(beta_max=2.0, N=N), shape, grid_mask=tmask)
     with torch.no_grad():
         got, nfe = sampler(lambda x, l: model(x, l, tmask),
-                           lambda i, shp: torch.from_numpy(np.array(noise[i])))
+                           lambda name, shp, i=-1, j=0: torch.from_numpy(np.array(noise[i])))
     got = got.numpy()
     assert nfe == nfe_j
     assert np.isfinite(got).all()
