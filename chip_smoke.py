@@ -9,9 +9,10 @@ generation at full width (nf 128, ch_mult (1,1,2,4,4), 3 ResnetBlocks a
 level, attention at 16^3, batch 1, the bundled 64 tet grid); DMTet
 dataset fitting at full width (FitConfig's defaults: 512^2, batch 4, the
 64 tet grid, raster_K 256 + raster_Kg 64, compact shading and AA), cut in
-iterations only; and single-view conditional generation (fit_singleview
+iterations only; single-view conditional generation (fit_singleview
 at FitConfig's defaults -> cond_gen at full width from a reference-format
-checkpoint -> extract), with DDIM interpolation. Phases, in order:
+checkpoint -> extract), with DDIM interpolation; and res64 diffusion
+training at full width, effective batch 48, cut in steps. Phases, in order:
 
 1. the card: name and power limit, versions; TF32 off for fp32 comparisons;
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
@@ -77,7 +78,21 @@ checkpoint -> extract), with DDIM interpolation. Phases, in order:
 11. ``main --mode uncond_gen_interp`` (DDIM, the default 1000 scales and
     100-step quad schedule, batch 2, the checkpoint's EMA weights): 99
     forwards' launches and no ancestral update;
-12. a JSON line of each path's launches, one JSON line of kernel results
+12. ``main --mode train`` at the res64 preset's full width (dropout 0.1,
+    bf16, remat on) on TRAIN_GRIDS synthetic 64^3 grids through the native
+    loader, effective batch 48 as micro-batch TRAIN_MICRO x iter_size
+    TRAIN_ITER, steps 0..TRAIN_STEPS (one warm, the rest timed), counters
+    set to 0 just before and read just after: K3 and the statistics 2 x 37
+    a micro-batch (forward and remat recompute of chain 0; chain 1 runs
+    decomposed under dropout); every loss finite, the weights unchanged by
+    step 0 (lr 0 under warm-up) and changed by the last, the EMA counting
+    every step, the preemption snapshot read back by ``load_eval_weights``;
+    then, on the trained state: one micro-batch step under torch.profiler
+    (device ms by family, the card's busy share), the first step's weight
+    repacking, peak memory at micro-batch 2 and TRAIN_MICRO, and at
+    micro-batch 2 with dropout 0 (both chains through K3) the loss and
+    every gradient with kernels against ``kernels=False``;
+13. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
     the statistics also ``library_device_ms``, torch.var_mean's device
@@ -190,13 +205,14 @@ def _rel_l2(a, b) -> float:
 class _Records(logging.Handler):
     """Keeps the fields the port's drivers log: timings (sample_s,
     postprocess_s, ...), each fit pass's (pass, iterations, steps run,
-    seconds, pool seconds), the logged fit losses, and the single-view
-    fit's (iterations, seconds, largest overflow counts)."""
+    seconds, pool seconds), the logged fit losses, the single-view
+    fit's (iterations, seconds, largest overflow counts), and the trainer's
+    log lines (step, loss, seconds, steps, loader seconds, loader)."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.fields = {}
-        self.fit_passes, self.fit_losses = [], []
+        self.fit_passes, self.fit_losses, self.train_logs = [], [], []
 
     def emit(self, record):
         for k in ('sample_s', 'steps', 'marching_s', 'postprocess_s'):
@@ -208,6 +224,8 @@ class _Records(logging.Handler):
             self.fit_passes.append(record.fit_pass)
         if hasattr(record, 'fit_loss'):
             self.fit_losses.append(record.fit_loss)
+        if hasattr(record, 'train_log'):
+            self.train_logs.append(record.train_log)
 
 
 def gt_mesh(path: str) -> None:
@@ -341,6 +359,101 @@ def singleview_run(entry, gt_path: str, out_dir: str):
         raster.tile_zmin = launch
     torch.cuda.synchronize()
     return path, torch.cuda.max_memory_allocated() - base, one_layer
+
+
+TRAIN_MICRO, TRAIN_ITER, TRAIN_STEPS = 12, 4, 3   # phase 12: micro-batch, iter_size, n_iters
+TRAIN_GRIDS, TRAIN_PATHS = 16, 48                 # synthetic grids, meta-list entries
+
+
+def train_data(out_dir: str, mask) -> list:
+    """TRAIN_GRIDS synthetic (4, R, R, R) fp32 grids in the reference's file
+    layout: the SDF channel the sign of a noisy ball of random radius, the
+    deforms normal(0, 0.1) zeroed outside the tet grid's ``mask``; and
+    ``meta.json``, a list of TRAIN_PATHS of their paths (each grid three
+    times). Returns the grid paths."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    R = mask.shape[0]
+    c = (np.arange(R, dtype=np.float32) - (R - 1) / 2) / R
+    dist = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
+    paths = []
+    for i in range(TRAIN_GRIDS):
+        g = np.empty((4, R, R, R), np.float32)
+        g[0] = np.sign(rng.uniform(0.15, 0.4) - dist + 0.02 * rng.standard_normal(dist.shape))
+        g[1:] = 0.1 * rng.standard_normal((3, R, R, R)).astype(np.float32) * mask
+        paths.append(os.path.join(out_dir, f'grid_{i:05d}.npy'))
+        np.save(paths[-1], g)
+    with open(os.path.join(out_dir, 'meta.json'), 'w') as f:
+        json.dump([paths[i % TRAIN_GRIDS] for i in range(TRAIN_PATHS)], f)
+    return paths
+
+
+def train_run(entry, meta: str, out_dir: str):
+    """One ``main --mode train`` run through ``entry``: the res64 preset,
+    micro-batch TRAIN_MICRO x iter_size TRAIN_ITER, steps 0..TRAIN_STEPS,
+    every step logged, the preemption snapshot at the last step. Each train
+    step is timed (host clock, synchronised) by wrapping
+    ``losses.make_train_step``: (the final TrainState, [per step {step, s,
+    loss, unchanged: weights equal to those before (step 0 only)}], the
+    weights before step 0, peak device memory of the run)."""
+    import torch
+    from meshdiffusion_tpu_torch.diffusion import losses
+    steps, make, first = [], losses.make_train_step, []
+
+    def timed_make(*args, **kw):
+        step_fn = make(*args, **kw)
+
+        def timed(state, batch, source=None):
+            if state.step == 0:
+                first.extend(p.detach().clone() for p in state.model.parameters())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(state, batch, source)
+            torch.cuda.synchronize()
+            rec = {'step': state.step - 1, 's': time.perf_counter() - t0,
+                   'loss': float(out['loss']), 'unchanged': None}
+            if rec['step'] == 0:
+                rec['unchanged'] = all(torch.equal(p, q)
+                                       for p, q in zip(state.model.parameters(), first))
+            steps.append(rec)
+            return out
+        return timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses.make_train_step = timed_make
+    try:
+        state = entry(['--config', 'res64', '--mode', 'train', '--device', 'cuda',
+                       f'--config.data.meta_path={meta}', '--config.data.num_workers=8',
+                       f'--config.training.batch_size={TRAIN_MICRO}',
+                       f'--config.training.iter_size={TRAIN_ITER}',
+                       f'--config.training.n_iters={TRAIN_STEPS}', '--config.training.log_freq=1',
+                       f'--config.training.snapshot_freq_for_preemption={TRAIN_STEPS}',
+                       f'--config.training.train_dir={out_dir}'])
+    finally:
+        losses.make_train_step = make
+    torch.cuda.synchronize()
+    return state, steps, first, torch.cuda.max_memory_allocated()
+
+
+# kernel family of a profiled training step -> substrings of its kernels' names (the first hit)
+_TRAIN_FAMILIES = (
+    ('K3 gn_silu_conv3d', ('gn_silu_conv3d_kernel', 'splitk_reduce_kernel')),
+    ('gn_stats', ('gn_stats_kernel',)),
+    ('cuDNN conv dgrad', ('dgrad',)),
+    ('cuDNN conv wgrad', ('wgrad',)),
+    ('cuDNN conv forward', ('fprop',)),
+    ('cuDNN other (layouts, conv)', ('cudnn', 'conv', 'implicit')),
+    ('matmul', ('gemm', 'gemv', 'cutlass', 'cublas')),
+    ('Adam + EMA (foreach)', ('multi_tensor_apply', 'foreach', 'lerp')),
+)
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in _TRAIN_FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return 'elementwise and other'
 
 
 def main() -> int:
@@ -868,7 +981,158 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 12. results ----
+    # ---- 12. training: main --mode train at full width, then checks on its state ----
+    from meshdiffusion_tpu_torch.diffusion import losses
+    from meshdiffusion_tpu_torch.utils.checkpoint import load_eval_weights
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    try:
+        grids = train_data(tmp, TetGrid.load(R).grid_mask())
+        ops.reset_launch_counts()
+        rec.train_logs.clear()
+        state, tsteps, first, peak_run = train_run(port_main, os.path.join(tmp, 'meta.json'),
+                                                   os.path.join(tmp, 'run'))
+        train_launches = ops.launch_counts()
+        n_micro = (TRAIN_STEPS + 1) * TRAIN_ITER
+        assert train_launches == {'ancestral_update': 0, 'gn_affine': 74 * n_micro,
+                                  'groupnorm_silu': 0, 'gn_silu_conv3d': 74 * n_micro,
+                                  'tile_zmin': 0}, train_launches
+        assert [t['step'] for t in tsteps] == list(range(TRAIN_STEPS + 1)), tsteps
+        assert tsteps[0]['unchanged'] is True, 'step 0 moved the weights (lr 0 under warm-up)'
+        model = state.model
+        changed = sum(int((p != q).sum()) for p, q in zip(model.parameters(), first))
+        n_weights = sum(p.numel() for p in model.parameters())
+        assert changed > 0, 'the weights did not move over the run'
+        del first
+        logs = rec.train_logs
+        assert [lg[0] for lg in logs] == list(range(TRAIN_STEPS + 1)) and \
+            all(np.isfinite(lg[1]) for lg in logs) and all(np.isfinite(t['loss']) for t in tsteps)
+        assert {lg[5] for lg in logs} == {'native'}, logs
+        assert state.step == state.ema.num_updates == TRAIN_STEPS + 1, \
+            (state.step, state.ema.num_updates)
+        snap = os.path.join(tmp, 'run', 'checkpoints-meta', 'checkpoint.pth')
+        eval_model = create_model(cfg, dev)
+        assert load_eval_weights(snap, eval_model, cfg) == TRAIN_STEPS + 1
+        for k, p in eval_model.named_parameters():
+            assert torch.equal(p, state.ema.shadow[k]), k
+        del eval_model
+        snap_gib = os.path.getsize(snap) / 2 ** 30
+        shutil.rmtree(os.path.join(tmp, 'run', 'checkpoints'), ignore_errors=True)
+        warm_s = tsteps[0]['s']
+        step_s = sum(t['s'] for t in tsteps[1:]) / TRAIN_STEPS
+        eff = TRAIN_MICRO * TRAIN_ITER
+        load_ms = 1000 * sum(lg[4] for lg in logs) / sum(lg[3] for lg in logs)
+        print(f'train: res64 full width, effective batch {eff} = {TRAIN_MICRO} x {TRAIN_ITER}, '
+              f'dropout 0.1, bf16, remat on; step 0 (warm) {warm_s:.3f} s, steps 1-{TRAIN_STEPS} '
+              f'{[round(t["s"], 4) for t in tsteps[1:]]} s: {step_s:.4f} s a step, '
+              f'{1000 * step_s / eff:.2f} ms a sample; losses {[round(t["loss"], 5) for t in tsteps]}; '
+              f'{changed} of {n_weights} weights moved by step {TRAIN_STEPS} (none by step 0); '
+              f'native loader {load_ms:.2f} ms (host) a batch of {eff}; peak device memory of '
+              f'the run {peak_run / 2 ** 30:.2f} GiB; preemption snapshot {snap_gib:.2f} GiB read '
+              f'back, EMA bit-equal; launches {train_launches} '
+              f'(= 2 x 37 a micro-batch x {n_micro})')
+
+        # one micro-batch step (forward, backward, Adam, EMA) under the profiler
+        sde = VPSDE(beta_min=cfg.model.beta_min, beta_max=cfg.model.beta_max,
+                    N=cfg.model.num_scales)
+        step_fn = losses.make_train_step(sde, mask)
+        batch = torch.from_numpy(np.ascontiguousarray(np.stack(
+            [np.moveaxis(np.load(p), 0, -1) for p in grids[:TRAIN_MICRO]]))).to(dev)
+        one = lambda: step_fn(state, batch[None])
+        one_ms = _time_ms(one, 2, 1)
+        prof = _device_ms(one, 1)
+        fams = {}
+        for k, t in prof.items():
+            fams[_family(k)] = fams.get(_family(k), 0.0) + t
+        busy = sum(prof.values())
+        print(f'train: one step of one micro-batch of {TRAIN_MICRO} (forward, remat recompute, '
+              f'backward, Adam, EMA): {one_ms:.2f} ms (CUDA events), device {busy:.2f} ms, the card '
+              f'busy {100 * busy / one_ms:.1f} %; device ms by family: '
+              + ', '.join(f'{f} {t:.2f}' for f, t in sorted(fams.items(), key=lambda kv: -kv[1])))
+        for k, t in sorted(prof.items(), key=lambda kv: -kv[1])[:15]:
+            print(f'  {t:8.3f} ms  {k[:100]}')
+
+        # the weight repacking an optimizer step causes: every Conv_0 that K3 reads
+        convs = [m.Conv_0 for m in model.modules() if isinstance(m, ResnetBlockDDPM)]
+        with torch.no_grad():
+            for c in convs:
+                c.weight.add_(0.0)          # a new version, as an Adam step leaves it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in convs:
+            c.packed()
+        torch.cuda.synchronize()
+        repack_ms = 1000 * (time.perf_counter() - t0)
+
+        peak = {}
+        for mb in (2, TRAIN_MICRO):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_fn(state, batch[None, :mb])
+            torch.cuda.synchronize()
+            peak[mb] = torch.cuda.max_memory_allocated()
+        slope = (peak[TRAIN_MICRO] - peak[2]) / (TRAIN_MICRO - 2)
+        print(f'train: weight repacking after an optimizer step ({len(convs)} Conv_0 layouts) '
+              f'{repack_ms:.2f} ms; peak device memory of a step (state included) at '
+              f'micro-batch 2: {peak[2] / 2 ** 30:.2f} GiB, at {TRAIN_MICRO}: '
+              f'{peak[TRAIN_MICRO] / 2 ** 30:.2f} GiB; {slope / 2 ** 30:.3f} GiB a sample, so '
+              f'48 x 1 would need {(peak[2] + 46 * slope) / 2 ** 30:.1f} GiB')
+
+        # kernels against kernels=False on the train path: micro-batch 2, dropout 0
+        # (both chains through K3), seeded normal(0, 0.02) weights
+        with torch.no_grad():
+            for p in model.parameters():
+                p.normal_(0.0, 0.02, generator=g)
+        with torch.device(dev):
+            model_p = get_model(cfg.model.name).from_config(cfg, kernels=False, dropout=0.0)
+        model_p.load_state_dict(model.state_dict())
+        for m in model.modules():
+            if isinstance(m, ResnetBlockDDPM):
+                m.dropout = 0.0
+        sqrt_ac, sqrt_1m_ac = (torch.as_tensor(t, device=dev) for t in
+                               (sde.sqrt_alphas_cumprod, sde.sqrt_1m_alphas_cumprod))
+        labels2 = torch.tensor([100, 700], device=dev)
+        noise2 = torch.randn(batch[:2].shape, device=dev, generator=g)
+        got = []
+        for m in (model, model_p):
+            m.zero_grad(set_to_none=True)
+            ops.reset_launch_counts()
+            loss = losses.ddpm_loss(m, batch[:2], labels2, noise2, sqrt_ac, sqrt_1m_ac, mask,
+                                    train=True)
+            loss.backward()
+            torch.cuda.synchronize()
+            got.append((float(loss.detach()), ops.launch_counts()['gn_silu_conv3d'],
+                        {k: p.grad for k, p in m.named_parameters() if p.grad is not None}))
+        (lk, nk, gk), (lp, npl, gp) = got
+        assert nk == 4 * 37 and npl == 0, (nk, npl)
+        assert gk.keys() == gp.keys()
+        loss_rel = abs(lk - lp) / abs(lp)
+        flat = _rel_l2(torch.cat([gk[k].flatten() for k in gk]),
+                       torch.cat([gp[k].flatten() for k in gk]))
+        per = {k: _rel_l2(gk[k], gp[k]) for k in gk if float(gp[k].norm()) > 0}
+        worst = max(per, key=per.get)
+        assert np.isfinite(lk) and loss_rel <= 1e-2 and flat <= 2e-2, (lk, lp, flat)
+        print(f'train: kernels against kernels=False, micro-batch 2, dropout 0 ({nk} K3 launches: '
+              f'both chains, forward and remat recompute): loss {lk:.6f} against {lp:.6f} '
+              f'(relative error {loss_rel:.2e}, bound 1e-2); the flattened gradient relative L2 '
+              f'{flat:.3e} (bound 2e-2); the worst tensor {worst} {per[worst]:.3e}')
+        train_out = {'micro': TRAIN_MICRO, 'iter_size': TRAIN_ITER, 'warm_step_s': warm_s,
+                     'step_s': step_s, 'ms_per_sample': 1000 * step_s / eff,
+                     'step_times_s': [t['s'] for t in tsteps], 'losses': [t['loss'] for t in tsteps],
+                     'loader_ms_per_batch': load_ms, 'peak_run_bytes': peak_run,
+                     'micro_step_ms': one_ms, 'micro_step_device_ms': busy,
+                     'busy_share': busy / one_ms, 'device_ms_by_family': fams,
+                     'repack_ms': repack_ms, 'peak_bytes': {str(k): v for k, v in peak.items()},
+                     'bytes_per_sample': slope, 'loss_rel_err': loss_rel, 'grad_rel_l2': flat,
+                     'worst_tensor': [worst, per[worst]], 'launches': train_launches,
+                     'card': _smi()}
+        with open(os.path.join(out_dir, 'train.json'), 'w') as f:
+            json.dump(train_out, f, indent=1)
+        del state, model, model_p, got, gk, gp, batch
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 13. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
     meta = {
@@ -884,7 +1148,8 @@ def main() -> int:
                       'meshdiffusion_tpu/ops/tile_raster.py:126'),
     }
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
-               'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches}
+               'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,
+               'train': train_launches}
     print(json.dumps({'launches_by_path': by_path}))
     path_launches = {n: sum(p[n] for p in by_path.values()) for n in launches}
     # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted

@@ -31,12 +31,15 @@ logger = logging.getLogger(__name__)
 
 
 def load_grid_mask(config) -> np.ndarray:
-    """(R, R, R) float32 occupancy mask: ``data.grid_mask_path`` (.npy) if
-    set, else derived from the tet grid."""
+    """(R, R, R) float32 occupancy mask: ``data.grid_mask_path`` (.npy, or a
+    torch .pt such as the reference's grid_mask_{R}.pt) if set, else derived
+    from the tet grid."""
     R = config.data.image_size
     path = config.data.get('grid_mask_path', '')
     if path:
-        return np.asarray(np.load(path), np.float32).reshape(R, R, R)
+        m = (np.load(path) if path.endswith('.npy')
+             else torch.load(path, map_location='cpu', weights_only=True).numpy())
+        return np.asarray(m, np.float32).reshape(R, R, R)
     return TetGrid.load(R, config.gpu.tet_root or None).grid_mask()
 
 
@@ -54,7 +57,9 @@ def _setup(config, device):
     model = create_model(config, device,
                          torch.Generator(device=device).manual_seed(config.seed)).eval()
     ckpt_path = config.eval.ckpt_path
-    if _is_set(ckpt_path) and os.path.exists(ckpt_path):
+    # a .pth/.pt that is missing raises (JAX: load_torch_checkpoint's torch.load);
+    # another missing path warns, as the JAX package's orbax restore does
+    if _is_set(ckpt_path) and (ckpt_path.endswith(('.pth', '.pt')) or os.path.exists(ckpt_path)):
         step = load_eval_weights(ckpt_path, model, config)
         logger.info('loaded model trained till iter %d', step // config.training.iter_size)
     elif _is_set(ckpt_path):

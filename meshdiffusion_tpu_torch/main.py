@@ -1,6 +1,8 @@
 """Command-line entry point (reference main_diffusion.py:13-25).
 
 Usage:
+  python -m meshdiffusion_tpu_torch.main --config res64 --mode train \
+      --config.data.meta_path=grids.json --config.training.train_dir=run/ [--device cuda]
   python -m meshdiffusion_tpu_torch.main --config res64 --mode uncond_gen \
       --config.eval.eval_dir=out/ [--config.eval.ckpt_path=ckpt.pth] [--traj] [--device cuda]
   python -m meshdiffusion_tpu_torch.main --config res64 --mode uncond_gen_interp \
@@ -59,8 +61,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser('meshdiffusion_tpu_torch')
     parser.add_argument('--config', default='res64', help='preset name or config .py file')
     parser.add_argument('--mode', required=True,
-                        choices=['uncond_gen', 'uncond_gen_interp', 'cond_gen', 'extract',
-                                 'extract_traj', 'fit_dmtets', 'fit_singleview'])
+                        choices=['train', 'uncond_gen', 'uncond_gen_interp', 'cond_gen',
+                                 'extract', 'extract_traj', 'fit_dmtets', 'fit_singleview'])
     parser.add_argument('--device', default='cuda')
     parser.add_argument('--idx', default='0')
     parser.add_argument('--seed', type=int, default=None)
@@ -117,6 +119,9 @@ def main(argv=None):
                               angle_ind=args.angle_ind, seed=args.seed or 0, device=device)
 
     config = apply_overrides(_load_config(args.config), overrides)
+    if args.mode == 'train':
+        from .diffusion.trainer import train
+        return train(config, device=device)
     from .diffusion import evaler
     if args.mode == 'uncond_gen':
         return evaler.uncond_gen(config, idx=args.idx, seed=args.seed, device=device,
@@ -146,7 +151,8 @@ def _fit_inputs(args):
 
 def _fit_dmtets(args, device):
     """Fit meshes ``index*split_size .. +split_size`` of the list; a mesh
-    whose ``tets/`` dict exists is skipped, and one that fails is logged
+    whose ``tets/`` dict exists (``.pt``, or the ``.npz`` the JAX package
+    writes where torch is absent) is skipped, and one that fails is logged
     and skipped (reference fit_dmtets.py:657-810). Returns the written
     paths, one dict per fitted mesh."""
     from .fitting.fit import fit_one_mesh
@@ -156,7 +162,8 @@ def _fit_dmtets(args, device):
         gi = k + args.index * args.split_size
         if gi >= len(mesh_list):
             break
-        if os.path.exists(os.path.join(args.out_dir, f'tets/dmt_dict_{gi:05d}.pt')):
+        done = os.path.join(args.out_dir, f'tets/dmt_dict_{gi:05d}')
+        if os.path.exists(done + '.pt') or os.path.exists(done + '.npz'):
             continue
         try:
             written.append(fit_one_mesh(mesh_list[gi], fcfg, args.out_dir, gi,

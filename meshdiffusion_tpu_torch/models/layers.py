@@ -13,9 +13,12 @@ stay channels-last as in JAX, and the dtype flow is the JAX package's:
   leave a block with a NIN shortcut are fp32.
 
 Each ResnetBlock runs its two GroupNorm -> SiLU -> conv3^3 chains through
-``ops.gn_silu_conv3d`` (the hand-written kernel on a CUDA tensor), or with
-``kernels=False`` through its plain version, which is how the plain
-comparison on the card is built.
+``ops.gn_silu_conv3d`` (the hand-written kernel on a CUDA tensor; under
+autograd ``ops.gn_silu_conv3d_autograd``, whose backward differentiates
+the plain version), or with ``kernels=False`` through its plain version,
+which is how the plain comparison on the card is built. In training,
+dropout sits between the second chain's SiLU and its conv; that chain then
+runs decomposed, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -136,17 +139,17 @@ def _linear_in(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.T
 
 
 class ResnetBlockDDPM(nn.Module):
-    """GN-SiLU-conv / +temb / GN-SiLU-conv(zero init) with a NIN shortcut
-    when the width changes (reference layers.py:646-689). Forward-only
-    (eval) semantics: dropout is the identity."""
+    """GN-SiLU-conv / +temb / GN-SiLU-dropout-conv(zero init) with a NIN
+    shortcut when the width changes (reference layers.py:646-689); dropout
+    acts only when ``train``."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  temb_dim: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 kernels: bool = True):
+                 kernels: bool = True, dropout: float = 0.1):
         super().__init__()
         out_ch = out_ch or in_ch
         self.in_ch, self.out_ch = in_ch, out_ch
-        self.dtype, self.kernels = dtype, kernels
+        self.dtype, self.kernels, self.dropout = dtype, kernels, dropout
         self.GroupNorm_0 = nn.GroupNorm(32, in_ch, eps=1e-6)
         self.Conv_0 = Conv3D(in_ch, out_ch, 3, dtype=dtype)
         if temb_dim is not None:
@@ -156,21 +159,33 @@ class ResnetBlockDDPM(nn.Module):
         if in_ch != out_ch:
             self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         dt = self.dtype
+        grad = torch.is_grad_enabled()
 
-        def chain(x, gn, conv):
-            if self.kernels:      # the wrapper routes by device: the kernel on CUDA
-                return ops.gn_silu_conv3d(x, gn.weight, gn.bias, conv.dhwio(), conv.bias, 32,
-                                          1e-6, dt, packed=conv.packed())
-            return ops.gn_silu_conv3d_reference(x, gn.weight, gn.bias, conv.dhwio(), conv.bias,
-                                                32, 1e-6, dt)
+        def chain(x, gn, conv, drop=0.0):
+            # under autograd the live weight: dhwio() is a detached copy
+            kernel = conv.weight.permute(2, 3, 4, 1, 0) if grad else conv.dhwio()
+            if drop:
+                # dropout between SiLU and the conv: the decomposed chain of
+                # the JAX package's _fused_body, the conv outside any kernel
+                h = F.dropout(ops.groupnorm_silu_reference(x, gn.weight, gn.bias, 32, 1e-6),
+                              drop, training=True)
+                return ops.conv3d_same(h.to(dt), kernel.to(dt)) + conv.bias.to(dt)
+            if not self.kernels:
+                return ops.gn_silu_conv3d_reference(x, gn.weight, gn.bias, kernel, conv.bias,
+                                                    32, 1e-6, dt)
+            # the wrapper routes by device: the kernel on CUDA
+            op = ops.gn_silu_conv3d_autograd if grad else ops.gn_silu_conv3d
+            return op(x, gn.weight, gn.bias, kernel, conv.bias, 32, 1e-6, dt,
+                      packed=conv.packed())
 
         h = chain(x, self.GroupNorm_0, self.Conv_0)
         if temb is not None:
             t = _linear_in(F.silu(temb), self.Dense_0, dt)
             h = h + t[:, None, None, None, :].to(h.dtype)
-        h = chain(h, self.GroupNorm_1, self.Conv_1)
+        h = chain(h, self.GroupNorm_1, self.Conv_1, self.dropout if train else 0.0)
         if self.in_ch != self.out_ch:
             x = self.NIN_0(x)
         return x + h

@@ -18,6 +18,13 @@ dormant one).
 ``kernels`` routes the ResnetBlocks' GN->SiLU->conv chains and the output
 head's GroupNorm+SiLU through the hand-written kernels (on CUDA tensors);
 only a plain comparison turns it off.
+
+``forward(..., train=True)`` is the training forward, as the JAX package's
+``train`` argument: dropout in every ResnetBlock, the output head's
+GroupNorm+SiLU in its plain version (the Triton apply has no backward), and
+with ``remat_blocks`` each ResnetBlock under ``torch.utils.checkpoint``
+(its internals recomputed in the backward, the dropout mask too, from the
+saved RNG state). ``nn.Module.training`` plays no part.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import ops
 from . import layers
@@ -44,7 +52,8 @@ class UNet3D(nn.Module):
                  conditional: bool = True, centered: bool = True, stem_kernel: int = 3,
                  use_coords: bool = True, scale_by_sigma: bool = False,
                  sigma_min: float = 0.01, sigma_max: float = 378.0, num_scales: int = 1000,
-                 dtype: torch.dtype = torch.float32, kernels: bool = True):
+                 dtype: torch.dtype = torch.float32, kernels: bool = True,
+                 dropout: float = 0.1, remat_blocks: bool = True):
         super().__init__()
         self.image_size, self.channels, self.nf = image_size, channels, nf
         self.ch_mult = tuple(ch_mult)
@@ -54,13 +63,15 @@ class UNet3D(nn.Module):
         self.use_coords, self.scale_by_sigma = use_coords, scale_by_sigma
         self.sigma_min, self.sigma_max, self.num_scales = sigma_min, sigma_max, num_scales
         self.dtype, self.kernels = dtype, kernels
+        self.remat_blocks = remat_blocks
         dt, k = dtype, stem_kernel
         L = len(self.ch_mult)
         res = [image_size // (2 ** i) for i in range(L)]
         temb_dim = 4 * nf if conditional else None
 
         def resblock(cin, cout):
-            return layers.ResnetBlockDDPM(cin, cout, temb_dim, dtype=dt, kernels=kernels)
+            return layers.ResnetBlockDDPM(cin, cout, temb_dim, dtype=dt, kernels=kernels,
+                                          dropout=dropout)
 
         if use_coords:
             self.pos_layer = layers.Conv3D(3, nf, k, dtype=dt)
@@ -112,7 +123,8 @@ class UNet3D(nn.Module):
             centered=config.data.centered, stem_kernel=5 if is_128 else 3,
             use_coords=not is_128, scale_by_sigma=m.scale_by_sigma,
             sigma_min=m.sigma_min, sigma_max=m.sigma_max, num_scales=m.num_scales,
-            dtype=getattr(torch, config.gpu.compute_dtype))
+            dtype=getattr(torch, config.gpu.compute_dtype), dropout=m.dropout,
+            remat_blocks=config.gpu.get('remat_blocks', True))
         kw.update(overrides)
         return cls(**kw)
 
@@ -137,15 +149,22 @@ class UNet3D(nn.Module):
                 nn.init.zeros_(mod.bias)
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         """x: (B, R, R, R, C) channels-last. labels: (B,) float timestep
         labels in [0, num_scales-1]. mask: (1, R, R, R, 1) grid mask.
-        Returns the fp32 epsilon prediction, channels-last."""
+        ``train``: the training forward (dropout, remat). Returns the fp32
+        epsilon prediction, channels-last."""
         assert x.ndim == 5 and x.shape[-1] == self.channels
         dt = self.dtype
         L = len(self.ch_mult)
         res = [self.image_size // (2 ** i) for i in range(L)]
         mods = iter(self.all_modules)
+
+        def resblock(h, temb):
+            block = next(mods)
+            if train and self.remat_blocks:
+                return checkpoint(block, h, temb, True, use_reentrant=False)
+            return block(h, temb, train)
 
         temb = None
         if self.conditional:
@@ -153,6 +172,8 @@ class UNet3D(nn.Module):
             temb = next(mods)(temb)
             temb = next(mods)(F.silu(temb))
 
+        # the conv kernel takes contiguous channels-last tensors: any strides in
+        x = x.contiguous()
         h = x if self.centered else 2 * x - 1.0
         stem = next(mods)(h.to(dt))
         if self.use_coords:
@@ -167,22 +188,22 @@ class UNet3D(nn.Module):
         hs = [stem]
         for lev in range(L):
             for _ in range(self.level_blocks(lev)):
-                h = next(mods)(hs[-1], temb)
+                h = resblock(hs[-1], temb)
                 if res[lev] in self.attn_resolutions:
                     h = next(mods)(h)
                 hs.append(h)
             if lev != L - 1:
                 hs.append(next(mods)(hs[-1]))
 
-        h = next(mods)(hs[-1], temb)
+        h = resblock(hs[-1], temb)
         h = next(mods)(h)
-        h = next(mods)(h, temb)
+        h = resblock(h, temb)
 
         for lev in reversed(range(L)):
             for _ in range(self.level_blocks(lev) + 1):
                 skip = hs.pop()
                 dtc = torch.promote_types(h.dtype, skip.dtype)
-                h = next(mods)(torch.cat([h.to(dtc), skip.to(dtc)], dim=-1), temb)
+                h = resblock(torch.cat([h.to(dtc), skip.to(dtc)], dim=-1), temb)
             if res[lev] in self.attn_resolutions:
                 h = next(mods)(h)
             if lev != 0:
@@ -190,7 +211,7 @@ class UNet3D(nn.Module):
         assert not hs
 
         norm = next(mods)
-        head = ops.groupnorm_silu if self.kernels else ops.groupnorm_silu_reference
+        head = ops.groupnorm_silu if self.kernels and not train else ops.groupnorm_silu_reference
         h = head(h.contiguous(), norm.weight, norm.bias, 32, 1e-6)
         h = next(mods)(h).float()
 

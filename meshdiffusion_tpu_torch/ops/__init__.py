@@ -10,14 +10,16 @@
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches.
+:func:`gn_silu_conv3d_autograd` is the conv kernel under autograd: its
+forward is :func:`gn_silu_conv3d`, its backward the plain version's.
 Each kernel module also has a ``*_cost`` helper, the (FLOP, bytes) of a
 call, from which ``roofline.bound_ms`` gives the least time an H100 could
 take for it (the z-test's counts fp32 and ALU operations apart, and
 ``tile_zmin_bound_ms`` takes the busier pipe).
 """
 
-from .gn_silu_conv import (gn_silu_conv3d, gn_silu_conv3d_cost,  # noqa: F401
-                           gn_silu_conv3d_reference, pack_conv_weights)
+from .gn_silu_conv import (conv3d_same, gn_silu_conv3d, gn_silu_conv3d_autograd,  # noqa: F401
+                           gn_silu_conv3d_cost, gn_silu_conv3d_reference, pack_conv_weights)
 from .groupnorm import (gn_affine, gn_affine_cost, gn_affine_reference,  # noqa: F401
                         groupnorm_reference, groupnorm_silu, groupnorm_silu_cost,
                         groupnorm_silu_reference)

@@ -17,9 +17,12 @@ design does; :func:`_plan` picks its tiling, split and grid, and
 On a CPU tensor :func:`gn_silu_conv3d` runs the plain version
 (:func:`gn_silu_conv3d_reference`); on a CUDA tensor it launches the
 kernel or raises. It counts its launches in ``gn_silu_conv3d.launches``.
-The kernel computes in bfloat16 only, and only forward: the
-``autograd.Function`` whose backward is the plain composition comes with
-training.
+The kernel computes in bfloat16 only, and only forward; called directly
+under autograd it raises. :func:`gn_silu_conv3d_autograd` is the
+differentiable op, the counterpart of the JAX package's ``custom_vjp``
+(``meshdiffusion_tpu/ops/gn_silu_conv.py:199-231``): the forward is the
+kernel, the backward recomputes through the plain version and
+differentiates that.
 """
 
 from __future__ import annotations
@@ -223,3 +226,34 @@ def gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
 
 
 gn_silu_conv3d.launches = 0
+
+
+class _GnSiluConv3d(torch.autograd.Function):
+    """The kernel forward, the plain composition's gradients (JAX ``_fwd``
+    and ``_bwd``): the backward recomputes GroupNorm -> SiLU -> conv from
+    the saved inputs and runs autograd through it, so the GroupNorm
+    statistics' gradients are exact."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, kernel, conv_bias, num_groups, eps, dtype, packed):
+        ctx.save_for_backward(x, scale, bias, kernel, conv_bias)
+        ctx.args = (num_groups, eps, dtype)
+        return gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups, eps, dtype,
+                              packed=packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = gn_silu_conv3d_reference(*inputs, *ctx.args)
+        grads = torch.autograd.grad(y, inputs, g, allow_unused=True)
+        return (*grads, None, None, None, None)
+
+
+def gn_silu_conv3d_autograd(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
+                            eps: float = 1e-6, dtype=torch.bfloat16,
+                            packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`gn_silu_conv3d` with gradients for every tensor argument:
+    the forward launches the kernel (the plain version on the CPU), the
+    backward differentiates the plain version."""
+    return _GnSiluConv3d.apply(x, scale, bias, kernel, conv_bias, num_groups, eps, dtype, packed)

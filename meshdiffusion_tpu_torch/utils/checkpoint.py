@@ -51,6 +51,20 @@ class EMA:
         self.shadow = {k: p.detach().clone() for k, p in model.named_parameters()
                        if p.requires_grad}
 
+    @torch.no_grad()
+    def update(self, model: torch.nn.Module) -> None:
+        """shadow -= (1 - d) * (shadow - param) with the warm-up decay
+        d = min(decay, (1 + n) / (10 + n)), n the count after this update
+        (reference ``models/ema.py:43-51``; JAX ``losses.ema_update``); in
+        place, one fused pass over all tensors."""
+        self.num_updates += 1
+        n = self.num_updates
+        d = min(self.decay, (1.0 + n) / (10.0 + n))
+        params = dict(model.named_parameters())
+        keys = list(self.shadow)
+        torch._foreach_lerp_([self.shadow[k] for k in keys], [params[k].detach() for k in keys],
+                             1.0 - d)
+
 
 def reference_param_order(config, model_keys) -> List[str]:
     """The reference model's parameter keys in its ``parameters()`` order,
@@ -98,10 +112,12 @@ def save_checkpoint(path: str, state: dict, config) -> str:
         ema_dict = None
     opt = state.get('optimizer')
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + '.tmp'     # written whole, then renamed: a cut write leaves the old file
     torch.save({'model': {_PREFIX + k: sd[k] for k in order},
                 'ema': ema_dict,
                 'optimizer': None if opt is None else opt.state_dict(),
-                'step': int(state.get('step', 0))}, path)
+                'step': int(state.get('step', 0))}, tmp)
+    os.replace(tmp, path)
     return path
 
 

@@ -1,8 +1,8 @@
 """The port stands alone: ``meshdiffusion_tpu_torch`` and its entry point
 import no jax, flax, ml_collections or JAX package, and its command line
-runs its slices on the CPU: uncond_gen -> extract, fit_dmtets, and
-fit_singleview -> cond_gen (with uncond_gen --traj and uncond_gen_interp)
-in a process where the JAX modules cannot be imported."""
+runs its slices on the CPU: uncond_gen -> extract, fit_dmtets,
+fit_singleview -> cond_gen (with uncond_gen --traj and uncond_gen_interp),
+and train, in a process where the JAX modules cannot be imported."""
 
 import json
 import os
@@ -179,6 +179,65 @@ def test_cond_cli_runs_without_jax(tmp_path):
         assert sample.shape == (batch, 4, 8, 8, 8) and np.isfinite(sample).all()
         assert not (sample * (1 - mask)).any()
     assert np.abs(np.load(cond)).max() > 0 and np.abs(np.load(interp)).max() > 0
+
+
+_TRAIN_CHILD = r'''
+import importlib, json, pkgutil, sys
+
+
+class Forbidden:
+    """Refuses the JAX modules, so that an import of one anywhere in the
+    run (torch.utils.tensorboard's TensorFlow tries jax) fails here."""
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in %r:
+            raise ImportError('forbidden here: ' + name)
+
+
+sys.meta_path.insert(0, Forbidden())
+import meshdiffusion_tpu_torch
+for m in pkgutil.walk_packages(meshdiffusion_tpu_torch.__path__, 'meshdiffusion_tpu_torch.'):
+    importlib.import_module(m.name)
+for name in ('data.dataset', 'native.grid_loader', 'diffusion.losses', 'diffusion.trainer'):
+    assert 'meshdiffusion_tpu_torch.' + name in sys.modules, name
+from meshdiffusion_tpu_torch.main import main
+out = sys.argv[1]
+state = main(['--mode', 'train', '--device', 'cpu', '--config', 'res64',
+              '--config.data.image_size=8', '--config.data.meta_path=' + out + '/meta.json',
+              '--config.data.grid_mask_path=' + out + '/mask.npy', '--config.data.num_workers=2',
+              '--config.model.nf=32', '--config.model.ch_mult=(1,2)',
+              '--config.model.num_res_blocks=1', '--config.model.attn_resolutions=(4,)',
+              '--config.model.num_scales=10', '--config.model.beta_max=2.0',
+              '--config.training.batch_size=2', '--config.training.iter_size=2',
+              '--config.training.n_iters=2', '--config.training.log_freq=1',
+              '--config.training.train_dir=' + out + '/run', '--config.gpu.compute_dtype=float32'])
+bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)
+print('RESULT', json.dumps({'step': state.step, 'bad': bad}))
+''' % (FORBIDDEN, FORBIDDEN)
+
+
+def test_train_cli_runs_without_jax(tmp_path):
+    """``main --mode train --device cpu`` at a tiny width on 8^3 grids, in a
+    process where jax and the JAX package cannot be imported: steps 0..2,
+    a finite loss logged each step, the last snapshot written."""
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(4):
+        g = rng.normal(size=(4, 8, 8, 8)).astype(np.float32)
+        paths.append(str(tmp_path / f'grid_{i:05d}.npy'))
+        np.save(paths[-1], g)
+    (tmp_path / 'meta.json').write_text(json.dumps(paths))
+    np.save(tmp_path / 'mask.npy', np.ones((8, 8, 8), np.float32))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', _TRAIN_CHILD, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith('RESULT')][-1]
+    result = json.loads(line.split(' ', 1)[1])
+    assert result == {'step': 3, 'bad': []}
+    lines = [json.loads(ln) for ln in (tmp_path / 'run' / 'metrics.jsonl').read_text().splitlines()]
+    assert [ln['step'] for ln in lines] == [0, 1, 2]
+    assert all(np.isfinite(ln['value']) for ln in lines)
+    assert (tmp_path / 'run' / 'checkpoints' / 'checkpoint_3.pth').exists()
 
 
 def test_sources_import_nothing_of_jax():

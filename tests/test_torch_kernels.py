@@ -127,6 +127,34 @@ def test_gn_silu_conv3d_kernel_matches_plain(cuda, rng, shape, dtype):
     assert torch.equal(y, y2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,dtype', [
+    ((2, 8, 8, 8, 128, 128), torch.bfloat16),
+    ((1, 8, 8, 8, 384, 128), torch.float32),          # the up path's fp32 concat input
+])
+def test_gn_silu_conv3d_autograd_matches_plain(cuda, rng, shape, dtype):
+    """The differentiable op (kernel forward, plain backward) against
+    autograd through the plain composition: the forward at relative L2
+    1e-2 (the kernel's bound), each gradient at relative L2 2e-2 (bf16
+    operands; the backward recomputes through the same plain ops)."""
+    args = [_t(a).to(cuda) for a in _gsc_inputs(rng, *shape)]
+    g = torch.randn(shape[:4] + (shape[5],), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    before = ops.gn_silu_conv3d.launches
+    outs = []
+    for op in (ops.gn_silu_conv3d_autograd, ops.gn_silu_conv3d_reference):
+        leaves = [args[0].to(dtype)] + args[1:]
+        leaves = [t.clone().requires_grad_(True) for t in leaves]
+        y = op(*leaves, 32, 1e-6, torch.bfloat16)
+        y.float().backward(g)
+        outs.append((y.detach().float(), [t.grad.float() for t in leaves]))
+    assert ops.gn_silu_conv3d.launches == before + 1
+    (y1, g1), (y2, g2) = outs
+    assert (y1 - y2).norm() / y2.norm() < 1e-2
+    for a, b in zip(g1, g2):
+        assert torch.isfinite(a).all() and (a - b).norm() / b.norm() < 2e-2
+
+
 def _blobs(rng, res, n=20000):
     """Screen coords (n, 9) of many small triangles (a few pixels) and 20
     that span the view, z in [-0.9, 0.9]."""

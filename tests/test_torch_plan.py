@@ -202,19 +202,20 @@ def test_cost_helpers_match_hand_counts(kernel):
 
 
 _ENTRY_POINTS = ('create_model', 'extract_grid', 'extract_batch', 'extract_dir', 'uncond_gen',
-                 'uncond_gen_interp', 'cond_gen', 'fit_singleview')
+                 'uncond_gen_interp', 'cond_gen', 'fit_singleview', 'train')
 
 
 @pytest.mark.parametrize('entry', ['create_model', 'extract_grid', 'extract_batch',
-                                   'uncond_gen', 'uncond_gen_interp', 'cond_gen', 'fit_singleview']
+                                   'uncond_gen', 'uncond_gen_interp', 'cond_gen', 'fit_singleview',
+                                   'train']
                          + [f'main --mode {m}' for m in ('uncond_gen', 'uncond_gen_interp',
                                                          'cond_gen', 'extract', 'extract_traj',
-                                                         'fit_dmtets', 'fit_singleview')])
+                                                         'fit_dmtets', 'fit_singleview', 'train')])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """Called with no device, ``create_model``, the extraction functions,
-    the generation drivers, the single-view fit and every mode of the
-    command line ask for the card, and raise where CUDA is missing instead
-    of falling back."""
+    the generation drivers, the single-view fit, the trainer and every mode
+    of the command line ask for the card, and raise where CUDA is missing
+    instead of falling back."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     from meshdiffusion_tpu_torch import extract
     from meshdiffusion_tpu_torch.diffusion import evaler
@@ -233,6 +234,9 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
                                   tet_root=str(tmp_path))
         elif entry == 'fit_singleview':
             fit_singleview(str(tmp_path / 'none.obj'), FitConfig(), str(tmp_path))
+        elif entry == 'train':
+            from meshdiffusion_tpu_torch.diffusion.trainer import train
+            train(get_config('res64'))
         elif entry.startswith('main'):
             main(entry.split()[1:])
         else:

@@ -114,7 +114,8 @@ def test_full_width_parameter_count(name):
 
 def test_config_tree_matches_jax():
     """Same sections and keys as the JAX config, with ``gpu`` (compute_dtype,
-    tet_root) in place of ``tpu`` and no ``sampling.segment_steps``."""
+    remat_blocks, tet_root: each a key of JAX's ``tpu``) in place of ``tpu``
+    and no ``sampling.segment_steps``."""
     def keys(c, prefix=''):
         out = set()
         for k, v in c.items():
@@ -124,7 +125,11 @@ def test_config_tree_matches_jax():
     for preset in ('res64', 'res128', 'default'):
         jc, pc = jax_get_config(preset), get_config(preset)
         jk = {k for k in keys(jc) if not k.startswith('tpu.')} - {'sampling.segment_steps'}
-        assert keys(pc) - {'gpu.compute_dtype', 'gpu.tet_root'} == jk
+        gpu = {'gpu.compute_dtype', 'gpu.remat_blocks', 'gpu.tet_root'}
+        assert keys(pc) - gpu == jk
+        assert {k for k in keys(pc) if k.startswith('gpu.')} == gpu
+        for k in gpu:
+            assert pc.gpu[k[4:]] == jc.tpu[k[4:]], k
         for k in jk:
             node_j, node_p = jc, pc
             for p in k.split('.'):
