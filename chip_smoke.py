@@ -81,12 +81,15 @@ training at full width, effective batch 48, cut in steps. Phases, in order:
 12. ``main --mode train`` at the res64 preset's full width (dropout 0.1,
     bf16, remat on) on TRAIN_GRIDS synthetic 64^3 grids through the native
     loader, effective batch 48 as micro-batch TRAIN_MICRO x iter_size
-    TRAIN_ITER, steps 0..TRAIN_STEPS (one warm, the rest timed), counters
+    TRAIN_ITER, steps 0..TRAIN_STEPS (one warm, the rest timed by the
+    trainer's own log, loader and copy included, with each step's device
+    span beside it), counters
     set to 0 just before and read just after: K3 and the statistics 2 x 37
     a micro-batch (forward and remat recompute of chain 0; chain 1 runs
     decomposed under dropout); every loss finite, the weights unchanged by
     step 0 (lr 0 under warm-up) and changed by the last, the EMA counting
-    every step, the preemption snapshot read back by ``load_eval_weights``;
+    every step, the preemption snapshot read back by ``load_eval_weights``,
+    no module of jax, TensorFlow or the JAX package imported by the run;
     then, on the trained state: one micro-batch step under torch.profiler
     (device ms by family, the card's busy share), the first step's weight
     repacking, peak memory at micro-batch 2 and TRAIN_MICRO, and at
@@ -391,11 +394,14 @@ def train_data(out_dir: str, mask) -> list:
 def train_run(entry, meta: str, out_dir: str):
     """One ``main --mode train`` run through ``entry``: the res64 preset,
     micro-batch TRAIN_MICRO x iter_size TRAIN_ITER, steps 0..TRAIN_STEPS,
-    every step logged, the preemption snapshot at the last step. Each train
-    step is timed (host clock, synchronised) by wrapping
-    ``losses.make_train_step``: (the final TrainState, [per step {step, s,
-    loss, unchanged: weights equal to those before (step 0 only)}], the
-    weights before step 0, peak device memory of the run)."""
+    logged at step 0 and at the last (``log_freq`` TRAIN_STEPS), so the
+    trainer's own log times steps 1..TRAIN_STEPS as it runs them, the host
+    waiting for the card at the last only; the preemption snapshot at the
+    last step. Wrapping ``losses.make_train_step`` records each step's
+    device span (CUDA events around it, no synchronisation) and its loss:
+    (the final TrainState, [per step {step, ms: the device span, loss,
+    unchanged: weights equal to those before (step 0 only)}], the weights
+    before step 0, peak device memory of the run)."""
     import torch
     from meshdiffusion_tpu_torch.diffusion import losses
     steps, make, first = [], losses.make_train_step, []
@@ -406,13 +412,13 @@ def train_run(entry, meta: str, out_dir: str):
         def timed(state, batch, source=None):
             if state.step == 0:
                 first.extend(p.detach().clone() for p in state.model.parameters())
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
             out = step_fn(state, batch, source)
-            torch.cuda.synchronize()
-            rec = {'step': state.step - 1, 's': time.perf_counter() - t0,
-                   'loss': float(out['loss']), 'unchanged': None}
-            if rec['step'] == 0:
+            ev[1].record()
+            rec = {'step': state.step - 1, 'ev': ev, 'loss': out['loss'].detach(),
+                   'unchanged': None}
+            if rec['step'] == 0:    # the warm step, outside the timed window: it may wait
                 rec['unchanged'] = all(torch.equal(p, q)
                                        for p, q in zip(state.model.parameters(), first))
             steps.append(rec)
@@ -426,12 +432,16 @@ def train_run(entry, meta: str, out_dir: str):
                        f'--config.data.meta_path={meta}', '--config.data.num_workers=8',
                        f'--config.training.batch_size={TRAIN_MICRO}',
                        f'--config.training.iter_size={TRAIN_ITER}',
-                       f'--config.training.n_iters={TRAIN_STEPS}', '--config.training.log_freq=1',
+                       f'--config.training.n_iters={TRAIN_STEPS}',
+                       f'--config.training.log_freq={TRAIN_STEPS}',
                        f'--config.training.snapshot_freq_for_preemption={TRAIN_STEPS}',
                        f'--config.training.train_dir={out_dir}'])
     finally:
         losses.make_train_step = make
     torch.cuda.synchronize()
+    for rec in steps:
+        t0, t1 = rec.pop('ev')
+        rec['ms'], rec['loss'] = t0.elapsed_time(t1), float(rec['loss'])
     return state, steps, first, torch.cuda.max_memory_allocated()
 
 
@@ -1004,9 +1014,14 @@ def main() -> int:
         assert changed > 0, 'the weights did not move over the run'
         del first
         logs = rec.train_logs
-        assert [lg[0] for lg in logs] == list(range(TRAIN_STEPS + 1)) and \
+        assert [lg[0] for lg in logs] == [0, TRAIN_STEPS] and logs[-1][3] == TRAIN_STEPS and \
             all(np.isfinite(lg[1]) for lg in logs) and all(np.isfinite(t['loss']) for t in tsteps)
         assert {lg[5] for lg in logs} == {'native'}, logs
+        foreign = sorted(m for m in sys.modules if m.split('.')[0] in (
+            'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_collections', 'meshdiffusion_tpu',
+            'tensorflow'))
+        assert not foreign, f'the training run imported {foreign[:5]}'
+
         assert state.step == state.ema.num_updates == TRAIN_STEPS + 1, \
             (state.step, state.ema.num_updates)
         snap = os.path.join(tmp, 'run', 'checkpoints-meta', 'checkpoint.pth')
@@ -1017,19 +1032,25 @@ def main() -> int:
         del eval_model
         snap_gib = os.path.getsize(snap) / 2 ** 30
         shutil.rmtree(os.path.join(tmp, 'run', 'checkpoints'), ignore_errors=True)
-        warm_s = tsteps[0]['s']
-        step_s = sum(t['s'] for t in tsteps[1:]) / TRAIN_STEPS
+        # the trainer's own log: step 0 from the loop's start, then steps 1..TRAIN_STEPS
+        # as it runs them (loader, pinned copy and step; the host waits at the last only)
+        warm_s = logs[0][2]
+        step_s = logs[-1][2] / logs[-1][3]
+        dev_ms = [t['ms'] for t in tsteps[1:]]
         eff = TRAIN_MICRO * TRAIN_ITER
-        load_ms = 1000 * sum(lg[4] for lg in logs) / sum(lg[3] for lg in logs)
+        load_ms = 1000 * logs[-1][4] / logs[-1][3]
         print(f'train: res64 full width, effective batch {eff} = {TRAIN_MICRO} x {TRAIN_ITER}, '
-              f'dropout 0.1, bf16, remat on; step 0 (warm) {warm_s:.3f} s, steps 1-{TRAIN_STEPS} '
-              f'{[round(t["s"], 4) for t in tsteps[1:]]} s: {step_s:.4f} s a step, '
-              f'{1000 * step_s / eff:.2f} ms a sample; losses {[round(t["loss"], 5) for t in tsteps]}; '
+              f'dropout 0.1, bf16, remat on; step 0 (warm) {warm_s:.3f} s; steps 1-{TRAIN_STEPS} '
+              f'by the trainer\'s log (loader and copy included): {step_s:.4f} s a step, '
+              f'{1000 * step_s / eff:.2f} ms a sample; the step alone (CUDA events around each, '
+              f'device span) {[round(t, 2) for t in dev_ms]} ms; losses '
+              f'{[round(t["loss"], 5) for t in tsteps]}; '
               f'{changed} of {n_weights} weights moved by step {TRAIN_STEPS} (none by step 0); '
-              f'native loader {load_ms:.2f} ms (host) a batch of {eff}; peak device memory of '
+              f'native loader {load_ms:.2f} ms (host) a batch of {eff}, beside the card\'s work; '
+              f'peak device memory of '
               f'the run {peak_run / 2 ** 30:.2f} GiB; preemption snapshot {snap_gib:.2f} GiB read '
-              f'back, EMA bit-equal; launches {train_launches} '
-              f'(= 2 x 37 a micro-batch x {n_micro})')
+              f'back, EMA bit-equal; no module of jax or the JAX package loaded; launches '
+              f'{train_launches} (= 2 x 37 a micro-batch x {n_micro})')
 
         # one micro-batch step (forward, backward, Adam, EMA) under the profiler
         sde = VPSDE(beta_min=cfg.model.beta_min, beta_max=cfg.model.beta_max,
@@ -1045,8 +1066,8 @@ def main() -> int:
             fams[_family(k)] = fams.get(_family(k), 0.0) + t
         busy = sum(prof.values())
         print(f'train: one step of one micro-batch of {TRAIN_MICRO} (forward, remat recompute, '
-              f'backward, Adam, EMA): {one_ms:.2f} ms (CUDA events), device {busy:.2f} ms, the card '
-              f'busy {100 * busy / one_ms:.1f} %; device ms by family: '
+              f'backward, Adam, EMA; the step alone, no loader): {one_ms:.2f} ms (CUDA events), '
+              f'device {busy:.2f} ms, the card busy {100 * busy / one_ms:.1f} %; device ms by family: '
               + ', '.join(f'{f} {t:.2f}' for f, t in sorted(fams.items(), key=lambda kv: -kv[1])))
         for k, t in sorted(prof.items(), key=lambda kv: -kv[1])[:15]:
             print(f'  {t:8.3f} ms  {k[:100]}')
@@ -1110,14 +1131,15 @@ def main() -> int:
                        torch.cat([gp[k].flatten() for k in gk]))
         per = {k: _rel_l2(gk[k], gp[k]) for k in gk if float(gp[k].norm()) > 0}
         worst = max(per, key=per.get)
-        assert np.isfinite(lk) and loss_rel <= 1e-2 and flat <= 2e-2, (lk, lp, flat)
+        assert np.isfinite(lk) and loss_rel <= 1e-4 and flat <= 2e-2, (lk, lp, loss_rel, flat)
         print(f'train: kernels against kernels=False, micro-batch 2, dropout 0 ({nk} K3 launches: '
               f'both chains, forward and remat recompute): loss {lk:.6f} against {lp:.6f} '
-              f'(relative error {loss_rel:.2e}, bound 1e-2); the flattened gradient relative L2 '
+              f'(relative error {loss_rel:.2e}, bound 1e-4); the flattened gradient relative L2 '
               f'{flat:.3e} (bound 2e-2); the worst tensor {worst} {per[worst]:.3e}')
         train_out = {'micro': TRAIN_MICRO, 'iter_size': TRAIN_ITER, 'warm_step_s': warm_s,
                      'step_s': step_s, 'ms_per_sample': 1000 * step_s / eff,
-                     'step_times_s': [t['s'] for t in tsteps], 'losses': [t['loss'] for t in tsteps],
+                     'step_device_span_ms': [t['ms'] for t in tsteps],
+                     'losses': [t['loss'] for t in tsteps],
                      'loader_ms_per_batch': load_ms, 'peak_run_bytes': peak_run,
                      'micro_step_ms': one_ms, 'micro_step_device_ms': busy,
                      'busy_share': busy / one_ms, 'device_ms_by_family': fams,

@@ -72,7 +72,6 @@ def get_default_config() -> Config:
 
     config.gpu = Config(
         compute_dtype='bfloat16',  # conv/matmul compute dtype
-        remat_blocks=True,         # recompute each ResnetBlock in the train backward
         tet_root="")               # dir holding {R}_tets_cropped.npz; '' -> bundled
     return config
 

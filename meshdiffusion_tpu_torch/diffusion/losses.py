@@ -53,9 +53,10 @@ class Optimizer:
         return self.lr * min(n / self.warmup, 1.0) if self.warmup > 0 else self.lr
 
     @torch.no_grad()
-    def step(self, n: int) -> float:
+    def step(self, n: int) -> torch.Tensor:
         """Apply the n-th update from the parameters' ``.grad`` and clear
-        them; returns the gradients' global norm (after the weight decay)."""
+        them; returns the gradients' global norm (after the weight decay),
+        a tensor on their device, so that the host does not wait for it."""
         for p in self.params:
             if p.grad is None:      # a parameter the forward does not use: a zero gradient
                 p.grad = torch.zeros_like(p)
@@ -73,7 +74,7 @@ class Optimizer:
             group['lr'] = self.lr_at(n)
         self.adam.step()
         self.adam.zero_grad(set_to_none=True)
-        return float(norm)
+        return norm
 
     def state_dict(self) -> dict:
         return self.adam.state_dict()
@@ -147,7 +148,8 @@ def make_train_step(sde: VPSDE, mask: Optional[torch.Tensor], loss_type: str = '
     source=None)`` with batch (iter_size, micro_bs, R, R, R, C) runs the
     training forward and backward of each micro-batch, summing the
     gradients, then one optimizer step and one EMA update; it returns
-    {'loss': the mean micro-batch loss (a tensor), 'grad_norm': float}.
+    {'loss': the mean micro-batch loss, 'grad_norm'}, both tensors, so that
+    the host runs on to the next batch while the card works.
     ``source`` defaults to :func:`torch_source` of ``state.generator``."""
     tables = {}
 

@@ -6,6 +6,10 @@ Counterpart of ``meshdiffusion_tpu/diffusion/trainer.py`` (reference
 * the loader yields (iter_size * batch_size) samples a step, which the
   train step (``losses.make_train_step``) runs as ``iter_size``
   micro-batches of ``training.batch_size``, gradients summed;
+* the host waits for the card only at a logged step (``log_freq``, where it
+  reads the loss) and at a snapshot: elsewhere it loads the next batch and
+  copies it from pinned memory while the card runs the step before, as the
+  JAX package's asynchronous dispatch has it;
 * steps ``initial_step .. n_iters`` inclusive, as the JAX package runs them;
   ``initial_step`` is the step of the preemption snapshot when there is one;
 * snapshots are the reference's ``.pth`` files ({model, ema, optimizer: the
@@ -29,7 +33,9 @@ from __future__ import annotations
 import json
 import logging
 import os
+import sys
 import time
+import types
 from typing import Optional
 
 import torch
@@ -47,18 +53,25 @@ logger = logging.getLogger(__name__)
 
 class MetricWriter:
     """Scalar logger: ``metrics.jsonl`` always, TensorBoard events too when
-    ``torch.utils.tensorboard`` imports (reference trainer.py:32-33)."""
+    ``tensorboard`` is installed (reference trainer.py:32-33).
+
+    TensorBoard runs in its no-TensorFlow mode (the ``tensorboard.compat.notf``
+    marker module; its stub writes the event files): otherwise importing
+    ``torch.utils.tensorboard`` imports TensorFlow where that is installed,
+    and TensorFlow imports jax, which the port keeps out of its process."""
 
     def __init__(self, workdir: str):
         os.makedirs(workdir, exist_ok=True)
         self.path = os.path.join(workdir, 'metrics.jsonl')
         self._fh = open(self.path, 'a')
         self._tb = None
+        sys.modules.setdefault('tensorboard.compat.notf',
+                               types.ModuleType('tensorboard.compat.notf'))
         try:
-            from torch.utils import tensorboard
+            from torch.utils.tensorboard import SummaryWriter
         except ImportError:
             return
-        self._tb = tensorboard.SummaryWriter(os.path.join(workdir, 'tensorboard'))
+        self._tb = SummaryWriter(os.path.join(workdir, 'tensorboard'))
 
     def scalar(self, tag: str, value: float, step: int):
         self._fh.write(json.dumps({'tag': tag, 'value': float(value), 'step': int(step),
@@ -135,7 +148,9 @@ def train(config, max_steps: Optional[int] = None, device='cuda') -> L.TrainStat
             t0 = time.perf_counter()
             batch = torch.from_numpy(next(loader))
             load_s += time.perf_counter() - t0
-            batch = batch.to(device).reshape((iter_size, bs) + batch.shape[1:])
+            if device.type == 'cuda':
+                batch = batch.pin_memory()   # so that the copy does not wait for the card
+            batch = batch.to(device, non_blocking=True).reshape((iter_size, bs) + batch.shape[1:])
             metrics = train_step(state, batch)
             n_run += 1
 

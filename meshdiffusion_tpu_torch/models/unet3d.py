@@ -22,9 +22,11 @@ only a plain comparison turns it off.
 ``forward(..., train=True)`` is the training forward, as the JAX package's
 ``train`` argument: dropout in every ResnetBlock, the output head's
 GroupNorm+SiLU in its plain version (the Triton apply has no backward), and
-with ``remat_blocks`` each ResnetBlock under ``torch.utils.checkpoint``
-(its internals recomputed in the backward, the dropout mask too, from the
-saved RNG state). ``nn.Module.training`` plays no part.
+each ResnetBlock under ``torch.utils.checkpoint`` (its internals recomputed
+in the backward, the dropout mask too, from the saved RNG state): training
+at res64 needs it to fit a micro-batch, so no config key turns it off; the
+``remat_blocks`` argument does so only for a test that holds the recompute
+against the plain backward. ``nn.Module.training`` plays no part.
 """
 
 from __future__ import annotations
@@ -123,8 +125,7 @@ class UNet3D(nn.Module):
             centered=config.data.centered, stem_kernel=5 if is_128 else 3,
             use_coords=not is_128, scale_by_sigma=m.scale_by_sigma,
             sigma_min=m.sigma_min, sigma_max=m.sigma_max, num_scales=m.num_scales,
-            dtype=getattr(torch, config.gpu.compute_dtype), dropout=m.dropout,
-            remat_blocks=config.gpu.get('remat_blocks', True))
+            dtype=getattr(torch, config.gpu.compute_dtype), dropout=m.dropout)
         kw.update(overrides)
         return cls(**kw)
 

@@ -187,13 +187,14 @@ import importlib, json, pkgutil, sys
 
 class Forbidden:
     """Refuses the JAX modules, so that an import of one anywhere in the
-    run (torch.utils.tensorboard's TensorFlow tries jax) fails here."""
+    run fails here."""
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in %r:
             raise ImportError('forbidden here: ' + name)
 
 
-sys.meta_path.insert(0, Forbidden())
+if sys.argv[2] == 'block':
+    sys.meta_path.insert(0, Forbidden())
 import meshdiffusion_tpu_torch
 for m in pkgutil.walk_packages(meshdiffusion_tpu_torch.__path__, 'meshdiffusion_tpu_torch.'):
     importlib.import_module(m.name)
@@ -212,13 +213,12 @@ state = main(['--mode', 'train', '--device', 'cpu', '--config', 'res64',
               '--config.training.train_dir=' + out + '/run', '--config.gpu.compute_dtype=float32'])
 bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)
 print('RESULT', json.dumps({'step': state.step, 'bad': bad}))
-''' % (FORBIDDEN, FORBIDDEN)
+''' % (FORBIDDEN, FORBIDDEN + ('tensorflow',))
 
 
-def test_train_cli_runs_without_jax(tmp_path):
-    """``main --mode train --device cpu`` at a tiny width on 8^3 grids, in a
-    process where jax and the JAX package cannot be imported: steps 0..2,
-    a finite loss logged each step, the last snapshot written."""
+def _train_child(tmp_path, block: bool) -> dict:
+    """Runs ``_TRAIN_CHILD`` on four random 8^3 grids and an all-ones mask
+    in ``tmp_path``, the JAX modules refused where ``block``; its RESULT."""
     rng = np.random.default_rng(0)
     paths = []
     for i in range(4):
@@ -228,16 +228,35 @@ def test_train_cli_runs_without_jax(tmp_path):
     (tmp_path / 'meta.json').write_text(json.dumps(paths))
     np.save(tmp_path / 'mask.npy', np.ones((8, 8, 8), np.float32))
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, '-c', _TRAIN_CHILD, str(tmp_path)], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, '-c', _TRAIN_CHILD, str(tmp_path),
+                           'block' if block else 'open'], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith('RESULT')][-1]
-    result = json.loads(line.split(' ', 1)[1])
+    return json.loads(line.split(' ', 1)[1])
+
+
+def test_train_cli_runs_without_jax(tmp_path):
+    """``main --mode train --device cpu`` at a tiny width on 8^3 grids, in a
+    process where jax and the JAX package cannot be imported: steps 0..2,
+    a finite loss logged each step, the last snapshot written."""
+    result = _train_child(tmp_path, block=True)
     assert result == {'step': 3, 'bad': []}
     lines = [json.loads(ln) for ln in (tmp_path / 'run' / 'metrics.jsonl').read_text().splitlines()]
     assert [ln['step'] for ln in lines] == [0, 1, 2]
     assert all(np.isfinite(ln['value']) for ln in lines)
     assert (tmp_path / 'run' / 'checkpoints' / 'checkpoint_3.pth').exists()
+
+
+def test_train_leaves_jax_out_of_the_process(tmp_path):
+    """The same run with nothing refused, where jax, the JAX package and
+    TensorFlow are installed: none of them is in ``sys.modules`` after
+    ``train``, TensorBoard's writer included, which still writes its
+    event file."""
+    result = _train_child(tmp_path, block=False)
+    assert result == {'step': 3, 'bad': []}
+    events = list((tmp_path / 'run' / 'tensorboard').glob('events.out.tfevents.*'))
+    assert len(events) == 1 and events[0].stat().st_size > 0
 
 
 def test_sources_import_nothing_of_jax():

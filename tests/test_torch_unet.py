@@ -114,8 +114,8 @@ def test_full_width_parameter_count(name):
 
 def test_config_tree_matches_jax():
     """Same sections and keys as the JAX config, with ``gpu`` (compute_dtype,
-    remat_blocks, tet_root: each a key of JAX's ``tpu``) in place of ``tpu``
-    and no ``sampling.segment_steps``."""
+    tet_root: each a key of JAX's ``tpu``) in place of ``tpu`` and no
+    ``sampling.segment_steps``."""
     def keys(c, prefix=''):
         out = set()
         for k, v in c.items():
@@ -125,7 +125,7 @@ def test_config_tree_matches_jax():
     for preset in ('res64', 'res128', 'default'):
         jc, pc = jax_get_config(preset), get_config(preset)
         jk = {k for k in keys(jc) if not k.startswith('tpu.')} - {'sampling.segment_steps'}
-        gpu = {'gpu.compute_dtype', 'gpu.remat_blocks', 'gpu.tet_root'}
+        gpu = {'gpu.compute_dtype', 'gpu.tet_root'}
         assert keys(pc) - gpu == jk
         assert {k for k in keys(pc) if k.startswith('gpu.')} == gpu
         for k in gpu:
