@@ -11,8 +11,12 @@ dataset fitting at full width (FitConfig's defaults: 512^2, batch 4, the
 64 tet grid, raster_K 256 + raster_Kg 64, compact shading and AA), cut in
 iterations only; single-view conditional generation (fit_singleview
 at FitConfig's defaults -> cond_gen at full width from a reference-format
-checkpoint -> extract), with DDIM interpolation; and res64 diffusion
-training at full width, effective batch 48, cut in steps. Phases, in order:
+checkpoint -> extract), with DDIM interpolation; res64 diffusion
+training at full width, effective batch 48, cut in steps; the data tools
+(fitted dict -> training grid); res128 generation at the preset's full
+width and batch 7 on the generated 128 tet grid, with extraction on its
+12,002,256 tets and ``extract --save_viz``; and the likelihood on the res64
+model. Phases, in order:
 
 1. the card: name and power limit, versions; TF32 off for fp32 comparisons;
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
@@ -95,7 +99,41 @@ training at full width, effective batch 48, cut in steps. Phases, in order:
     repacking, peak memory at micro-batch 2 and TRAIN_MICRO, and at
     micro-batch 2 with dropout 0 (both chains through K3) the loss and
     every gradient with kernels against ``kernels=False``;
-13. a JSON line of each path's launches, one JSON line of kernel results
+13. the data tools on phase 7's fitted dict: ``data.convert tets-to-3dgrid``
+    on the card (its grid's ``grid_to_tet`` gives back the dict's sdf sign and
+    clipped deform exactly), ``get-tet-mask`` bit-equal to the 64 grid's
+    mask, ``save-meta``, and the port's dataset reading the grid;
+14. the 128 tet grid generated on the host with its cache removed (the cache
+    under a temporary ``XDG_CACHE_HOME``), then read back from the cache:
+    seconds, V / T / E, and (R-1)^3 ones in its mask;
+15. every kernel at the res128 preset's shapes (nf 128, ch_mult (1,1,2,4,4,4),
+    seeded normal(0, 0.02) weights): K3 and the statistics at each distinct
+    conv shape of a batch-1 forward, as phase 3; at batch 7 the level-0 conv
+    shapes (up to 3.76e9 elements, past 2^31), the ancestral update and the
+    output head, each sample held against the plain version of that sample;
+    the batch-1 forward kernels against plain; one batch-7 forward with the
+    kernels: its launches (K3 64, statistics 65), time, device time by kernel
+    and peak device memory; the per-shape rows also go to
+    ``DIR/kernel_shapes.json`` and the phase's numbers to ``DIR/res128.json``;
+16. ``main --config res128 --mode uncond_gen`` at the preset's batch 7
+    (num_scales 10, beta_max 2.0) on the 128 grid's mask, every counter set
+    to 0 just before and read just after, the sample finite and zero outside
+    the mask; then ``main --mode extract --resolution 128 --no_remesh`` of its
+    first sample: marching tets' seconds and the peak device memory;
+17. the GT shape's SDF sign on the 128 grid scattered by
+    ``data.convert.tets_to_grid`` on the card, then ``main --mode extract
+    --resolution 128 --save_viz`` with the full post-process, counters set to
+    0 just before and read just after: a non-empty .obj, a 512^2 PNG that is
+    not uniform, tile_zmin launched once a render (a render whose binning
+    overflows is redone with the capacities grown; the last drops nothing)
+    and held bit-equal to its plain version on the last;
+18. the likelihood on the res64 model at full width, batch 1, on phase 13's
+    grid: the drift and the Hutchinson divergence at t = 1e-3, 0.5, 1 with
+    kernels (K3 forward under autograd, 74 launches an evaluation) against
+    ``kernels=False``; then ``likelihood_fn`` (rtol = atol = 1e-3) from start to
+    end on the seeded init, whose epsilon is ~0, held to the closed-form
+    bits/dim: nfe, bits/dim, seconds;
+19. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
     the statistics also ``library_device_ms``, torch.var_mean's device
@@ -200,6 +238,26 @@ def _of(prof: dict, wrapper: str) -> float:
     return sum(t for k, t in prof.items() if any(n in k for n in _KERNEL_NAMES[wrapper]))
 
 
+def _window_ms(fn, expected: dict, iters: int = 1):
+    """One torch.profiler window over ``iters`` calls of ``fn``, which
+    launches ``expected[wrapper]`` kernels of each wrapper a call: (device
+    ms a call over every kernel, {wrapper: device ms a call}, {wrapper:
+    launches recorded}); a wrapper whose main kernel was recorded fewer than
+    half the times it was launched reads None, not measured, and so does the
+    total then (the profiler has dropped records late in a long run)."""
+    evs = _profile(fn, iters)
+    ms, seen = {}, {}
+    for n, names in _KERNEL_NAMES.items():
+        hits = [e for e in evs if any(k in e.key for k in names)]
+        seen[n] = sum(e.count for e in evs if names[0] in e.key)
+        ms[n] = (sum(_dev_us(e) for e in hits) / iters / 1000.0
+                 if 2 * seen[n] >= iters * expected.get(n, 0) else None)
+    total = sum(_dev_us(e) for e in evs) / iters / 1000.0
+    if any(ms[n] is None for n in expected):
+        total = None
+    return total, ms, seen
+
+
 def _rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
@@ -218,7 +276,8 @@ class _Records(logging.Handler):
         self.fit_passes, self.fit_losses, self.train_logs = [], [], []
 
     def emit(self, record):
-        for k in ('sample_s', 'steps', 'marching_s', 'postprocess_s'):
+        for k in ('sample_s', 'steps', 'marching_s', 'postprocess_s', 'mesh_size',
+                  'viz_renders', 'viz_overflow'):
             if hasattr(record, k):
                 self.fields[k] = getattr(record, k)
         if hasattr(record, 'singleview_fit'):
@@ -231,20 +290,26 @@ class _Records(logging.Handler):
             self.train_logs.append(record.train_log)
 
 
+def gt_sdf(verts):
+    """The fit target's SDF at ``verts`` (V, 3), positive inside: a torus
+    united with a box."""
+    import numpy as np
+    x, y, z = verts.T
+    torus = np.sqrt((np.sqrt(x ** 2 + z ** 2) - 0.28) ** 2 + y ** 2) - 0.08
+    q = np.abs(verts - [0.0, 0.1, 0.0]) - [0.12, 0.2, 0.12]
+    box = np.linalg.norm(np.maximum(q, 0), axis=1) + np.minimum(q.max(1), 0)
+    return -np.minimum(torus, box).astype(np.float32)
+
+
 def gt_mesh(path: str) -> None:
     """The fit target: a torus united with a box, as marching tets of its
     SDF on the bundled 64 tet grid, written as an .obj."""
-    import numpy as np
     import torch
     from meshdiffusion_tpu_torch.geometry.marching_tets import compact_mesh, marching_tets
     from meshdiffusion_tpu_torch.geometry.obj_io import write_obj
     from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
     grid = TetGrid.load(64)
-    x, y, z = grid.verts.T
-    torus = np.sqrt((np.sqrt(x ** 2 + z ** 2) - 0.28) ** 2 + y ** 2) - 0.08
-    q = np.abs(grid.verts - [0.0, 0.1, 0.0]) - [0.12, 0.2, 0.12]
-    box = np.linalg.norm(np.maximum(q, 0), axis=1) + np.minimum(q.max(1), 0)
-    sdf = -np.minimum(torus, box).astype(np.float32)
+    sdf = gt_sdf(grid.verts)
     v, f = compact_mesh(marching_tets(grid, torch.from_numpy(grid.verts), torch.from_numpy(sdf)))
     write_obj(path, v, f)
 
@@ -295,6 +360,108 @@ def zmin_cases(gt_path: str, dev):
             over = [(int(a), int(b)) for a, b in zip(bins.tile_over, bins.global_over)]
         cases.append((name, K, zargs, over))
     return cases
+
+
+def _var_mean_ms(xg):
+    """torch.var_mean over (B, S, G, C/G), the statistics in one call:
+    (CUDA-event ms, device ms from torch.profiler) a call."""
+    import torch
+    B, C = xg.shape[0], xg.shape[-1]
+    v = xg.view(B, -1, 32, C // 32)
+    call = lambda: torch.var_mean(v, dim=(1, 3), correction=0)
+    return _time_ms(call, 20), sum(_device_ms(call).values())
+
+
+def capture_conv_shapes(model_p, x, labels, mask):
+    """The K3 / K2 input shapes of one plain forward, with how often each
+    runs: ({(x shape, dtype, O): calls}, the output head's {shape, dtype})."""
+    import torch
+    from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
+    conv_calls, head = {}, {}
+
+    def _conv_hook(mod, args):
+        for key in ((tuple(args[0].shape), args[0].dtype, mod.out_ch),
+                    (tuple(args[0].shape[:-1]) + (mod.out_ch,), mod.dtype, mod.out_ch)):
+            conv_calls[key] = conv_calls.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(_conv_hook)
+             for m in model_p.modules() if isinstance(m, ResnetBlockDDPM)]
+    hooks.append(model_p.all_modules[-1].register_forward_pre_hook(
+        lambda mod, args: head.update(shape=tuple(args[0].shape), dtype=args[0].dtype)))
+    with torch.inference_mode():
+        model_p(x, labels, mask)
+    for h in hooks:
+        h.remove()
+    return conv_calls, head
+
+
+def conv_shape_checks(conv_calls, dev, g, record, per_shape) -> None:
+    """K3 and the GroupNorm statistics against their plain versions at every
+    shape of ``conv_calls``: K3's relative L2 within 1e-2, a and b within
+    1e-5; CUDA-event, device and plain times, the bound and the library
+    call, recorded and appended to ``per_shape``."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.ops import _build
+    from meshdiffusion_tpu_torch.ops.gn_silu_conv import _plan, conv3d_same, gn_silu_conv3d_bound_ms
+    from meshdiffusion_tpu_torch.ops.roofline import bound_ms
+    with torch.inference_mode():
+        for xs, xdt, O in sorted(conv_calls, key=lambda s: (-s[0][1], s[0][-1], s[2], str(s[1]))):
+            C = xs[-1]
+            xc = (torch.randn(xs, device=dev, generator=g) + 0.3).to(xdt)
+            sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
+            bi = 0.1 * torch.randn(C, device=dev, generator=g)
+            kern = (torch.randn((3, 3, 3, C, O), device=dev, generator=g)
+                    / (27 * C) ** 0.5).to(torch.bfloat16)
+            packed = ops.pack_conv_weights(kern)
+            cb = 0.1 * torch.randn(O, device=dev, generator=g)
+            y = ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
+            r = ops.gn_silu_conv3d_reference(xc, sc, bi, kern, cb)
+            rel = _rel_l2(y, r)
+            err = float((y.float() - r.float()).abs().max())
+            assert torch.isfinite(y).all() and rel <= 1e-2, (xs, O, rel)
+            # K2's statistics at this input, against the plain version
+            a, b = ops.gn_affine(xc, sc, bi)
+            ra, rb = ops.gn_affine_reference(xc, sc, bi)
+            torch.testing.assert_close(a, ra, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(b, rb, rtol=1e-5, atol=1e-5)
+            err_s = max(float((a - ra).abs().max()), float((b - rb).abs().max()))
+            call = lambda: ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
+            ms = _time_ms(call)
+            pms = _time_ms(lambda: ops.gn_silu_conv3d_reference(xc, sc, bi, kern, cb))
+            # device time from windows that recorded at least half the launches
+            split = _plan(*xs, O, _build.sm_count(dev.index or 0)).splits > 1
+            dms = _kernel_ms(call, 'gn_silu_conv3d', per_call=2 if split else 1)[0]
+            dstats = _kernel_ms(call, 'gn_affine')[0]
+            h = ops.groupnorm_silu_reference(xc, sc, bi).to(torch.bfloat16)
+            lms = _time_ms(lambda: conv3d_same(h, kern))
+            bnd, by = gn_silu_conv3d_bound_ms(xs, xdt, O)
+            n = conv_calls[(xs, xdt, O)]
+            record('gn_silu_conv3d', err, ms, pms, bnd, by)
+            both = None if dms is None or dstats is None else dms + dstats
+            per_shape.append({'name': 'gn_silu_conv3d', 'x': list(xs), 'dtype': str(xdt)[6:], 'O': O,
+                              'calls_per_forward': n, 'ms': ms, 'device_ms': dms,
+                              'device_ms_with_stats': both, 'plain_ms': pms,
+                              'bound_ms': bnd, 'bound_by': by, 'library_ms': None,
+                              'conv_only_ms': lms})
+            share = '' if dms is None else f', {100 * bnd / dms:.0f} % reached'
+            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} (x{n} a forward): rel_l2 '
+                  f'{rel:.3e} (bound 1e-2) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
+                  f'device {_ms(dms)} ms (+ stats {_ms(dstats)}); plain {pms:.3f} ms; bound '
+                  f'{bnd:.4f} ms ({by}{share}); cuDNN conv alone {lms:.4f} ms')
+            s_ms = _time_ms(lambda: ops.gn_affine(xc, sc, bi), 20)
+            s_pms = _time_ms(lambda: ops.gn_affine_reference(xc, sc, bi), 20)
+            s_dms = _kernel_ms(lambda: ops.gn_affine(xc, sc, bi), 'gn_affine')[0]
+            s_lms, s_ldms = _var_mean_ms(xc)
+            s_bnd, s_by = bound_ms(*ops.gn_affine_cost(xs, xdt))
+            record('gn_affine', err_s, s_ms, s_pms, s_bnd, s_by, s_lms, s_ldms)
+            per_shape.append({'name': 'gn_affine', 'x': list(xs), 'dtype': str(xdt)[6:],
+                              'calls_per_forward': n, 'ms': s_ms, 'device_ms': s_dms,
+                              'plain_ms': s_pms, 'bound_ms': s_bnd, 'bound_by': s_by,
+                              'library_ms': s_lms, 'library_device_ms': s_ldms})
+            print(f'K2 gn_affine (gn_stats) x{xs} {str(xdt)[6:]}: max_abs_err {err_s:.3e} (bound '
+                  f'1e-5); call {s_ms:.4f} ms, device {_ms(s_dms)} ms; plain {s_pms:.4f} ms; bound '
+                  f'{s_bnd:.4f} ms ({s_by}); torch.var_mean {s_lms:.4f} ms, device {s_ldms:.4f} ms')
 
 
 FIT_ITERS, FIT_POOL = 10, 4     # phase 7: iterations a pass, GT view batches
@@ -466,6 +633,604 @@ def _family(name: str) -> str:
     return 'elementwise and other'
 
 
+# ---- phases 13-18: the data tools, res128 generation, the likelihood ----
+
+R128, B128 = 128, 7        # res128: grid resolution, the preset's eval.batch_size
+R128_STEPS = 9             # phase 16: uncond_gen steps (num_scales 10)
+LIKELIHOOD_T = (1e-3, 0.5, 1.0)   # phase 18: drift and divergence times
+GRID_FIELDS = ('verts', 'indices', 'unique_edges', 'tet_edge_to_unique', 'vert_grid_coords')
+
+
+def _png_pixels(path: str):
+    """(H, W, C) uint8 pixels of a PNG as ``render.utils.save_image`` writes
+    it (8-bit RGB or RGBA, filter 0 on every row)."""
+    import struct
+    import zlib
+    import numpy as np
+    with open(path, 'rb') as f:
+        data = f.read()
+    assert data[:8] == b'\x89PNG\r\n\x1a\n', path
+    pos, idat = 8, b''
+    while pos < len(data):
+        n, tag = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b'IHDR':
+            w, h, _, ctype = struct.unpack('>IIBB', body[:10])
+        elif tag == b'IDAT':
+            idat += body
+        pos += 12 + n
+    c = 4 if ctype == 6 else 3
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    assert not raw[:, 0].any()
+    return raw[:, 1:].reshape(h, w, c)
+
+
+def data_tools_run(dict_path: str, work: str, dev):
+    """Phase 13: ``data.convert`` on a fitted dict (tets-to-3dgrid on the
+    card, get-tet-mask, save-meta) and the port's dataset reading the
+    result: (the grid's path, the dataset's (R, R, R, 4) sample, seconds
+    of the conversion)."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch.data.convert import main as convert_main
+    from meshdiffusion_tpu_torch.data.dataset import ShapeNetDMTetDataset
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    src = os.path.join(work, 'tets')
+    os.makedirs(src)
+    shutil.copy(dict_path, os.path.join(src, 'dmt_dict_00000' + os.path.splitext(dict_path)[1]))
+    t0 = time.perf_counter()
+    grids = convert_main(['tets-to-3dgrid', '-res', '64', '-s', src, '-t',
+                          os.path.join(work, 'grids'), '--device', str(dev)])
+    convert_s = time.perf_counter() - t0
+    mask_path = convert_main(['get-tet-mask', '--resolution', '64', '--out',
+                              os.path.join(work, 'mask.npy')])
+    meta = convert_main(['save-meta', '--data-dir', os.path.join(work, 'grids'), '--out',
+                         os.path.join(work, 'meta.json')])
+    assert len(grids) == 1 and json.load(open(meta)) == grids, (grids, meta)
+    tg = TetGrid.load(64)
+    mask = np.load(mask_path)
+    assert mask.dtype == np.float32 and np.array_equal(mask, tg.grid_mask())
+    grid = np.load(grids[0])
+    assert grid.shape == (4, 64, 64, 64) and grid.dtype == np.float32
+    d = torch.load(dict_path, map_location=dev, weights_only=True)
+    sdf, deform = tg.grid_to_tet(torch.as_tensor(np.moveaxis(grid, 0, -1), device=dev))
+    s = torch.sign(d['sdf'].float())
+    assert torch.equal(sdf, torch.where(s == 0, torch.ones_like(s), s)), 'sdf sign'
+    assert torch.equal(deform, d['deform'].float().clamp(-1.0, 1.0)), 'clipped deform'
+    sample = ShapeNetDMTetDataset(meta, mask)[0]
+    assert sample.shape == (64, 64, 64, 4) and np.isfinite(sample).all()
+    assert set(np.unique(sample[..., 0]).tolist()) <= {-1.0, 1.0}
+    return grids[0], sample, convert_s
+
+
+def grid128_run() -> dict:
+    """Phase 14: the 128 tet grid generated with its cache removed, then
+    read back from the cache: seconds, V / T / E, the mask's ones."""
+    import numpy as np
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid, cache_path
+    cache = cache_path(R128)
+    if os.path.exists(cache):
+        os.remove(cache)
+    TetGrid.load.cache_clear()
+    t0 = time.perf_counter()
+    made = TetGrid.load(R128)
+    gen_s = time.perf_counter() - t0
+    assert os.path.exists(cache), cache
+    TetGrid.load.cache_clear()
+    t0 = time.perf_counter()
+    tg = TetGrid.load(R128)
+    read_s = time.perf_counter() - t0
+    for k in GRID_FIELDS:
+        assert np.array_equal(getattr(made, k), getattr(tg, k)), k
+    n = R128 - 1
+    out = {'generate_s': gen_s, 'read_s': read_s, 'cache_bytes': os.path.getsize(cache),
+           'V': tg.num_verts, 'T': tg.num_tets, 'E': tg.num_edges,
+           'mask_ones': int(tg.grid_mask().sum())}
+    assert (out['V'], out['T'], out['E'], out['mask_ones']) == \
+        (n ** 3, 6 * (n - 1) ** 3, 3 * n * n * (n - 1) + 3 * n * (n - 1) ** 2 + (n - 1) ** 3,
+         n ** 3), out
+    print(f'128 tet grid: generated (Kuhn lattice, edges deduplicated, parity) in {gen_s:.2f} s '
+          f'(host), cached ({out["cache_bytes"] / 2 ** 20:.0f} MiB), read back in {read_s:.2f} s; '
+          f'V {out["V"]}, T {out["T"]}, E {out["E"]}; grid_mask() has {out["mask_ones"]} ones')
+    return out
+
+
+def _seeded_pair(cfg, dev, g):
+    """The full-width model with seeded normal(0, 0.02) weights (kernels)
+    and the same weights with ``kernels=False``, both in eval mode."""
+    import torch
+    from meshdiffusion_tpu_torch.models import create_model, get_model
+    model_k = create_model(cfg, dev)
+    with torch.no_grad():
+        for p in model_k.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    with torch.device(dev):
+        model_p = get_model(cfg.model.name).from_config(cfg, kernels=False)
+    model_p.load_state_dict(model_k.state_dict())
+    return model_k.eval(), model_p.eval()
+
+
+def _plain_per_sample_ms(ref, check, batch: int) -> float:
+    """The plain version on a batch one sample at a time: ``ref(s)`` for
+    each sample s between its own pair of CUDA events, ``check(s, out)``
+    after the second; the summed ms of the ``ref`` windows, the checks left
+    out."""
+    import torch
+    evs = []
+    for s in range(batch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = ref(s)
+        ev[1].record()
+        evs.append(ev)
+        check(s, out)
+        del out
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs)
+
+
+def res128_kernels_run(dev, g, record, per_shape) -> dict:
+    """Phase 15: every kernel at the res128 preset's shapes. K3 and the
+    statistics at each distinct conv shape of a batch-1 forward (as phase
+    3); at batch 7, the level-0 conv shapes (up to 3.76e9 elements, past
+    2^31), the ancestral update and the output head, each sample held
+    against the plain version of that sample; the full-width forward at
+    batch 1 against plain; then one batch-7 forward, kernels only: launches,
+    time, device time by kernel, peak memory."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.diffusion.sampling import StepTables
+    from meshdiffusion_tpu_torch.diffusion.vpsde import VPSDE
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    from meshdiffusion_tpu_torch.ops.gn_silu_conv import gn_silu_conv3d_bound_ms
+    from meshdiffusion_tpu_torch.ops.roofline import bound_ms
+    cfg = get_config('res128')
+    assert cfg.eval.batch_size == B128, cfg.eval.batch_size
+    R = R128
+    mask = torch.as_tensor(TetGrid.load(R).grid_mask(), device=dev)[None, ..., None]
+    model_k, model_p = _seeded_pair(cfg, dev, g)
+    x1 = torch.randn((1, R, R, R, 4), device=dev, generator=g)
+    lab1 = torch.full((1,), 500.0, device=dev)
+    conv_calls, head = capture_conv_shapes(model_p, x1, lab1, mask)
+    n_conv = sum(conv_calls.values())
+    assert n_conv == 64, n_conv
+    print(f'res128 path: {n_conv} gn_silu_conv3d calls a forward at {len(conv_calls)} distinct '
+          f'shapes (batch 1); output head GroupNorm+SiLU at {head["shape"]} {head["dtype"]}')
+    first = len(per_shape)
+    conv_shape_checks(conv_calls, dev, g, record, per_shape)
+    k3 = [r for r in per_shape[first:] if r['name'] == 'gn_silu_conv3d']
+    slower = [(r['x'], r['dtype'], r['O']) for r in k3 if r['ms'] >= r['plain_ms']]
+    print(f'res128 K3 at batch 1: slower than plain (CUDA events) at {slower or "no shape"}')
+
+    out = {'conv_shapes_batch1': len(conv_calls), 'batch7': []}
+    with torch.inference_mode():
+        # the level-0 conv shapes at batch 7, each sample against plain
+        for xs1, xdt, O in sorted((k for k in conv_calls if k[0][1] == R), key=str):
+            xs = (B128,) + xs1[1:]
+            C = xs[-1]
+            xc = torch.randn(xs, device=dev, generator=g).add_(0.3).to(xdt)
+            sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
+            bi = 0.1 * torch.randn(C, device=dev, generator=g)
+            kern = (torch.randn((3, 3, 3, C, O), device=dev, generator=g)
+                    / (27 * C) ** 0.5).to(torch.bfloat16)
+            packed = ops.pack_conv_weights(kern)
+            cb = 0.1 * torch.randn(O, device=dev, generator=g)
+            call = lambda: ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
+            y = call()
+            a, b = ops.gn_affine(xc, sc, bi)
+            rels, errs = [], [0.0, 0.0]
+
+            def k3_check(s, r):
+                rels.append(_rel_l2(y[s:s + 1], r))
+                errs[0] = max(errs[0], float((y[s:s + 1].float() - r.float()).abs().max()))
+
+            def stats_check(s, r):
+                ra, rb = r
+                torch.testing.assert_close(a[s:s + 1], ra, rtol=1e-5, atol=1e-5)
+                torch.testing.assert_close(b[s:s + 1], rb, rtol=1e-5, atol=1e-5)
+                errs[1] = max(errs[1], float((a[s:s + 1] - ra).abs().max()),
+                              float((b[s:s + 1] - rb).abs().max()))
+
+            # the plain versions a sample at a time (the whole batch would not fit
+            # beside it), each sample's comparison outside its timed window
+            pms = _plain_per_sample_ms(
+                lambda s: ops.gn_silu_conv3d_reference(xc[s:s + 1], sc, bi, kern, cb),
+                k3_check, B128)
+            s_pms = _plain_per_sample_ms(
+                lambda s: ops.gn_affine_reference(xc[s:s + 1], sc, bi), stats_check, B128)
+            err, err_s = errs
+            assert torch.isfinite(y).all() and max(rels) <= 1e-2, (xs, xdt, O, rels)
+            ms = _time_ms(call, 3, 1)
+            dms = _kernel_ms(call, 'gn_silu_conv3d', iters=3)[0]
+            dstats = _kernel_ms(call, 'gn_affine', iters=3)[0]
+            bnd, by = gn_silu_conv3d_bound_ms(xs, xdt, O)
+            record('gn_silu_conv3d', err, ms, pms, bnd, by)
+            s_bnd, s_by = bound_ms(*ops.gn_affine_cost(xs, xdt))
+            s_ms = _time_ms(lambda: ops.gn_affine(xc, sc, bi), 3, 1)
+            s_lms, s_ldms = _var_mean_ms(xc)
+            record('gn_affine', err_s, s_ms, s_pms, s_bnd, s_by, s_lms, s_ldms)
+            row = {'name': 'gn_silu_conv3d', 'x': list(xs), 'dtype': str(xdt)[6:], 'O': O,
+                   'ms': ms, 'device_ms': dms, 'stats_device_ms': dstats,
+                   'plain_ms_per_sample_loop': pms, 'bound_ms': bnd, 'bound_by': by,
+                   'rel_l2_per_sample': rels, 'stats_max_abs_err': err_s, 'stats_ms': s_ms,
+                   'stats_plain_ms_per_sample_loop': s_pms, 'stats_bound_ms': s_bnd,
+                   'var_mean_ms': s_lms,
+                   'var_mean_device_ms': s_ldms, 'elements': int(np.prod(xs))}
+            per_shape.append(row)
+            out['batch7'].append(row)
+            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} ({row["elements"]:.3e} '
+                  f'elements): each sample against plain, rel_l2 max {max(rels):.3e} (bound '
+                  f'1e-2), statistics max_abs_err {err_s:.3e} (bound 1e-5); call {ms:.3f} ms, '
+                  f'device {_ms(dms)} ms (+ stats {_ms(dstats)}), bound {bnd:.3f} ms ({by}, '
+                  f'{100 * bnd / ms:.0f} % of it by CUDA events); plain a sample at a time '
+                  f'{pms:.3f} ms; '
+                  f'statistics alone {s_ms:.3f} ms (bound {s_bnd:.3f}), torch.var_mean '
+                  f'{s_lms:.3f} ms')
+            del xc, y, a, b, packed
+            torch.cuda.empty_cache()
+
+        # the ancestral update at (7, R, R, R, 4)
+        tables = StepTables.build(VPSDE(N=cfg.model.num_scales))
+        shape = (B128, R, R, R, 4)
+        x, e, nz = (torch.randn(shape, device=dev, generator=g) for _ in range(3))
+        err = 0.0
+        for i in (0, 500, 998):
+            beta, std = float(tables.beta[i]), float(tables.std[i])
+            kx, km = ops.ancestral_update(x, e, mask, nz, beta, std)
+            px, pm = ops.ancestral_update_reference(x, e, mask, nz, beta, std)
+            torch.testing.assert_close(kx, px, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(km, pm, rtol=1e-5, atol=1e-5)
+            err = max(err, float((kx - px).abs().max()), float((km - pm).abs().max()))
+        ms = _time_ms(lambda: ops.ancestral_update(x, e, mask, nz, beta, std), 20)
+        pms = _time_ms(lambda: ops.ancestral_update_reference(x, e, mask, nz, beta, std), 20)
+        dms = _kernel_ms(lambda: ops.ancestral_update(x, e, mask, nz, beta, std),
+                         'ancestral_update')[0]
+        bnd, by = bound_ms(*ops.ancestral_update_cost(shape, mask.shape))
+        record('ancestral_update', err, ms, pms, bnd, by)
+        out['ancestral_update'] = {'x': list(shape), 'ms': ms, 'device_ms': dms, 'plain_ms': pms,
+                                   'bound_ms': bnd, 'max_abs_err': err}
+        print(f'K1 ancestral_update {shape} f32: max_abs_err {err:.3e} (bound 1e-5) kernel '
+              f'{ms:.4f} ms, device {_ms(dms)} ms, plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})')
+        del x, e, nz, kx, km, px, pm
+
+        # the output head at batch 7: statistics and apply, each sample against plain
+        hs = (B128,) + tuple(head['shape'][1:])
+        C = hs[-1]
+        xg = (torch.randn(hs, device=dev, generator=g).mul_(2.0).add_(0.5)).to(head['dtype'])
+        sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
+        bi = 0.1 * torch.randn(C, device=dev, generator=g)
+        y = ops.groupnorm_silu(xg, sc, bi)
+        errs = [0.0]
+
+        def head_check(s, r):
+            torch.testing.assert_close(y[s:s + 1], r, rtol=1e-5, atol=1e-5)
+            errs[0] = max(errs[0], float((y[s:s + 1] - r).abs().max()))
+
+        pms = _plain_per_sample_ms(lambda s: ops.groupnorm_silu_reference(xg[s:s + 1], sc, bi),
+                                   head_check, B128)
+        err = errs[0]
+        ms = _time_ms(lambda: ops.groupnorm_silu(xg, sc, bi), 3, 1)
+        head_call = lambda: ops.groupnorm_silu(xg, sc, bi)
+        bnd, by = bound_ms(*ops.groupnorm_silu_cost(hs, head['dtype']))
+        record('groupnorm_silu', err, ms, pms, bnd, by)
+        out['head'] = {'x': list(hs), 'dtype': str(head['dtype'])[6:], 'ms': ms,
+                       'plain_ms_per_sample_loop': pms,
+                       'apply_device_ms': _kernel_ms(head_call, 'groupnorm_silu', iters=3)[0],
+                       'stats_device_ms': _kernel_ms(head_call, 'gn_affine', iters=3)[0],
+                       'bound_ms': bnd,
+                       'max_abs_err': err}
+        print(f'K2 groupnorm_silu (stats + apply) {hs} {str(head["dtype"])[6:]} '
+              f'({int(np.prod(hs)):.3e} elements): each sample against plain, max_abs_err '
+              f'{err:.3e} (bound 1e-5); call {ms:.3f} ms, device apply '
+              f'{_ms(out["head"]["apply_device_ms"])} + statistics '
+              f'{_ms(out["head"]["stats_device_ms"])} ms; bound {bnd:.3f} ms ({by})')
+        del xg, y
+        torch.cuda.empty_cache()
+
+        # the full-width forward at batch 1, kernels against plain
+        ops.reset_launch_counts()
+        y_k = model_k(x1, lab1, mask)
+        torch.cuda.synchronize()
+        per_fwd = ops.launch_counts()
+        y_p = model_p(x1, lab1, mask)
+        rel = _rel_l2(y_k, y_p)
+        assert torch.isfinite(y_k).all() and y_k.shape == x1.shape and rel <= 1e-2, rel
+        assert per_fwd == {'ancestral_update': 0, 'gn_affine': 65, 'groupnorm_silu': 1,
+                           'gn_silu_conv3d': 64, 'tile_zmin': 0}, per_fwd
+        print(f'res128 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
+              f'(bound 1e-2); launches a forward {per_fwd}')
+        del model_p, y_k, y_p
+        torch.cuda.empty_cache()
+
+        # one full-width forward at batch 7, kernels only
+        x7 = torch.randn((B128, R, R, R, 4), device=dev, generator=g)
+        lab7 = torch.linspace(0.0, 999.0, B128, device=dev)
+        fwd = lambda: model_k(x7, lab7, mask)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        y7 = fwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches7 = ops.launch_counts()
+        assert launches7 == per_fwd, launches7
+        assert torch.isfinite(y7).all() and y7.shape == x7.shape
+        del y7
+        ms7 = _time_ms(fwd, 2, 0)
+        busy, by_kernel, seen = _window_ms(fwd, per_fwd)
+        prof = _device_ms(fwd, 1)
+    out.update({'forward_batch7_ms': ms7, 'forward_batch7_device_ms': busy,
+                'forward_batch7_device_ms_by_kernel': by_kernel,
+                'forward_batch7_launches_recorded': seen,
+                'forward_batch7_peak_bytes': peak, 'held_before_bytes': base,
+                'launches_per_forward': per_fwd, 'forward_batch1_rel_l2': rel})
+    print(f'res128 full-width forward, batch 7, bf16, kernels: {ms7:.2f} ms (CUDA events), '
+          f'device {_ms(busy)} ms (' + ', '.join(f'{n} {_ms(t)}' for n, t in by_kernel.items()
+                                                 if per_fwd[n])
+          + f'; the profiler recorded {seen} launches of {per_fwd}); peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB held before: weights and their '
+          f'bf16 layouts)')
+    for k, t in sorted(prof.items(), key=lambda kv: -kv[1])[:12]:
+        print(f'  {t:8.3f} ms  {k[:100]}')
+    del model_k
+    torch.cuda.empty_cache()
+    return out
+
+
+def uncond128_run(entry, rec, work: str, mask, dev) -> dict:
+    """Phase 16: ``main --config res128 --mode uncond_gen`` at the preset's
+    batch 7 (num_scales R128_STEPS + 1, beta_max 2.0), every counter set to
+    0 just before and read just after; then ``main --mode extract
+    --resolution 128 --no_remesh`` of its first sample: marching tets'
+    seconds and the extraction's peak device memory."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    npy = entry(['--config', 'res128', '--mode', 'uncond_gen', '--device', str(dev),
+                 f'--config.model.num_scales={R128_STEPS + 1}', '--config.model.beta_max=2.0',
+                 f'--config.eval.eval_dir={work}'])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_gen = torch.cuda.max_memory_allocated()
+    n = R128_STEPS
+    assert launches == {'ancestral_update': n, 'gn_affine': 65 * n, 'groupnorm_silu': n,
+                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0}, launches
+    assert rec.fields['steps'] == n
+    sample_s = rec.fields['sample_s']
+    sample = np.load(npy)
+    assert sample.shape == (B128, 4, R128, R128, R128) and np.isfinite(sample).all()
+    assert not (sample * (1 - mask)).any(), 'res128 sample is non-zero outside the grid mask'
+    assert all(np.abs(sample[b] * mask).max() > 0 for b in range(B128))
+    one = os.path.join(work, 'first.npy')
+    np.save(one, sample[:1])
+    del sample
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    objs = entry(['--mode', 'extract', '--sample_path', one, '--out_dir',
+                  os.path.join(work, 'meshes'), '--resolution', str(R128), '--no_remesh',
+                  '--device', str(dev)])
+    extract_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak_ex = torch.cuda.max_memory_allocated()
+    nv, nf = rec.fields['mesh_size']
+    with open(objs[0]) as f:
+        assert f.read(2) == 'v '
+    assert nf > 0 and os.path.getsize(objs[0]) > 0
+    out = {'steps': n, 'batch': B128, 'sample_s': sample_s, 'ms_per_step': 1000 * sample_s / n,
+           'launches': launches, 'peak_bytes': peak_gen,
+           'extract': {'marching_s': rec.fields['marching_s'],
+                       'postprocess_s': rec.fields['postprocess_s'], 'command_s': extract_s,
+                       'verts': nv, 'faces': nf, 'obj_bytes': os.path.getsize(objs[0]),
+                       'peak_bytes': peak_ex, 'held_before_bytes': held}}
+    print(f'uncond_gen res128: batch {B128}, {n} steps in {sample_s:.3f} s, '
+          f'{out["ms_per_step"]:.2f} ms a step ({out["ms_per_step"] / B128:.2f} a sample); peak '
+          f'device memory {peak_gen / 2 ** 30:.2f} GiB; launches {launches}')
+    print(f'extract res128 (sample 0, no remesh): {nv} verts, {nf} faces; marching tets '
+          f'{out["extract"]["marching_s"]:.3f} s (AoS tables on the card), smooth '
+          f'{out["extract"]["postprocess_s"]:.3f} s, command {extract_s:.3f} s (.obj '
+          f'{out["extract"]["obj_bytes"] / 2 ** 20:.0f} MiB); peak device memory '
+          f'{peak_ex / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} GiB held before)')
+    return out
+
+
+def viz128_run(entry, rec, work: str, record, dev) -> dict:
+    """Phase 17: a real shape on the 128 grid (the GT SDF's sign at its
+    vertices, deform 0) scattered by ``data.convert.tets_to_grid`` on the
+    card, then ``main --mode extract --resolution 128 --save_viz`` with the
+    full post-process, counters set to 0 just before and read just after:
+    tile_zmin once, its call held bit-equal against its plain version."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.data.convert import tets_to_grid
+    from meshdiffusion_tpu_torch.geometry.obj_io import read_obj
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    from meshdiffusion_tpu_torch.render import rasterize as raster
+    os.makedirs(work, exist_ok=True)
+    tg = TetGrid.load(R128)
+    sdf = np.where(gt_sdf(tg.verts) >= 0, 1.0, -1.0).astype(np.float32)
+    grid = tets_to_grid(tg, sdf, np.zeros((tg.num_verts, 3), np.float32), device=dev)
+    assert grid.shape == (4, R128, R128, R128)
+    gt_npy = os.path.join(work, 'gt128.npy')
+    np.save(gt_npy, grid[None])
+    calls, launch = [], raster.tile_zmin
+
+    def recording(*args):
+        out = launch(*args)
+        calls.append((args, out))
+        return out
+    ops.reset_launch_counts()
+    raster.tile_zmin = recording
+    try:
+        t0 = time.perf_counter()
+        objs = entry(['--mode', 'extract', '--sample_path', gt_npy, '--out_dir',
+                      os.path.join(work, 'gt'), '--resolution', str(R128), '--save_viz',
+                      '--device', str(dev)])
+        command_s = time.perf_counter() - t0
+    finally:
+        raster.tile_zmin = launch
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    renders = rec.fields['viz_renders']     # 1, and 1 more a capacity regrowth
+    assert not any(rec.fields['viz_overflow'].values()), rec.fields['viz_overflow']
+    assert launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
+                        'gn_silu_conv3d': 0, 'tile_zmin': renders} and len(calls) == renders, \
+        (launches, renders, len(calls))
+    v, f = read_obj(objs[0])
+    assert len(f) > 1000 and np.isfinite(v).all(), len(f)
+    png = os.path.join(work, 'gt', 'viz', 'viz_000000.png')
+    pix = _png_pixels(png)
+    assert pix.shape == (512, 512, 3) and pix.std() > 5.0, (pix.shape, pix.std())
+    zargs, (kt, kz) = calls[-1]          # the render the PNG shows
+    with torch.inference_mode():
+        pt, pz = ops.tile_zmin_reference(*zargs)
+        assert torch.equal(kt, pt) and torch.equal(kz, pz) and int((pt >= 0).sum()) > 1000
+        call = lambda: ops.tile_zmin(*zargs)
+        ms = _time_ms(call, 20)
+        dms, seen, issued = _kernel_ms(call, 'tile_zmin')
+        pms = _time_ms(lambda: ops.tile_zmin_reference(*zargs), 3, 1)
+        bnd, by = ops.tile_zmin_bound_ms(zargs[0], zargs[2], zargs[4], zargs[5], num_layers=1,
+                                         best_z=kz)
+    if dms is not None and dms > 1.05 * ms:
+        dms = None
+    record('tile_zmin', 0.0, ms, pms, bnd, by)
+    live = zargs[2].view(zargs[4].shape[0], -1) + zargs[4][:, None]
+    out = {'verts': len(v), 'faces': len(f), 'marching_s': rec.fields['marching_s'],
+           'postprocess_s': rec.fields['postprocess_s'], 'command_s': command_s,
+           'renders': renders, 'pixels_hit': int((pt >= 0).sum()), 'png_std': float(pix.std()),
+           'launches': launches, 'tile_zmin': {'ms': ms, 'device_ms': dms, 'plain_ms': pms,
+                                               'bound_ms': bnd, 'bound_by': by,
+                                               'faces': zargs[0].shape[1],
+                                               'pairs': int(live.sum()),
+                                               'heaviest_tile': int(live.max())}}
+    print(f'extract res128 --save_viz on the GT shape: {len(v)} verts, {len(f)} faces; marching '
+          f'tets {out["marching_s"]:.3f} s, post-process (remesh, smooth 3, remesh) '
+          f'{out["postprocess_s"]:.3f} s, command {command_s:.3f} s; viz 512^2 PNG, pixel std '
+          f'{pix.std():.1f}; {renders} render(s) (the capacities grown on overflow); launches '
+          f'{launches}; the last z-test (one layer, {zargs[0].shape[1]} '
+          f'faces, {int(live.sum())} live pairs): ids equal and z bit-equal to plain, '
+          f'{out["pixels_hit"]} pixels hit; device {_ms(dms)} ms (profiler recorded {seen} of '
+          f'{issued} launches), CUDA events {ms:.4f} ms; plain {pms:.2f} ms; bound {bnd:.4f} ms '
+          f'({by})')
+    return out
+
+
+def _eps_vjp(model_fn, x, t, eps, N):
+    """eps^T (d eps_hat / dx): the U-Net's own vector-Jacobian product at
+    (x, t), the network's share of the divergence estimate before the
+    final sum with eps."""
+    import torch
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(model_fn(x, t * (N - 1)), x, eps)
+    return g
+
+
+def likelihood_run(sample, dev, g) -> dict:
+    """Phase 18: the likelihood on the res64 model at full width, batch 1,
+    on phase 13's grid. The drift and the Hutchinson divergence at
+    LIKELIHOOD_T with kernels against ``kernels=False`` (seeded normal(0,
+    0.02) weights); then ``likelihood_fn`` (rtol = atol = 1e-3) from
+    start to end on the seeded init the generators sample from without a
+    checkpoint, whose last convs are zero-scaled: its epsilon is ~1e-5, so
+    the ODE is dx/dt = -beta(t) x / 2 and bits/dim has a closed form, which
+    it is held to."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.diffusion.likelihood import (get_drift_and_div_fn,
+                                                              get_likelihood_fn,
+                                                              hutchinson_noise)
+    from meshdiffusion_tpu_torch.diffusion.vpsde import VPSDE
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
+    cfg = get_config('res64')
+    R = cfg.data.image_size
+    mask = torch.as_tensor(TetGrid.load(R).grid_mask(), device=dev)[None, ..., None]
+    sde = VPSDE(beta_min=cfg.model.beta_min, beta_max=cfg.model.beta_max, N=cfg.model.num_scales)
+    model_k, model_p = _seeded_pair(cfg, dev, g)
+    for m in (model_k, model_p):
+        m.requires_grad_(False)
+    n_conv = 2 * sum(isinstance(m, ResnetBlockDDPM) for m in model_k.modules())   # 74 at res64
+    x = torch.as_tensor(sample[None], device=dev)
+    eps = hutchinson_noise('Rademacher', dev, 0)('hutchinson', x.shape)
+    fns = {w: get_drift_and_div_fn(sde, lambda z, lab, m=m: m(z, lab, mask))
+           for w, m in (('kernels', model_k), ('plain', model_p))}
+    rows = []
+    for t in LIKELIHOOD_T:
+        tt = torch.full((1,), t, device=dev)
+        ops.reset_launch_counts()
+        dk, vk = fns['kernels'](x, tt, eps)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        assert n == {'ancestral_update': 0, 'gn_affine': n_conv, 'groupnorm_silu': 0,
+                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0}, n
+        dp, vp = fns['plain'](x, tt, eps)
+        rel_d = _rel_l2(dk, dp)
+        rel_v = float((vk - vp).abs() / vp.abs())
+        # the network's own share, its vector-Jacobian product eps^T (d eps_hat / dx):
+        # held by relative L2 as phase 12 holds gradients. (Its sum with eps, ~50-100
+        # out of 1e6 terms of either sign, is ill-conditioned, and in the fp32 total the
+        # linear part -beta n / 2, 1e7 at t = 1, leaves it a few ulps.)
+        gk, gp = (_eps_vjp(lambda z, lab, m=m: m(z, lab, mask), x, tt, eps, sde.N)
+                  for m in (model_k, model_p))
+        rel_net = _rel_l2(gk, gp)
+        net_k, net_p = (float((gv.double() * eps.double()).sum()) for gv in (gk, gp))
+        assert torch.isfinite(dk).all() and torch.isfinite(vk).all(), t
+        assert rel_d <= 1e-2 and rel_v <= 1e-2 and rel_net <= 2e-2, (t, rel_d, rel_v, rel_net)
+        ms_k = _time_ms(lambda: fns['kernels'](x, tt, eps), 3, 1)
+        ms_p = _time_ms(lambda: fns['plain'](x, tt, eps), 3, 1)
+        rows.append({'t': t, 'drift_rel_l2': rel_d, 'div_rel_err': rel_v, 'div': float(vk),
+                     'eps_vjp_rel_l2': rel_net, 'eps_jacobian_sum': [net_k, net_p],
+                     'ms_kernels': ms_k, 'ms_plain': ms_p})
+        print(f'likelihood res64, t={t:g}: drift rel_l2 kernels vs plain {rel_d:.3e} (bound '
+              f'1e-2), divergence {float(vk):.6e} against {float(vp):.6e} (relative error '
+              f'{rel_v:.3e}, bound 1e-2); the network\'s vector-Jacobian product eps^T J rel_l2 '
+              f'{rel_net:.3e} (bound 2e-2), eps^T J eps {net_k:.6e} against {net_p:.6e} (fp64 '
+              f'sums); an evaluation (forward '
+              f'and its vector-Jacobian product) {ms_k:.2f} ms with kernels, {ms_p:.2f} ms '
+              f'plain; launches {n}')
+    del model_k, model_p, fns
+    torch.cuda.empty_cache()
+
+    model = create_model(cfg, dev, torch.Generator(device=dev).manual_seed(cfg.seed)).eval()
+    model.requires_grad_(False)
+    lk = get_likelihood_fn(sde, lambda z, lab: model(z, lab, mask), rtol=1e-3, atol=1e-3,
+                           device=dev)
+    data = sample[None].astype(np.float32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    bpd, z, nfe = lk(0, data)
+    lk_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    assert launches == {'ancestral_update': 0, 'gn_affine': n_conv * nfe, 'groupnorm_silu': 0,
+                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0}, (launches, nfe)
+    e0 = 1e-5
+    integral = sde.beta_0 * (1 - e0) + (sde.beta_1 - sde.beta_0) * (1 - e0 ** 2) / 2
+    n_dim = data[0].size
+    z_exact = data * np.exp(-integral / 2)
+    bpd_exact = ((n_dim / 2 * np.log(2 * np.pi) + (z_exact.astype(np.float64) ** 2).sum() / 2
+                  + n_dim * integral / 2) / (n_dim * np.log(2)) + 8.0)
+    assert z.shape == data.shape and np.isfinite(z).all() and np.isfinite(bpd).all()
+    assert abs(float(bpd[0]) - bpd_exact) <= 1e-3, (bpd, bpd_exact)
+    out = {'per_t': rows, 'nfe': int(nfe), 'bpd': float(bpd[0]), 'bpd_closed_form': bpd_exact,
+           'seconds': lk_s, 'launches': launches}
+    print(f'likelihood_fn res64 (rtol = atol = 1e-3, Rademacher, seeded init): nfe {nfe}, '
+          f'bpd {float(bpd[0]):.6f} (closed form {bpd_exact:.6f}), {lk_s:.2f} s, '
+          f'{1000 * lk_s / nfe:.1f} ms an evaluation; launches {launches}')
+    return out
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -492,7 +1257,6 @@ def main() -> int:
     from meshdiffusion_tpu_torch.models import create_model, get_model
     from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
     from meshdiffusion_tpu_torch.ops import _build
-    from meshdiffusion_tpu_torch.ops.gn_silu_conv import conv3d_same, gn_silu_conv3d_bound_ms
     from meshdiffusion_tpu_torch.ops.roofline import bound_ms
 
     # ---- 1. the card ----
@@ -556,23 +1320,9 @@ def main() -> int:
 
     # capture the main path's K3 / K2 input shapes (and how often each runs)
     # from one plain forward
-    conv_calls, head = {}, {}
-
-    def _conv_hook(mod, args):
-        for key in ((tuple(args[0].shape), args[0].dtype, mod.out_ch),
-                    (tuple(args[0].shape[:-1]) + (mod.out_ch,), mod.dtype, mod.out_ch)):
-            conv_calls[key] = conv_calls.get(key, 0) + 1
-
-    hooks = [m.register_forward_pre_hook(_conv_hook)
-             for m in model_p.modules() if isinstance(m, ResnetBlockDDPM)]
-    hooks.append(model_p.all_modules[-1].register_forward_pre_hook(
-        lambda mod, args: head.update(shape=tuple(args[0].shape), dtype=args[0].dtype)))
     x_in = torch.randn((1, R, R, R, 4), device=dev, generator=g)
     labels = torch.full((1,), 500.0, device=dev)
-    with torch.inference_mode():
-        model_p(x_in, labels, mask)
-    for h in hooks:
-        h.remove()
+    conv_calls, head = capture_conv_shapes(model_p, x_in, labels, mask)
     conv_shapes = set(conv_calls)
     print(f'main path: {sum(conv_calls.values())} gn_silu_conv3d calls a forward at '
           f'{len(conv_shapes)} distinct shapes; output head GroupNorm+SiLU at {head["shape"]} '
@@ -597,14 +1347,6 @@ def main() -> int:
                *bound_ms(*ops.ancestral_update_cost(shape, mask.shape)))
         print(f'K1 ancestral_update {shape} f32: max_abs_err {err:.3e} (bound 1e-5) '
               f'kernel {ms:.4f} ms plain {pms:.4f} ms')
-
-        def _var_mean_ms(xg):
-            """torch.var_mean over (B, S, G, C/G), the statistics in one call:
-            (CUDA-event ms, device ms from torch.profiler) a call."""
-            B, C = xg.shape[0], xg.shape[-1]
-            v = xg.view(B, -1, 32, C // 32)
-            call = lambda: torch.var_mean(v, dim=(1, 3), correction=0)
-            return _time_ms(call, 20), sum(_device_ms(call).values())
 
         C = head['shape'][-1]
         sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
@@ -634,65 +1376,15 @@ def main() -> int:
                 record('groupnorm_silu', err_a, ms_a, pms_a,
                        *bound_ms(*ops.groupnorm_silu_cost(xg.shape, dt)))
 
-        for xs, xdt, O in sorted(conv_shapes, key=lambda s: (-s[0][1], s[0][-1], s[2], str(s[1]))):
-            C = xs[-1]
-            xc = (torch.randn(xs, device=dev, generator=g) + 0.3).to(xdt)
-            sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
-            bi = 0.1 * torch.randn(C, device=dev, generator=g)
-            kern = (torch.randn((3, 3, 3, C, O), device=dev, generator=g)
-                    / (27 * C) ** 0.5).to(torch.bfloat16)
-            packed = ops.pack_conv_weights(kern)
-            cb = 0.1 * torch.randn(O, device=dev, generator=g)
-            y = ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
-            r = ops.gn_silu_conv3d_reference(xc, sc, bi, kern, cb)
-            rel = _rel_l2(y, r)
-            err = float((y.float() - r.float()).abs().max())
-            assert torch.isfinite(y).all() and rel <= 1e-2, (xs, O, rel)
-            # K2's statistics at this input, against the plain version
-            a, b = ops.gn_affine(xc, sc, bi)
-            ra, rb = ops.gn_affine_reference(xc, sc, bi)
-            torch.testing.assert_close(a, ra, rtol=1e-5, atol=1e-5)
-            torch.testing.assert_close(b, rb, rtol=1e-5, atol=1e-5)
-            err_s = max(float((a - ra).abs().max()), float((b - rb).abs().max()))
-            call = lambda: ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
-            ms = _time_ms(call)
-            pms = _time_ms(lambda: ops.gn_silu_conv3d_reference(xc, sc, bi, kern, cb))
-            prof = _device_ms(call)
-            dms, dstats = _of(prof, 'gn_silu_conv3d'), _of(prof, 'gn_affine')
-            h = ops.groupnorm_silu_reference(xc, sc, bi).to(torch.bfloat16)
-            lms = _time_ms(lambda: conv3d_same(h, kern))
-            bnd, by = gn_silu_conv3d_bound_ms(xs, xdt, O)
-            n = conv_calls[(xs, xdt, O)]
-            record('gn_silu_conv3d', err, ms, pms, bnd, by)
-            per_shape.append({'name': 'gn_silu_conv3d', 'x': list(xs), 'dtype': str(xdt)[6:], 'O': O,
-                              'calls_per_forward': n, 'ms': ms, 'device_ms': dms,
-                              'device_ms_with_stats': dms + dstats, 'plain_ms': pms,
-                              'bound_ms': bnd, 'bound_by': by, 'library_ms': None,
-                              'conv_only_ms': lms})
-            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} (x{n} a forward): rel_l2 '
-                  f'{rel:.3e} (bound 1e-2) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
-                  f'device {dms:.4f} ms (+ stats {dstats:.4f}); plain {pms:.3f} ms; bound {bnd:.4f} '
-                  f'ms ({by}, {100 * bnd / dms:.0f} % reached); cuDNN conv alone {lms:.4f} ms')
-            s_ms = _time_ms(lambda: ops.gn_affine(xc, sc, bi), 20)
-            s_pms = _time_ms(lambda: ops.gn_affine_reference(xc, sc, bi), 20)
-            s_dms = _of(_device_ms(lambda: ops.gn_affine(xc, sc, bi)), 'gn_affine')
-            s_lms, s_ldms = _var_mean_ms(xc)
-            s_bnd, s_by = bound_ms(*ops.gn_affine_cost(xs, xdt))
-            record('gn_affine', err_s, s_ms, s_pms, s_bnd, s_by, s_lms, s_ldms)
-            per_shape.append({'name': 'gn_affine', 'x': list(xs), 'dtype': str(xdt)[6:],
-                              'calls_per_forward': n, 'ms': s_ms, 'device_ms': s_dms,
-                              'plain_ms': s_pms, 'bound_ms': s_bnd, 'bound_by': s_by,
-                              'library_ms': s_lms, 'library_device_ms': s_ldms})
-            print(f'K2 gn_affine (gn_stats) x{xs} {str(xdt)[6:]}: max_abs_err {err_s:.3e} (bound '
-                  f'1e-5); call {s_ms:.4f} ms, device {s_dms:.4f} ms; plain {s_pms:.4f} ms; bound '
-                  f'{s_bnd:.4f} ms ({s_by}); torch.var_mean {s_lms:.4f} ms, device {s_ldms:.4f} ms')
+        conv_shape_checks(conv_calls, dev, g, record, per_shape)
     k3 = [r for r in per_shape if r['name'] == 'gn_silu_conv3d']
     results['gn_silu_conv3d']['conv_only_ms'] = sum(r['conv_only_ms'] for r in k3)
-    fwd_dev = sum(r['calls_per_forward'] * r['device_ms'] for r in k3)
+    fwd_dev = (None if any(r['device_ms'] is None for r in k3)
+               else sum(r['calls_per_forward'] * r['device_ms'] for r in k3))
     fwd_bnd = sum(r['calls_per_forward'] * r['bound_ms'] for r in k3)
     print(f'K3 summed over the {len(conv_shapes)} distinct shapes: kernel '
           f'{results["gn_silu_conv3d"]["ms"]:.3f} ms plain {results["gn_silu_conv3d"]["plain_ms"]:.3f} ms; '
-          f'weighted by calls a forward: device {fwd_dev:.3f} ms against a bound of {fwd_bnd:.3f} ms')
+          f'weighted by calls a forward: device {_ms(fwd_dev)} ms against a bound of {fwd_bnd:.3f} ms')
     slower = [(r['x'], r['dtype'], r['O']) for r in k3 if r['ms'] >= r['plain_ms']]
     assert not slower, f'K3 slower than its plain version at {slower}'
 
@@ -774,6 +1466,7 @@ def main() -> int:
 
     # ---- 6. the tile z-test kernel at the fit path's shapes ----
     from meshdiffusion_tpu_torch.fitting.fit import FitConfig
+    keep = tempfile.mkdtemp(prefix='chip_smoke_keep_')   # phase 7's dict, the 128 grid's cache
     fcfg = FitConfig()
     H, W = fcfg.train_res
     B = fcfg.batch
@@ -849,6 +1542,8 @@ def main() -> int:
         assert fit_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
                                 'gn_silu_conv3d': 0, 'tile_zmin': expect}, (fit_launches, expect)
         V = TetGrid.load(64).num_verts
+        fitted = os.path.join(keep, os.path.basename(written[0]['tets']))
+        shutil.copy(written[0]['tets'], fitted)        # phase 13 converts it
         pre, fin = (torch.load(written[0][k]) for k in ('tets_pre', 'tets'))
         assert set(pre) == {'sdf', 'sdf_ema', 'deform', 'deform_unmasked'}, set(pre)
         assert set(fin) == {'sdf', 'deform', 'deform_unmasked'}, set(fin)
@@ -1154,7 +1849,40 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 13. results ----
+    # ---- 13-18: the data tools, res128 generation and extraction, the likelihood ----
+    os.environ['XDG_CACHE_HOME'] = os.path.join(keep, 'cache')   # the 128 grid's cache
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_r128_')
+    try:
+        # ---- 13. the data tools on phase 7's fitted dict ----
+        grid64, sample64, convert_s = data_tools_run(fitted, os.path.join(tmp, 'data'), dev)
+        print(f'data tools: tets-to-3dgrid on the card ({convert_s:.3f} s for one dict) -> '
+              f'{grid64}; its grid_to_tet gives back the dict\'s sdf sign and clipped deform '
+              f'exactly; get-tet-mask bit-equal to TetGrid.load(64).grid_mask(); save-meta '
+              f'lists it and the port\'s dataset reads it')
+        # ---- 14. the 128 tet grid ----
+        grid128 = grid128_run()
+        # ---- 15. every kernel at the res128 shapes ----
+        k128 = res128_kernels_run(dev, g, record, per_shape)
+        # ---- 16. main --config res128 --mode uncond_gen, then extract ----
+        mask128 = TetGrid.load(R128).grid_mask()
+        gen128 = uncond128_run(port_main, rec, os.path.join(tmp, 'gen'), mask128, dev)
+        uncond128_launches = gen128['launches']
+        # ---- 17. a real shape on the 128 grid: extract --save_viz ----
+        viz128 = viz128_run(port_main, rec, os.path.join(tmp, 'viz'), record, dev)
+        viz_launches = viz128['launches']
+        # ---- 18. the likelihood on the res64 model ----
+        lk64 = likelihood_run(sample64, dev, g)
+        likelihood_launches = lk64['launches']
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(keep, ignore_errors=True)
+        os.environ.pop('XDG_CACHE_HOME', None)
+    with open(os.path.join(out_dir, 'res128.json'), 'w') as f:
+        json.dump({'data_tools_convert_s': convert_s, 'grid128': grid128, 'kernels': k128,
+                   'uncond_gen': gen128, 'extract_viz': viz128, 'likelihood': lk64,
+                   'card': _smi()}, f, indent=1)
+
+    # ---- 19. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
     meta = {
@@ -1171,7 +1899,8 @@ def main() -> int:
     }
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
                'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,
-               'train': train_launches}
+               'train': train_launches, 'uncond_gen_res128': uncond128_launches,
+               'extract_viz': viz_launches, 'likelihood': likelihood_launches}
     print(json.dumps({'launches_by_path': by_path}))
     path_launches = {n: sum(p[n] for p in by_path.values()) for n in launches}
     # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted

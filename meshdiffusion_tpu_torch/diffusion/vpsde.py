@@ -88,6 +88,12 @@ class VPSDE:
         coeff, std = self.marginal_coeffs(t)
         return coeff.reshape(coeff.shape + (1,) * (x.ndim - 1)) * x, std
 
+    def prior_logp(self, z: np.ndarray) -> np.ndarray:
+        """log N(z; 0, I) of each sample of a float32 batch (reference
+        sde_lib.py:216-219)."""
+        n = float(np.prod(z.shape[1:]))
+        return -n / 2.0 * np.log(2 * np.pi) - np.sum(z ** 2, axis=tuple(range(1, z.ndim))) / 2.0
+
     def timesteps(self, eps: float = 1e-3) -> np.ndarray:
         """The reverse-time grid linspace(T, eps, N) used by the samplers."""
         return np.linspace(self.T, eps, self.N, dtype=np.float64).astype(np.float32)

@@ -211,6 +211,14 @@ def make_fit_step(fitter: DMTetFitter, cfg: FitConfig, renderer: TargetRenderer,
     return step
 
 
+# the rasterizer's capacities that grow when their overflow counter is set
+RASTER_CAPS = (('raster_K', 'raster_overflow'), ('raster_Kg', 'raster_overflow_global'),
+               ('raster_live', 'raster_overflow_live'))
+# the most fitting grows each to: the JAX package's Pallas z-test carried
+# face ids as f32 (exact to 2^24), whence raster_live's cap
+_FIT_CAP_MAX = {'raster_K': 4096, 'raster_Kg': 1024, 'raster_live': 2 ** 23}
+
+
 def _grow(cur: int, over: int, cap: Optional[int] = None, first: int = 1) -> int:
     """Double ``cur`` (times ``first`` at once) until it holds cur + over."""
     new = max(cur, 1) * first
@@ -298,11 +306,8 @@ def fit_one_mesh(mesh_path: str, cfg: FitConfig, out_dir: str, global_index: int
                 'raster_overflow', 'raster_overflow_global', 'raster_overflow_live',
                 'shade_overflow', 'aa_overflow')}
             updates = {}
-            for name, key, hard in (('raster_K', 'raster_overflow', 4096),
-                                    ('raster_Kg', 'raster_overflow_global', 1024),
-                                    # the JAX package's Pallas z-test carried face
-                                    # ids as f32 (exact to 2^24): the same cap
-                                    ('raster_live', 'raster_overflow_live', 2 ** 23)):
+            for name, key in RASTER_CAPS:
+                hard = _FIT_CAP_MAX[name]
                 if over[key] > 0:
                     cur = getattr(pass_cfg, name)
                     if cur >= hard:

@@ -6,8 +6,11 @@ six local edges into it and the vertex -> cubic-grid coordinate map are
 precomputed once on the host with numpy; marching tets is then pure
 fixed-shape gather arithmetic on the device (``marching_tets.py``).
 
-The bundled grids are read by path from the JAX package's assets
-(``meshdiffusion_tpu/assets/{R}_tets_cropped.npz``), without importing it.
+The 64 grid is the port's own copy of the reference's asset
+(``assets/64_tets_cropped.npz``). A resolution with no asset (the 128 grid:
+the reference ships none) is generated as a Kuhn lattice
+(``generate_tets.py``) and its derived arrays cached on disk, as the JAX
+package does, under the port's own cache directory.
 """
 
 from __future__ import annotations
@@ -48,7 +51,17 @@ NUM_TRIANGLES_TABLE = np.array(
 BASE_TET_EDGES = np.array([0, 1, 0, 2, 0, 3, 1, 2, 1, 3, 2, 3], dtype=np.int32)
 
 DEFAULT_TET_DIR = os.path.normpath(os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), '..', '..', 'meshdiffusion_tpu', 'assets'))
+    os.path.dirname(os.path.abspath(__file__)), '..', 'assets'))
+
+_DERIVED = ('verts', 'indices', 'unique_edges', 'tet_edge_to_unique', 'vert_grid_coords')
+
+
+def cache_path(resolution: int) -> str:
+    """Where a generated grid's derived arrays are cached:
+    ``$XDG_CACHE_HOME`` (default ``~/.cache``) ``/meshdiffusion_tpu_torch/
+    tetgrid_gen_{R}.npz``."""
+    root = os.environ.get('XDG_CACHE_HOME') or os.path.join(os.path.expanduser('~'), '.cache')
+    return os.path.join(root, 'meshdiffusion_tpu_torch', f'tetgrid_gen_{resolution}.npz')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,15 +81,30 @@ class TetGrid:
     @functools.lru_cache(maxsize=4)
     def load(resolution: int = 64, tet_dir: Optional[str] = None) -> "TetGrid":
         """Load ``{tet_dir}/{R}_tets_cropped.npz`` (default: the bundled
-        assets, which hold the 64 grid)."""
+        assets, which hold the 64 grid). Where there is no such file,
+        generate the Kuhn-lattice grid with the same vertex lattice and cache
+        its derived arrays at :func:`cache_path` (at R=128 generating takes
+        tens of seconds, reading the cache a few); a failed cache write is
+        ignored, as in the JAX package, a failed generation raises."""
         path = os.path.join(tet_dir or DEFAULT_TET_DIR, f'{resolution}_tets_cropped.npz')
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f'{path}: no tet grid for resolution {resolution} (generating one is '
-                'not ported; the JAX package generates the 128 grid)')
-        data = np.load(path)
-        return TetGrid.from_arrays(resolution, np.asarray(data['vertices'], np.float32),
-                                   np.asarray(data['indices'], np.int32))
+        if os.path.exists(path):
+            data = np.load(path)
+            return TetGrid.from_arrays(resolution, np.asarray(data['vertices'], np.float32),
+                                       np.asarray(data['indices'], np.int32))
+        cache = cache_path(resolution)
+        if os.path.exists(cache):
+            with np.load(cache) as d:
+                return TetGrid(resolution=resolution, **{k: d[k] for k in _DERIVED})
+        from .generate_tets import generate_tet_grid
+        tg = TetGrid.from_arrays(resolution, *generate_tet_grid(resolution))
+        try:
+            os.makedirs(os.path.dirname(cache), exist_ok=True)
+            tmp = cache + '.tmp.npz'      # written whole, then renamed
+            np.savez(tmp, **{k: getattr(tg, k) for k in _DERIVED})
+            os.replace(tmp, cache)
+        except OSError:
+            pass
+        return tg
 
     @staticmethod
     def from_arrays(resolution: int, verts: np.ndarray, indices: np.ndarray) -> "TetGrid":
@@ -91,9 +119,13 @@ class TetGrid:
         if neg.any():
             indices = indices.copy()
             indices[neg, 2], indices[neg, 3] = (indices[neg, 3], indices[neg, 2].copy())
-        edges = indices[:, BASE_TET_EDGES].reshape(-1, 2)          # (6T, 2)
-        unique_edges, inverse = np.unique(np.sort(edges, axis=1), axis=0,
-                                          return_inverse=True)
+        # unique edges on one int64 key a*V + b (a < b): the lexicographic
+        # order and inverse of np.unique(axis=0) over the (a, b) rows, in a
+        # tenth of its time (seconds, not minutes, for the 128 grid's 72M)
+        edges = np.sort(indices[:, BASE_TET_EDGES].reshape(-1, 2), axis=1).astype(np.int64)
+        V = np.int64(verts.shape[0])
+        keys, inverse = np.unique(edges[:, 0] * V + edges[:, 1], return_inverse=True)
+        unique_edges = np.stack([keys // V, keys % V], axis=1)
         u = np.unique(verts)
         dx = float(u[1] - u[0])
         return TetGrid(resolution=resolution, verts=verts, indices=indices,
@@ -108,6 +140,10 @@ class TetGrid:
     @property
     def num_tets(self) -> int:
         return self.indices.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.unique_edges.shape[0]
 
     def tensor(self, name: str, device) -> torch.Tensor:
         """One of the grid's arrays as a tensor on ``device`` (int64 for the
@@ -140,6 +176,16 @@ class TetGrid:
             s = torch.sign(sdf)
             sdf = torch.where(s == 0, torch.ones_like(s), s)
         return sdf, vals[:, 1:4].clamp(-1.0, 1.0)
+
+    def tet_to_grid(self, sdf: torch.Tensor, deform: torch.Tensor) -> torch.Tensor:
+        """Per-vertex (sdf (V,), deform (V, 3)) scattered into a (R, R, R, 4)
+        channels-last grid, zero elsewhere, on their device (reference
+        data/tets_to_3dgrid.py:7-15)."""
+        R = self.resolution
+        c = self.tensor('vert_grid_coords', sdf.device)
+        grid = torch.zeros((R, R, R, 4), dtype=sdf.dtype, device=sdf.device)
+        grid[c[:, 0], c[:, 1], c[:, 2]] = torch.cat([sdf[:, None], deform.to(sdf.dtype)], dim=1)
+        return grid
 
     def deformed_verts(self, deform: torch.Tensor, scale: float = 1.0,
                        deform_scale: float = 1.0) -> torch.Tensor:

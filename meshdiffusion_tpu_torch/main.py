@@ -11,7 +11,7 @@ Usage:
       --config.eval.ckpt_path=ckpt.pth --config.eval.partial_dmtet_path=sv/tets/dmtet.pt \
       --config.eval.eval_dir=out/ [--config.eval.freeze_iters=950]
   python -m meshdiffusion_tpu_torch.main --mode extract --sample_path out/0.npy \
-      --out_dir meshes/ [--device cuda]
+      --out_dir meshes/ [--resolution 128] [--save_viz [--angle_ind 25]] [--device cuda]
   python -m meshdiffusion_tpu_torch.main --mode extract_traj --sample_path out/ \
       --out_dir meshes/
   python -m meshdiffusion_tpu_torch.main --mode fit_dmtets --meta_path meshes.json \
@@ -76,10 +76,13 @@ def main(argv=None):
     parser.add_argument('--no_remesh', action='store_true',
                         help='extract: skip the isotropic remeshing post-process')
     parser.add_argument('--unnormalized_sdf', action='store_true')
+    parser.add_argument('--save_viz', action='store_true',
+                        help='extract: also render a sanity PNG per mesh')
     parser.add_argument('--traj', action='store_true',
                         help='uncond_gen: save the x0-prediction trajectory')
     parser.add_argument('--angle_ind', type=int, default=25,
-                        help='fit_singleview: the validation pose fitted')
+                        help='extract --save_viz: the rendered pose; fit_singleview: the '
+                        'validation pose fitted')
     # fitting flags (reference nvdiffrec argparse)
     parser.add_argument('--meta_path', default=None,
                         help='fit modes: a json list of mesh paths, or one .obj')
@@ -108,6 +111,7 @@ def main(argv=None):
         return fn(args.sample_path, args.out_dir, resolution=args.resolution,
                   mesh_scale=args.mesh_scale, deform_scale=args.deform_scale,
                   num_smooth_steps=args.num_smooth_steps, unnormalized_sdf=args.unnormalized_sdf,
+                  save_viz=args.save_viz, angle_ind=args.angle_ind,
                   remesh=not args.no_remesh, device=device)
 
     if args.mode == 'fit_dmtets':

@@ -176,9 +176,11 @@ class ResnetBlockDDPM(nn.Module):
             if not self.kernels:
                 return ops.gn_silu_conv3d_reference(x, gn.weight, gn.bias, kernel, conv.bias,
                                                     32, 1e-6, dt)
-            # the wrapper routes by device: the kernel on CUDA
+            # the wrapper routes by device: the kernel on CUDA, which reads a
+            # contiguous x (under autograd a conv's output, the stem's or a
+            # downsample's, can come back in another layout)
             op = ops.gn_silu_conv3d_autograd if grad else ops.gn_silu_conv3d
-            return op(x, gn.weight, gn.bias, kernel, conv.bias, 32, 1e-6, dt,
+            return op(x.contiguous(), gn.weight, gn.bias, kernel, conv.bias, 32, 1e-6, dt,
                       packed=conv.packed())
 
         h = chain(x, self.GroupNorm_0, self.Conv_0)

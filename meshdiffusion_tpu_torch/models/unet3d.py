@@ -212,7 +212,10 @@ class UNet3D(nn.Module):
         assert not hs
 
         norm = next(mods)
-        head = ops.groupnorm_silu if self.kernels and not train else ops.groupnorm_silu_reference
+        # the GroupNorm + SiLU kernel is forward-only: under autograd (training,
+        # the likelihood's divergence) the head runs its plain version
+        head = (ops.groupnorm_silu if self.kernels and not (train or torch.is_grad_enabled())
+                else ops.groupnorm_silu_reference)
         h = head(h.contiguous(), norm.weight, norm.bias, 32, 1e-6)
         h = next(mods)(h).float()
 

@@ -243,11 +243,15 @@ class _GnSiluConv3d(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        # only the gradients asked for: the likelihood's divergence needs x's
+        # alone, and then no weight gradient is computed
+        need = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
         with torch.enable_grad():
             y = gn_silu_conv3d_reference(*inputs, *ctx.args)
-        grads = torch.autograd.grad(y, inputs, g, allow_unused=True)
-        return (*grads, None, None, None, None)
+        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], g,
+                                         allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None, None, None, None)
 
 
 def gn_silu_conv3d_autograd(x, scale, bias, kernel, conv_bias, num_groups: int = 32,

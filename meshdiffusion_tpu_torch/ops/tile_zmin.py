@@ -96,51 +96,58 @@ def padded_candidates(coords: torch.Tensor, tile_tris: torch.Tensor, tile_counts
 
 def _zmin_padded(cand: torch.Tensor, tids: torch.Tensor, z_floor: torch.Tensor, ntx: int,
                  tpv: int):
-    """One layer on the padded layout: vectorised over tiles and
-    64-candidate chunks, with the kernel's group tie-break and its exact
+    """One layer on the padded layout: vectorised over the (tile,
+    64-candidate chunk) pairs that hold a live candidate (a chunk without
+    one hits nothing), with the kernel's group tie-break and its exact
     arithmetic order (every product and sum rounded on its own, as the
     kernel's ``__f*_rn`` do). cand (N, K, 9); tids (N, K); z_floor (N,
     TILE*TILE). Returns (best_t, best_z), each (N, TILE*TILE)."""
     N, K, _ = cand.shape
+    P = TILE * TILE
     dev = cand.device
-    px, py = _tile_pixels(N, ntx, tpv, dev)
-    px, py = px[:, None], py[:, None]                       # (N, 1, P)
-    zf = z_floor[:, None] + 1e-7
     pad = (-K) % _CHUNK
-    cand = torch.cat([cand, cand.new_zeros((N, pad, 9))], 1)
-    tids = torch.cat([tids, tids.new_full((N, pad), -1)], 1)
+    nc = (K + pad) // _CHUNK
+    cand = torch.cat([cand, cand.new_zeros((N, pad, 9))], 1).view(N, nc, _CHUNK, 9)
+    tids = torch.cat([tids, tids.new_full((N, pad), -1)], 1).view(N, nc, _CHUNK)
+    tile, chunk = (tids >= 0).any(2).nonzero(as_tuple=True)    # in list order
+    px, py = _tile_pixels(N, ntx, tpv, dev)
+    zf = z_floor + 1e-7
     imax = torch.iinfo(torch.int32).max
-    best_z = torch.full((N, TILE * TILE), BIG, device=dev)
-    best_t = torch.full((N, TILE * TILE), -1, dtype=torch.int32, device=dev)
-    for k0 in range(0, K + pad, _CHUNK):
-        c = cand[:, k0:k0 + _CHUNK, :, None]                # (N, C, 9, 1)
-        ax, ay, az, bx, by, bz, cx, cy, cz = c.unbind(2)    # each (N, C, 1)
-        tc = tids[:, k0:k0 + _CHUNK, None]
+    chunk_z = torch.full((N, nc, P), BIG, device=dev)
+    chunk_t = torch.full((N, nc, P), -1, dtype=torch.int32, device=dev)
+    for r0 in range(0, len(tile), N):          # N pairs at a time
+        n, j = tile[r0:r0 + N], chunk[r0:r0 + N]
+        M = len(n)
+        c = cand[n, j][..., None]                           # (M, C, 9, 1)
+        ax, ay, az, bx, by, bz, cx, cy, cz = c.unbind(2)    # each (M, C, 1)
+        tc = tids[n, j][..., None]
+        pxn, pyn = px[n][:, None], py[n][:, None]           # (M, 1, P)
         area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
         ok = area.abs() > 1e-12
         inv_area = torch.reciprocal(torch.where(ok, area, torch.ones_like(area)))
         live = ok & (tc >= 0)
-        w0 = (cx - bx) * (py - by) - (cy - by) * (px - bx)  # (N, C, P)
-        w1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx)
-        w2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+        w0 = (cx - bx) * (pyn - by) - (cy - by) * (pxn - bx)  # (M, C, P)
+        w1 = (ax - cx) * (pyn - cy) - (ay - cy) * (pxn - cx)
+        w2 = (bx - ax) * (pyn - ay) - (by - ay) * (pxn - ax)
         inside = (((w0 >= 0) & (w1 >= 0) & (w2 >= 0))
                   | ((w0 <= 0) & (w1 <= 0) & (w2 <= 0))) & live
         l0 = w0 * inv_area
         l1 = w1 * inv_area
         z = l0 * az + l1 * bz + (1.0 - l0 - l1) * cz
-        hit = inside & (z > zf) & (z >= -1.0) & (z <= 1.0)
+        hit = inside & (z > zf[n][:, None]) & (z >= -1.0) & (z <= 1.0)
         zc = torch.where(hit, z, torch.full_like(z, BIG))
         # within each group of 8: nearest z, smallest id on an exact tie
-        zc = zc.view(N, -1, _GROUP, TILE * TILE)
-        gz = zc.min(dim=2).values                           # (N, G, P)
-        tg = tc.view(N, -1, _GROUP, 1).expand_as(zc)
+        zc = zc.view(M, -1, _GROUP, P)
+        gz = zc.min(dim=2).values                           # (M, G, P)
+        tg = tc.view(M, -1, _GROUP, 1).expand_as(zc)
         gt = torch.where(zc <= gz[:, :, None], tg, torch.full_like(tg, imax)).min(dim=2).values
-        # across groups (and chunks): strict <, so the earliest group wins
-        cz_, gi = gz.min(dim=1)                             # first minimal group
-        ct = gt.gather(1, gi[:, None]).squeeze(1)
-        upd = cz_ < best_z
-        best_z = torch.where(upd, cz_, best_z)
-        best_t = torch.where(upd, ct, best_t)
+        # across groups: the first minimal group, as a strict < in list order keeps
+        cz_, gi = gz.min(dim=1)
+        chunk_z[n, j] = cz_
+        chunk_t[n, j] = gt.gather(1, gi[:, None]).squeeze(1)
+    # across chunks the same: the first chunk of the least z
+    best_z, ci = chunk_z.min(dim=1)
+    best_t = chunk_t.gather(1, ci[:, None]).squeeze(1)
     best_t = torch.where(best_z < BIG, best_t, torch.full_like(best_t, -1))
     return best_t, best_z
 

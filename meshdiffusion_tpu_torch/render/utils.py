@@ -2,13 +2,16 @@
 
 Counterpart of ``meshdiffusion_tpu/render/utils.py`` (reference
 ``nvdiffrec/lib/render/util.py``), limited to what the fitting path calls.
-Camera-matrix constructors are host-side numpy, copied as they are, so
-that a numpy ``Generator`` gives the same poses bit for bit; everything
-touching pixels or vertices is torch.
+Camera-matrix constructors and the PNG writer are host-side numpy,
+copied as they are, so that a numpy ``Generator`` gives the same poses bit
+for bit and an image the same bytes; everything touching pixels or
+vertices is torch.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Tuple
 
 import numpy as np
@@ -27,6 +30,21 @@ def length(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
 
 def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return x / length(x, eps)
+
+
+# --------------------------------------------------------------- sRGB
+
+def _rgb_to_srgb(f: torch.Tensor) -> torch.Tensor:
+    return torch.where(f <= 0.0031308, f * 12.92,
+                       torch.pow(torch.clamp(f, min=0.0031308), 1.0 / 2.4) * 1.055 - 0.055)
+
+
+def rgb_to_srgb(f: torch.Tensor) -> torch.Tensor:
+    """Linear RGB(A) -> sRGB, alpha kept (reference util.py:44-53)."""
+    assert f.shape[-1] in (3, 4)
+    if f.shape[-1] == 4:
+        return torch.cat([_rgb_to_srgb(f[..., 0:3]), f[..., 3:4]], dim=-1)
+    return _rgb_to_srgb(f)
 
 
 # ----------------------------------------------------------------- cameras
@@ -140,3 +158,32 @@ def sample_cubemap(cubemap: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def avg_pool_nhwc(x: torch.Tensor, size: int) -> torch.Tensor:
     B, H, W, C = x.shape
     return x.reshape(B, H // size, size, W // size, size, C).mean(dim=(2, 4))
+
+
+# ------------------------------------------------------------------- images
+
+def save_image(path: str, img: np.ndarray) -> None:
+    """A minimal PNG writer (8-bit RGB or RGBA, no imageio): float images
+    are clipped to [0, 1] and rounded to uint8."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if arr.ndim == 2:
+        arr = arr[..., None].repeat(3, -1)
+    h, w, c = arr.shape
+    if c == 1:
+        arr = arr.repeat(3, -1)
+        c = 3
+    color_type = 6 if c == 4 else 2
+    raw = b''.join(b'\x00' + arr[i].tobytes() for i in range(h))
+
+    def chunk(tag, data):
+        out = struct.pack('>I', len(data)) + tag + data
+        return out + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff)
+
+    png = (b'\x89PNG\r\n\x1a\n'
+           + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, color_type, 0, 0, 0))
+           + chunk(b'IDAT', zlib.compress(raw, 6))
+           + chunk(b'IEND', b''))
+    with open(path, 'wb') as f:
+        f.write(png)

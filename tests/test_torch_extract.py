@@ -25,6 +25,17 @@ from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
 R = 64
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test's torch work: these renders run many
+    small ops, which crawl when every test worker's thread pool spins on
+    the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def sphere_grid(rng):
     """Channels-last (R, R, R, 4): an SDF sphere (with exact zeros on a
     shell, which must map to +1) and a small random deformation."""
@@ -115,3 +126,110 @@ def test_extract_dir_matches_jax(tmp_path):
         assert len(f) > 100
         np.testing.assert_array_equal(f, jf)
         np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
+
+
+def _tiny_mesh(tiny_tet_grid):
+    """A sphere through the port's marching tets on the tiny 8^3 fixture
+    grid, at extraction's mesh scale 2.1."""
+    from meshdiffusion_tpu_torch.geometry.marching_tets import marching_tets
+    tg = TetGrid.from_arrays(8, tiny_tet_grid.verts, tiny_tet_grid.indices)
+    sdf = (0.3 - np.linalg.norm(tg.verts, axis=1)).astype(np.float32)
+    v, f = compact_mesh(marching_tets(tg, torch.from_numpy(tg.verts * 2.1), torch.from_numpy(sdf)))
+    assert len(f) > 50
+    return np.asarray(v, np.float32), np.asarray(f, np.int64)
+
+
+def test_render_viz_matches_jax(tiny_tet_grid, tmp_path, monkeypatch, one_thread):
+    """The sanity render of one mesh at 64^2: the triangle-id image of its
+    camera exactly equal (each package's rasterize_select), the visible
+    triangle set exact, ``shaded`` and the image handed to the PNG writer at
+    fp32 tolerance (rtol 2e-4 / atol 2e-5). JAX's render and selection run
+    under ``jax.jit``, as its fitting driver runs them: one compile, where
+    op by op each of ~700 ops compiles on its own."""
+    import jax
+    import meshdiffusion_tpu.render.render as JR
+    import meshdiffusion_tpu.render.utils as JU
+    from meshdiffusion_tpu.extract import render_viz as jax_render_viz
+    from meshdiffusion_tpu.render import ops as JO
+    from meshdiffusion_tpu.render.rasterize import rasterize_select as jax_select
+    from meshdiffusion_tpu_torch.extract import render_viz, viz_camera
+    from meshdiffusion_tpu_torch.render import ops as PO
+    from meshdiffusion_tpu_torch.render import utils as PU
+    from meshdiffusion_tpu_torch.render.rasterize import rasterize_select
+
+    v, f = _tiny_mesh(tiny_tet_grid)
+    res, angle = (64, 64), 7
+    seen = {}
+    jax_render = JR.render_mesh
+
+    def render_jitted(m, mvp, campos, light, *args, **kw):
+        seen['jax_out'] = jax.jit(lambda a, b: jax_render(m, a, b, light, *args, **kw))(
+            mvp, campos)
+        return seen['jax_out']
+    monkeypatch.setattr(JR, 'render_mesh', render_jitted)
+    monkeypatch.setattr(JU, 'save_image', lambda path, img: seen.setdefault('jax_img', img))
+    jax_render_viz(v, f, str(tmp_path / 'jax.png'), angle_ind=angle, display_res=res)
+    images = []
+    monkeypatch.setattr(PU, 'save_image', lambda path, img: images.append(img))
+    out = render_viz(v, f, str(tmp_path / 'port.png'), angle_ind=angle, display_res=res,
+                     device='cpu')
+    want = seen['jax_out']
+
+    mvp, _ = viz_camera(angle, res)
+    jt = jax.jit(lambda vc, tri: jax_select(vc, tri, res)[0])(
+        JO.xfm_points(jnp.asarray(v)[None], jnp.asarray(mvp))[0],
+        jnp.asarray(f.astype(np.int32)))
+    pt = rasterize_select(PO.xfm_points(torch.from_numpy(v)[None], torch.from_numpy(mvp)),
+                          torch.from_numpy(f), res)[0]
+    assert int((np.asarray(jt) >= 0).sum()) > 200
+    np.testing.assert_array_equal(pt[0].numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(out['rast_triangle_mask'].numpy(),
+                                  np.asarray(want['rast_triangle_mask']))
+    np.testing.assert_allclose(out['shaded'].numpy(), np.asarray(want['shaded']),
+                               rtol=2e-4, atol=2e-5)
+    img, jimg = images[0], np.asarray(seen['jax_img'])
+    assert img.shape == jimg.shape == (64, 64, 3) and img.std() > 0.05
+    np.testing.assert_allclose(img, jimg, rtol=2e-4, atol=2e-5)
+
+
+def test_save_image_same_bytes(tmp_path):
+    from meshdiffusion_tpu.render.utils import save_image as jax_save_image
+    from meshdiffusion_tpu_torch.render.utils import save_image
+    rng = np.random.default_rng(0)
+    for k, img in enumerate((rng.uniform(-0.2, 1.2, (17, 9, 3)).astype(np.float32),
+                             rng.integers(0, 256, (5, 7, 4)).astype(np.uint8),
+                             rng.uniform(0, 1, (6, 4)),
+                             rng.uniform(0, 1, (3, 8, 1)))):
+        save_image(str(tmp_path / f'p{k}.png'), img)
+        jax_save_image(str(tmp_path / f'j{k}.png'), img)
+        a, b = (open(tmp_path / f'{s}{k}.png', 'rb').read() for s in 'pj')
+        assert a == b and a.startswith(b'\x89PNG')
+
+
+def test_render_viz_grows_capacities_until_nothing_drops(tmp_path, caplog, one_thread):
+    """A mesh denser than the first render's capacities (a marched sphere of
+    ~1,900 faces in the four 32x32 tiles of a 64^2 image, past raster_K
+    256): the sanity render is redone with grown capacities, ends with no
+    overflow, and shows the triangles of one render at ample capacities."""
+    import logging
+    from meshdiffusion_tpu_torch.extract import render_viz, viz_camera
+    from meshdiffusion_tpu_torch.geometry.generate_tets import generate_tet_grid
+    from meshdiffusion_tpu_torch.geometry.marching_tets import marching_tets
+    from meshdiffusion_tpu_torch.render import ops as PO
+    from meshdiffusion_tpu_torch.render.rasterize import rasterize_select
+    tg = TetGrid.from_arrays(24, *generate_tet_grid(24))
+    sdf = (0.3 - np.linalg.norm(tg.verts, axis=1)).astype(np.float32)
+    v, f = compact_mesh(marching_tets(tg, torch.from_numpy(tg.verts * 2.1), torch.from_numpy(sdf)))
+    res = (64, 64)
+    with caplog.at_level(logging.INFO, logger='meshdiffusion_tpu_torch'):
+        out = render_viz(v, f, str(tmp_path / 'v.png'), display_res=res, device='cpu')
+    rec = [r for r in caplog.records if hasattr(r, 'viz_renders')][-1]
+    assert rec.viz_renders >= 2 and not any(rec.viz_overflow.values())
+    mvp, _ = viz_camera(25, res)
+    v_clip = PO.xfm_points(torch.from_numpy(v)[None], torch.from_numpy(mvp))
+    ample = rasterize_select(v_clip, torch.from_numpy(f), res, K=len(f), Kg=len(f),
+                             live_cap=len(f))
+    assert int(ample[1].max()) == int(ample[2].max()) == int(ample[3].max()) == 0
+    visible = torch.zeros(len(f), dtype=torch.bool)
+    visible[ample[0][ample[0] >= 0]] = True
+    assert torch.equal(out['rast_triangle_mask'], visible)

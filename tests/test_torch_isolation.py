@@ -2,12 +2,14 @@
 import no jax, flax, ml_collections or JAX package, and its command line
 runs its slices on the CPU: uncond_gen -> extract, fit_dmtets,
 fit_singleview -> cond_gen (with uncond_gen --traj and uncond_gen_interp),
-and train, in a process where the JAX modules cannot be imported."""
+train, and the data tools with extract --save_viz on a generated grid, in
+a process where the JAX modules cannot be imported."""
 
 import json
 import os
 import pathlib
 import re
+import struct
 import subprocess
 import sys
 
@@ -259,10 +261,86 @@ def test_train_leaves_jax_out_of_the_process(tmp_path):
     assert len(events) == 1 and events[0].stat().st_size > 0
 
 
+_TOOLS_CHILD = r'''
+import json, runpy, sys
+
+
+class Forbidden:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in %r:
+            raise ImportError('forbidden here: ' + name)
+
+
+sys.meta_path.insert(0, Forbidden())
+import numpy as np
+out = sys.argv[1]
+
+
+def convert(*args):
+    sys.argv = ['convert', *args]
+    runpy.run_module('meshdiffusion_tpu_torch.data.convert', run_name='__main__')
+
+
+convert('tets-to-3dgrid', '-res', '8', '-s', out + '/tets', '-t', out + '/grids',
+        '--tet-root', out, '--device', 'cpu')
+convert('get-tet-mask', '--resolution', '8', '--tet-root', out, '--out', out + '/mask.npy')
+convert('save-meta', '--data-dir', out + '/grids', '--out', out + '/meta.json')
+from meshdiffusion_tpu_torch.main import main
+objs = main(['--mode', 'extract', '--device', 'cpu', '--sample_path', out + '/sphere16.npy',
+             '--out_dir', out + '/ex', '--resolution', '16', '--save_viz', '--angle_ind', '10',
+             '--no_remesh'])
+bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)
+print('RESULT', json.dumps({'objs': objs, 'bad': bad}))
+''' % (FORBIDDEN, FORBIDDEN)
+
+
+def test_data_tools_and_viz_run_without_jax(tmp_path):
+    """``python -m meshdiffusion_tpu_torch.data.convert`` (tets-to-3dgrid on
+    the CPU, get-tet-mask, save-meta) on the 8^3 grid, then ``main --mode
+    extract --save_viz`` at resolution 16, whose grid has no asset and is
+    generated and cached (under ``XDG_CACHE_HOME``), writing the mesh and
+    ``viz/viz_000000.png`` at 512^2, as the JAX CLI renders it: all with
+    the JAX modules refused."""
+    grid = _write_tiny_grid_and_sphere(tmp_path)
+    (tmp_path / 'tets').mkdir()
+    sdf = np.sign(0.3 - np.linalg.norm(grid.verts, axis=1)).astype(np.float32)
+    np.savez(tmp_path / 'tets' / 'dmt_dict_00000.npz', sdf=sdf,
+             deform=np.zeros((grid.num_verts, 3), np.float32))
+    c = (np.arange(16) - 7.5) / 16
+    d = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
+    sample = np.zeros((1, 4, 16, 16, 16), np.float32)
+    sample[0, 0] = 0.3 - d
+    np.save(tmp_path / 'sphere16.npy', sample)
+    env = dict(os.environ, PYTHONPATH=str(REPO), XDG_CACHE_HOME=str(tmp_path / 'cache'))
+    proc = subprocess.run([sys.executable, '-c', _TOOLS_CHILD, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith('RESULT')][-1]
+    result = json.loads(line.split(' ', 1)[1])
+    assert result['bad'] == []
+    g = np.load(tmp_path / 'grids' / 'grid_00000.npy')
+    assert g.shape == (4, 8, 8, 8)
+    c = grid.vert_grid_coords
+    np.testing.assert_array_equal(g[0][c[:, 0], c[:, 1], c[:, 2]], sdf)
+    np.testing.assert_array_equal(np.load(tmp_path / 'mask.npy'), grid.grid_mask())
+    assert json.loads((tmp_path / 'meta.json').read_text()) == [str(tmp_path / 'grids' /
+                                                                    'grid_00000.npy')]
+    assert (tmp_path / 'cache' / 'meshdiffusion_tpu_torch' / 'tetgrid_gen_16.npz').exists()
+    assert [os.path.relpath(p, tmp_path / 'ex') for p in result['objs']] == ['mesh/000000.obj']
+    assert pathlib.Path(result['objs'][0]).read_text().count('\nf ') > 10
+    png = (tmp_path / 'ex' / 'viz' / 'viz_000000.png').read_bytes()
+    assert png.startswith(b'\x89PNG') and len(png) > 2000
+    assert struct.unpack('>II', png[16:24]) == (512, 512)
+
+
 def test_sources_import_nothing_of_jax():
     pattern = re.compile(r'^\s*(import|from)\s+(%s)\b' % '|'.join(FORBIDDEN), re.M)
     files = sorted((REPO / 'meshdiffusion_tpu_torch').rglob('*.py')) + [REPO / 'chip_smoke.py',
                                                                          REPO / 'zmin_compare.py']
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {'meshdiffusion_tpu_torch/data/convert.py', 'meshdiffusion_tpu_torch/extract.py',
+            'meshdiffusion_tpu_torch/diffusion/likelihood.py',
+            'meshdiffusion_tpu_torch/geometry/generate_tets.py'} <= names
     for f in files:
         assert not pattern.search(f.read_text()), f
