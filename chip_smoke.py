@@ -15,8 +15,10 @@ checkpoint -> extract), with DDIM interpolation; res64 diffusion
 training at full width, effective batch 48, cut in steps; the data tools
 (fitted dict -> training grid); res128 generation at the preset's full
 width and batch 7 on the generated 128 tet grid, with extraction on its
-12,002,256 tets and ``extract --save_viz``; and the likelihood on the res64
-model. Phases, in order:
+12,002,256 tets and ``extract --save_viz``; the likelihood on the res64
+model; and the textured fit (the hash-grid neural material under an HDR
+sky with random light rotations, validation renders and the UV-baked
+export) at FitConfig's defaults. Phases, in order:
 
 1. the card: name and power limit, versions; TF32 off for fp32 comparisons;
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
@@ -133,7 +135,25 @@ model. Phases, in order:
     ``kernels=False``; then ``likelihood_fn`` (rtol = atol = 1e-3) from start to
     end on the seeded init, whose epsilon is ~0, held to the closed-form
     bits/dim: nfe, bits/dim, seconds;
-19. a JSON line of each path's launches, one JSON line of kernel results
+19. ``main --mode fit_dmtets`` on a textured GT (the torus united with the
+    box, box-projected texture coordinates, an .mtl with ``bsdf diffuse``
+    and a ``map_Kd`` PNG) with ``normal_only`` false, a 256x512 RGBE sky
+    with a sun as ``envmap``, ``random_lgt``, ``validate`` (8 views) and
+    ``save_baked``, 10 iterations a pass, counters set to 0 just before and
+    read just after: both dicts, every loss finite, every parameter of the
+    neural material moved, tile_zmin once a render (the fit's, two a
+    validation view, the 1024^2 UV bake's), metrics.txt with 8 rows and
+    the averages, the baked .obj, .mtl and maps read back with a
+    non-uniform kd; the first fit step's z-test and the bake's (every
+    candidate at z = 0, where the tie-break picks each texel) held
+    bit-equal to plain; s/step, pass 1's step at iteration 5 under
+    torch.profiler (device ms by kernel family), the material's forward
+    and backward at a step's 1,048,576 samples, peak memory,
+    ``parametrize``'s host seconds; numbers to ``DIR/textured.json``;
+20. the same fit with ``learn_light`` in place of the sky, 3 iterations a
+    pass; then ``main --mode fit_singleview`` under the sky (10 iterations,
+    tile_zmin 1 + 10 + 1);
+21. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
     the statistics also ``library_device_ms``, torch.var_mean's device
@@ -277,7 +297,7 @@ class _Records(logging.Handler):
 
     def emit(self, record):
         for k in ('sample_s', 'steps', 'marching_s', 'postprocess_s', 'mesh_size',
-                  'viz_renders', 'viz_overflow'):
+                  'viz_renders', 'viz_overflow', 'validate', 'parametrize'):
             if hasattr(record, k):
                 self.fields[k] = getattr(record, k)
         if hasattr(record, 'singleview_fit'):
@@ -331,7 +351,7 @@ def zmin_cases(gt_path: str, dev):
     from meshdiffusion_tpu_torch.render import rasterize as raster
     fcfg = FitConfig()
     B = fcfg.batch
-    ref = obj_mod.load_mesh(gt_path, dev)
+    ref = obj_mod.load_mesh(gt_path, device=dev)
     ref = mesh_mod.auto_normals(mesh_mod.center_by_reference(ref, mesh_mod.aabb(ref.v_pos), 1.0))
     ren = TargetRenderer(ref_mesh=ref, envlight=None, cam_radius=fcfg.cam_radius,
                          train_res=fcfg.train_res)
@@ -491,7 +511,7 @@ def show_fit(who: str, passes, peak: int) -> None:
     for pi, n_it, n_run, pass_s, pool_s in passes:
         print(f'{who}fit pass {pi + 1}: {n_it} iterations, {n_run} steps run (capacity '
               f'redos included), {pass_s:.3f} s, {pass_s / n_run:.3f} s per step run'
-              + (f' (GT pool of {FIT_POOL} view batches built in {pool_s:.3f} s, inside)'
+              + (f' (GT pool of {min(FIT_POOL, n_it)} view batches built in {pool_s:.3f} s, inside)'
                  if pi == 0 else ''))
     print(f'{who}fit peak device memory {peak / 2 ** 30:.3f} GiB above what was held '
           f'before it')
@@ -639,30 +659,6 @@ R128, B128 = 128, 7        # res128: grid resolution, the preset's eval.batch_si
 R128_STEPS = 9             # phase 16: uncond_gen steps (num_scales 10)
 LIKELIHOOD_T = (1e-3, 0.5, 1.0)   # phase 18: drift and divergence times
 GRID_FIELDS = ('verts', 'indices', 'unique_edges', 'tet_edge_to_unique', 'vert_grid_coords')
-
-
-def _png_pixels(path: str):
-    """(H, W, C) uint8 pixels of a PNG as ``render.utils.save_image`` writes
-    it (8-bit RGB or RGBA, filter 0 on every row)."""
-    import struct
-    import zlib
-    import numpy as np
-    with open(path, 'rb') as f:
-        data = f.read()
-    assert data[:8] == b'\x89PNG\r\n\x1a\n', path
-    pos, idat = 8, b''
-    while pos < len(data):
-        n, tag = struct.unpack('>I4s', data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if tag == b'IHDR':
-            w, h, _, ctype = struct.unpack('>IIBB', body[:10])
-        elif tag == b'IDAT':
-            idat += body
-        pos += 12 + n
-    c = 4 if ctype == 6 else 3
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
-    assert not raw[:, 0].any()
-    return raw[:, 1:].reshape(h, w, c)
 
 
 def data_tools_run(dict_path: str, work: str, dev):
@@ -1054,6 +1050,7 @@ def viz128_run(entry, rec, work: str, record, dev) -> dict:
     from meshdiffusion_tpu_torch.geometry.obj_io import read_obj
     from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
     from meshdiffusion_tpu_torch.render import rasterize as raster
+    from meshdiffusion_tpu_torch.render.utils import decode_png
     os.makedirs(work, exist_ok=True)
     tg = TetGrid.load(R128)
     sdf = np.where(gt_sdf(tg.verts) >= 0, 1.0, -1.0).astype(np.float32)
@@ -1087,7 +1084,8 @@ def viz128_run(entry, rec, work: str, record, dev) -> dict:
     v, f = read_obj(objs[0])
     assert len(f) > 1000 and np.isfinite(v).all(), len(f)
     png = os.path.join(work, 'gt', 'viz', 'viz_000000.png')
-    pix = _png_pixels(png)
+    with open(png, 'rb') as fh:
+        pix = decode_png(fh.read())
     assert pix.shape == (512, 512, 3) and pix.std() > 5.0, (pix.shape, pix.std())
     zargs, (kt, kz) = calls[-1]          # the render the PNG shows
     with torch.inference_mode():
@@ -1229,6 +1227,403 @@ def likelihood_run(sample, dev, g) -> dict:
           f'bpd {float(bpd[0]):.6f} (closed form {bpd_exact:.6f}), {lk_s:.2f} s, '
           f'{1000 * lk_s / nfe:.1f} ms an evaluation; launches {launches}')
     return out
+
+
+# ---- phases 19-20: the textured fit (neural material, HDR light, validation, bake) ----
+
+TEX_ITERS, TEX_LL_ITERS, TEX_SV_ITERS = 10, 3, 10   # iterations a pass (19, 20), single view
+TEX_VIEWS = 8                                       # validate_views
+BAKE_RES = 1024                                     # export_baked's texture_res
+
+
+def textured_gt(folder: str) -> str:
+    """The textured fit's GT: the torus united with the box of
+    :func:`gt_mesh`, each vertex's texture coordinates its box projection
+    (the two coordinates off its normal's dominant axis), and an .mtl with
+    ``bsdf diffuse``, ``map_Kd`` (a 64^2 PNG: a colour gradient with a
+    checker) and ``map_Ks``, written by the port's ``write_obj``.
+    Returns the .obj's path."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch.geometry.marching_tets import compact_mesh, marching_tets
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    from meshdiffusion_tpu_torch.render import mesh as mesh_mod
+    from meshdiffusion_tpu_torch.render import obj as obj_mod
+    from meshdiffusion_tpu_torch.render.material import Material
+    from meshdiffusion_tpu_torch.render.texture import Texture2D
+    grid = TetGrid.load(64)
+    v, f = compact_mesh(marching_tets(grid, torch.from_numpy(grid.verts),
+                                      torch.from_numpy(gt_sdf(grid.verts))))
+    m = mesh_mod.auto_normals(mesh_mod.Mesh(v_pos=torch.as_tensor(v, dtype=torch.float32),
+                                            t_pos_idx=torch.as_tensor(f, dtype=torch.int64)))
+    axis = m.v_nrm.abs().argmax(dim=1)
+    keep = torch.tensor([[1, 2], [0, 2], [0, 1]])[axis]            # the two other axes
+    uv = torch.gather(m.v_pos, 1, keep) * 0.5 + 0.5
+    y, x = np.mgrid[0:64, 0:64] / 63.0
+    kd = np.stack([0.2 + 0.7 * x, 0.3 + 0.5 * y, 0.8 - 0.6 * x * y], -1)
+    kd *= np.where(((np.mgrid[0:64, 0:64] // 8).sum(0) % 2) == 0, 1.0, 0.6)[..., None]
+    m = mesh_mod.Mesh.combine(m, v_tex=uv, t_tex_idx=m.t_pos_idx)
+    m.material = Material({'name': 'gt', 'bsdf': 'diffuse', 'kd': Texture2D(kd.astype(np.float32)),
+                           'ks': Texture2D(np.zeros((8, 8, 3), np.float32) + [0.0, 0.3, 0.0])})
+    return obj_mod.write_obj(folder, m, save_material=True)
+
+
+def sky_hdr(path: str, h: int = 256, w: int = 512) -> None:
+    """A latlong sky as a flat-scanline Radiance .hdr: a blue zenith over a
+    warm horizon, a dark ground, and a small sun ~50x the sky's radiance."""
+    import numpy as np
+    theta = (np.arange(h) + 0.5) / h * np.pi                        # 0 at the zenith
+    phi = (np.arange(w) + 0.5) / w * 2 * np.pi
+    up = np.cos(theta)[:, None, None]
+    sky = np.where(up > 0, np.array([0.35, 0.55, 1.0]) * (0.4 + 0.6 * up)
+                   + np.array([0.9, 0.7, 0.5]) * (1 - up) ** 4, np.array([0.15, 0.12, 0.1]))
+    sky = np.broadcast_to(sky, (h, w, 3)).copy()
+    ang = np.arccos(np.clip(np.sin(theta)[:, None] * np.sin(0.6) * np.cos(phi[None] - 1.0)
+                            + np.cos(theta)[:, None] * np.cos(0.6), -1, 1))
+    sky[ang < 0.05] = (60.0, 55.0, 45.0)
+    m = sky.max(-1)
+    mant, expo = np.frexp(m)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.floor(sky * (mant * 256.0 / m)[..., None]).astype(np.uint8)
+    rgbe[..., 3] = (expo + 128).astype(np.uint8)
+    with open(path, 'wb') as f:
+        f.write(b'#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n' + f'-Y {h} +X {w}\n'.encode()
+                + rgbe.tobytes())
+
+
+# kernel family of a profiled fit step -> substrings of its kernels' names (the first hit)
+_FIT_FAMILIES = (
+    ('tile_zmin', ('tile_zmin_kernel',)),
+    ('sort (binning)', ('radixsort', 'sort')),
+    ('gather / index_select (hash encode, interpolation)', ('indexselect', 'index_select',
+                                                           'gather')),
+    ('scatter / index_add (their backward)', ('indexfunc', 'index_add', 'scatter',
+                                              'index_put', 'put_kernel')),
+    ('matmul (MLP, light)', ('gemm', 'gemv', 'cutlass', 'cublas', 'xmma')),
+    ('Adam (foreach)', ('multi_tensor_apply', 'foreach')),
+    ('reduction', ('reduce',)),
+    ('scan (cumsum)', ('scan',)),
+)
+
+
+def _fit_family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in _FIT_FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return 'elementwise and other'
+
+
+def textured_fit_run(entry, rec, gt_path: str, out_dir: str, cfg: dict, iters: int, dev,
+                     profile_iter=None):
+    """One ``main --mode fit_dmtets`` run of the textured GT with the fit
+    config ``cfg`` (target_pool FIT_POOL), counters set to 0 just before
+    and read just after. It records every tile_zmin call (the fit's
+    renders, the validation renders, the bake's), the
+    neural material the fit builds (its start kept), and with
+    ``profile_iter`` profiles pass 1's step at that iteration (device ms a
+    kernel). Returns a dict of what it saw; of the tile_zmin calls, each
+    one's (res, layers, views), and whole (arguments, result) the first fit
+    step's render and the last bake render."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.fitting import fit as fit_mod
+    from meshdiffusion_tpu_torch.render import rasterize as raster
+    cfg_path = out_dir + '.json'
+    with open(cfg_path, 'w') as f:
+        json.dump({'target_pool': FIT_POOL, 'log_interval': 1, **cfg}, f)
+    calls, kept, mats, prof = [], {}, [], {}
+    launch, make_mat, make_step = raster.tile_zmin, fit_mod.make_mlp_material, fit_mod.make_fit_step
+
+    def recording(*args):
+        out = launch(*args)
+        calls.append((tuple(args[5]), args[6], args[0].shape[0]))
+        # kept whole: the first fit step's render (after the GT pool's) and the last bake's
+        if args[6] == 2 and sum(c[1] == 2 for c in calls) == FIT_POOL + 1:
+            kept['fit'] = (args, out)
+        if tuple(args[5]) == (BAKE_RES, BAKE_RES):
+            kept['bake'] = (args, out)
+        return out
+
+    def material(*a, **k):
+        m = make_mat(*a, **k)
+        mats.append((m, {n: p.detach().clone() for n, p in m.named_parameters()}))
+        return m
+
+    def stepper(fitter, cfg_, renderer, pass_idx=0, *a, **k):
+        step = make_step(fitter, cfg_, renderer, pass_idx, *a, **k)
+        if profile_iter is None or pass_idx != 0:
+            return step
+
+        def profiled(state, light_base, opt_geo, opt_lgt, target, iteration, *rest):
+            if iteration != profile_iter or prof:
+                return step(state, light_base, opt_geo, opt_lgt, target, iteration, *rest)
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                out = step(state, light_base, opt_geo, opt_lgt, target, iteration, *rest)
+                torch.cuda.synchronize()
+            for e in p.key_averages():
+                if _dev_us(e):
+                    prof[e.key] = prof.get(e.key, 0.0) + _dev_us(e) / 1000.0
+            return out
+        return profiled
+
+    rec.fit_passes.clear()
+    rec.fit_losses.clear()
+    rec.fields.pop('validate', None)
+    rec.fields.pop('parametrize', None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    raster.tile_zmin, fit_mod.make_mlp_material, fit_mod.make_fit_step = \
+        recording, material, stepper
+    try:
+        t0 = time.perf_counter()
+        written = entry(['--mode', 'fit_dmtets', '--meta_path', gt_path, '--out_dir', out_dir,
+                         '--fit_config', cfg_path, '--iter', str(iters), '--device', str(dev)])
+        command_s = time.perf_counter() - t0
+    finally:
+        raster.tile_zmin, fit_mod.make_mlp_material, fit_mod.make_fit_step = \
+            launch, make_mat, make_step
+    torch.cuda.synchronize()
+    return {'written': written, 'iters': iters, 'launches': ops.launch_counts(), 'calls': calls,
+            'kept': kept,
+            'mats': mats,
+            'prof': prof, 'peak': torch.cuda.max_memory_allocated() - base,
+            'passes': list(rec.fit_passes), 'losses': list(rec.fit_losses),
+            'validate': rec.fields.get('validate'), 'parametrize': rec.fields.get('parametrize'),
+            'command_s': command_s}
+
+
+def check_textured_fit(run: dict, out_dir: str, cfg: dict, V: int, dev) -> dict:
+    """The checks of a textured fit run: both dicts with the JAX package's
+    keys, shapes and finite values, every loss finite, every parameter of
+    the neural material moved, tile_zmin launched once a render and its
+    calls by kind (fit renders: 2 layers; the bake's: 1 view, 1 layer at
+    BAKE_RES^2; validation: 1 view, 1 layer at display_res), metrics.txt
+    with its rows, and the baked .obj read back with a non-uniform kd.
+    Returns the counts."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch.render import obj as obj_mod
+    assert len(run['written']) == 1 and len(run['passes']) == 2, (run['written'], run['passes'])
+    w = run['written'][0]
+    pre, fin = (torch.load(w[k]) for k in ('tets_pre', 'tets'))
+    assert set(pre) == {'sdf', 'sdf_ema', 'deform', 'deform_unmasked'}, set(pre)
+    assert set(fin) == {'sdf', 'deform', 'deform_unmasked'}, set(fin)
+    for d in (pre, fin):
+        assert d['sdf'].shape == (V,) and d['deform'].shape == (V, 3)
+        assert all(torch.isfinite(t).all() for t in d.values())
+    assert set(fin['sdf'].unique().tolist()) <= {-1.0, 1.0}
+    losses = [loss for _, _, loss in run['losses']]
+    assert losses and all(np.isfinite(losses)), run['losses']
+    assert len(run['mats']) == 1
+    mat, start = run['mats'][0]
+    moved = {n: float((p.detach() - start[n]).abs().max()) for n, p in mat.named_parameters()}
+    assert set(moved) == {'encoder.table', 'dense_0.weight', 'dense_1.weight', 'dense_2.weight'}
+    assert all(m > 0 for m in moved.values()), moved
+    steps_run = sum(p[2] for p in run['passes'])
+    kinds = {'fit': 0, 'validate': 0, 'bake': 0}
+    for res, layers, views in run['calls']:
+        kind = ('fit' if layers == 2 else None if views != 1
+                else 'bake' if res == (BAKE_RES, BAKE_RES) else 'validate')
+        assert kind is not None, (res, layers, views)
+        kinds[kind] += 1
+    n_views = cfg.get('validate_views', 8) if cfg.get('validate') else 0
+    pool = min(FIT_POOL, run['iters'])
+    assert kinds['fit'] == pool + steps_run and kinds['validate'] == 2 * n_views, kinds
+    assert kinds['bake'] >= (1 if cfg.get('save_baked') else 0), kinds
+    assert run['launches']['tile_zmin'] == len(run['calls']), (run['launches'], len(run['calls']))
+    assert all(n == 0 for k, n in run['launches'].items() if k != 'tile_zmin'), run['launches']
+    if n_views:
+        val_dir = os.path.join(out_dir, 'val_viz', 'dmtet_validate_0')
+        with open(os.path.join(val_dir, 'metrics.txt')) as f:
+            rows = f.read().splitlines()
+        assert rows[0] == 'ID, MSE, PSNR' and len(rows) == n_views + 2, rows
+        assert rows[-1].startswith('AVERAGES') and np.isfinite(
+            [[float(x) for x in r.split(',')[1:]] for r in rows[1:-1]]).all(), rows
+        assert all(os.path.exists(os.path.join(val_dir, f'val_{i:06d}_{k}.png'))
+                   for i in range(n_views) for k in ('opt', 'ref'))
+    out = {'steps_run': steps_run, 'renders': kinds, 'moved': moved}
+    if cfg.get('save_baked'):
+        baked = obj_mod.load_mesh(w['baked'], device=dev)
+        kd = baked.material['kd'].data
+        spread = float(kd.max() - kd.min())           # at least two 8-bit levels apart
+        assert kd.shape == (1, BAKE_RES, BAKE_RES, 3) and spread >= 1.5 / 255, (kd.shape, spread)
+        assert baked.v_tex is not None and baked.t_tex_idx.shape == baked.t_pos_idx.shape
+        for name in ('mesh.mtl', 'texture_kd.png', 'texture_ks.png', 'texture_n.png'):
+            assert os.path.exists(os.path.join(os.path.dirname(w['baked']), name)), name
+        out.update(baked_faces=int(baked.t_pos_idx.shape[0]), baked_kd_spread=spread)
+    return out
+
+
+def zmin_plain_check(call, record, name: str) -> dict:
+    """One recorded tile_zmin call held bit-equal to its plain version, then
+    timed (CUDA events, torch.profiler device time, plain) beside its bound."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    zargs, (kt, kz) = call
+    layers = zargs[6]
+    with torch.inference_mode():
+        pt, pz = ops.tile_zmin_reference(*zargs)
+        assert torch.equal(kt, pt) and torch.equal(kz, pz), name
+        hits = int((pt[0] >= 0).sum())
+        assert hits > 1e-3 * pt[0].numel(), (name, hits)
+        fn = lambda: ops.tile_zmin(*zargs)
+        ms = _time_ms(fn, 10)
+        dms, seen, issued = _kernel_ms(fn, 'tile_zmin')
+        pms = _time_ms(lambda: ops.tile_zmin_reference(*zargs), 2, 1)
+        bnd, by = ops.tile_zmin_bound_ms(zargs[0], zargs[2], zargs[4], zargs[5],
+                                         num_layers=layers, best_z=kz)
+    if dms is not None and dms > 1.05 * ms:
+        dms = None
+    record('tile_zmin', 0.0, ms, pms, bnd, by)
+    live = zargs[2].view(zargs[4].shape[0], -1) + zargs[4][:, None]
+    row = {'name': 'tile_zmin', 'case': name, 'res': list(zargs[5]), 'layers': layers,
+           'views': zargs[0].shape[0], 'faces': zargs[0].shape[1], 'pairs': int(live.sum()),
+           'heaviest_tile': int(live.max()), 'hits': hits, 'ms': ms, 'device_ms': dms,
+           'launches_recorded': [seen, issued], 'plain_ms': pms, 'bound_ms': bnd,
+           'bound_by': by, 'library_ms': None}
+    print(f'tile_zmin {name}: {row["views"]} view(s) at {row["res"]}, {layers} layer(s), '
+          f'{row["faces"]} faces a view, {row["pairs"]} live (candidate, tile) pairs, the heaviest '
+          f'tile {row["heaviest_tile"]}: ids equal and z bit-equal to plain, {hits} pixels hit; '
+          f'device {_ms(dms)} ms (profiler recorded {seen} of {issued} launches), CUDA events '
+          f'{ms:.4f} ms; plain {pms:.2f} ms; bound {bnd:.4f} ms ({by})')
+    return row
+
+
+def material_cost(mat, n: int, dev) -> dict:
+    """The neural material's forward and backward (hash encode, MLP, the
+    table's index_add) at ``n`` points, the size of a fit step's samples:
+    CUDA-event ms and device ms by family."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.rand((n, 3), device=dev, generator=g) - 0.5) * 1.2
+    up = torch.randn((n, 9), device=dev, generator=g)
+
+    def fwd_bwd():
+        mat.zero_grad(set_to_none=True)
+        (mat(x) * up).sum().backward()
+    ms = _time_ms(fwd_bwd, 5, 1)
+    fams = {}
+    for k, t in _device_ms(fwd_bwd, 3).items():
+        fams[_fit_family(k)] = fams.get(_fit_family(k), 0.0) + t
+    mat.zero_grad(set_to_none=True)
+    return {'points': n, 'ms': ms, 'device_ms': sum(fams.values()), 'device_ms_by_family': fams}
+
+
+
+def textured_phases(entry, rec, record, per_shape, dev, tex_cfg=None) -> dict:
+    """Phases 19 and 20. 19: ``main --mode fit_dmtets`` on the textured GT
+    with the neural material (``normal_only`` false), the sky .hdr as the
+    light (``envmap``), ``random_lgt``, ``validate`` (TEX_VIEWS views) and
+    ``save_baked``, TEX_ITERS iterations a pass, pass 1's step at iteration
+    TEX_ITERS // 2 profiled; the first fit step's z-test and the bake's
+    (one view, one layer at BAKE_RES^2, every candidate at z = 0) held
+    bit-equal to plain; the material's forward and backward at a step's
+    sample count. 20: the same fit with ``learn_light`` in place of the
+    .hdr, TEX_LL_ITERS iterations a pass; then ``main --mode
+    fit_singleview`` under the .hdr, TEX_SV_ITERS iterations.
+    ``tex_cfg`` adds fit-config keys (a rehearsal's small shapes).
+    Returns {'launches': by path, 'json': the numbers}."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.fitting.fit import FitConfig
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    extra = dict(tex_cfg or {})
+    fcfg = FitConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in extra.items()
+                        if k in FitConfig.__dataclass_fields__})
+    V = TetGrid.load(fcfg.dmtet_grid, fcfg.tet_root).num_verts
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_tex_')
+    out = {}
+    try:
+        gt = textured_gt(os.path.join(tmp, 'gt'))
+        hdr = os.path.join(tmp, 'sky.hdr')
+        sky_hdr(hdr)
+        # ---- 19. the textured fit under the .hdr light ----
+        cfg19 = {'normal_only': False, 'envmap': hdr, 'random_lgt': True, 'validate': True,
+                 'validate_views': TEX_VIEWS, 'save_baked': True, **extra}
+        run = textured_fit_run(entry, rec, gt, os.path.join(tmp, 'tex'), cfg19, TEX_ITERS, dev,
+                               profile_iter=TEX_ITERS // 2)
+        seen = check_textured_fit(run, os.path.join(tmp, 'tex'), cfg19, V, dev)
+        rows = [zmin_plain_check(run['kept']['fit'], record, 'textured fit step render'),
+                zmin_plain_check(run['kept']['bake'], record, f'UV bake {BAKE_RES}^2, z = 0')]
+        per_shape.extend(rows)
+        passes = [{'pass': p[0] + 1, 'iterations': p[1], 'steps_run': p[2], 's': p[3],
+                   's_per_step': p[3] / p[2], 'pool_s': p[4]} for p in run['passes']]
+        fams = {}
+        for k, t in run['prof'].items():
+            fams[_fit_family(k)] = fams.get(_fit_family(k), 0.0) + t
+        H, W = fcfg.train_res
+        n_pts = fcfg.batch * 2 * (H * W // 4) * 2      # views x layers x shade_cap x (jitter)
+        mat_cost = material_cost(run['mats'][0][0], n_pts, dev)
+        views, mse, psnr = run['validate']
+        faces, verts, param_s = run['parametrize']
+        show_fit('textured ', run['passes'], run['peak'])
+        print(f'textured fit_dmtets (neural material, .hdr sky, random_lgt, validate, save_baked): '
+              f'launches {run["launches"]} = renders {seen["renders"]}; every material leaf moved '
+              f'(max |change| {seen["moved"]}); validate over {views} views: MSE {mse:.6f}, PSNR '
+              f'{psnr:.3f}; bake: parametrize {faces} faces -> {verts} atlas vertices in '
+              f'{param_s:.3f} s on the host, {BAKE_RES}^2 maps, kd spread {seen["baked_kd_spread"]:.4f}; '
+              f'command {run["command_s"]:.2f} s')
+        busy = sum(run['prof'].values())
+        print(f'textured fit step (pass 1, iteration {TEX_ITERS // 2}, under torch.profiler): '
+              f'device {busy:.2f} ms; device ms by family: '
+              + ', '.join(f'{f} {t:.2f}' for f, t in sorted(fams.items(), key=lambda kv: -kv[1])))
+        for k, t in sorted(run['prof'].items(), key=lambda kv: -kv[1])[:12]:
+            print(f'  {t:8.3f} ms  {k[:100]}')
+        print(f'neural material forward + backward at {n_pts} points (a step\'s samples): '
+              f'{mat_cost["ms"]:.3f} ms (CUDA events), device {mat_cost["device_ms"]:.3f} ms: '
+              + ', '.join(f'{f} {t:.3f}' for f, t in mat_cost['device_ms_by_family'].items()))
+        out['fit_textured'] = {'passes': passes, 'peak_gib': run['peak'] / 2 ** 30,
+                               'command_s': run['command_s'], 'renders': seen['renders'],
+                               'step_device_ms': busy, 'step_device_ms_by_family': fams,
+                               'material_fwd_bwd': mat_cost, 'validate': run['validate'],
+                               'parametrize': run['parametrize'], 'zmin': rows,
+                               'losses': run['losses']}
+        launches = {'fit_textured': run['launches']}
+        del run
+
+        # ---- 20. learn_light in place of the .hdr; fit_singleview under the .hdr ----
+        cfg20 = {**cfg19, 'envmap': None, 'learn_light': True}
+        run = textured_fit_run(entry, rec, gt, os.path.join(tmp, 'tex_ll'), cfg20, TEX_LL_ITERS,
+                               dev)
+        seen = check_textured_fit(run, os.path.join(tmp, 'tex_ll'), cfg20, V, dev)
+        show_fit('textured learn_light ', run['passes'], run['peak'])
+        print(f'textured fit_dmtets with learn_light: launches {run["launches"]} = renders '
+              f'{seen["renders"]}; validate PSNR {run["validate"][2]:.3f}; command '
+              f'{run["command_s"]:.2f} s')
+        out['fit_textured_learn_light'] = {
+            'passes': [{'pass': p[0] + 1, 'steps_run': p[2], 's': p[3]} for p in run['passes']],
+            'renders': seen['renders'], 'command_s': run['command_s']}
+        launches['fit_textured_learn_light'] = run['launches']
+        del run
+
+        sv_dir = os.path.join(tmp, 'sv')
+        with open(sv_dir + '.json', 'w') as f:
+            json.dump({'envmap': hdr, 'log_interval': 5, **extra}, f)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = entry(['--mode', 'fit_singleview', '--meta_path', gt, '--out_dir', sv_dir,
+                      '--fit_config', sv_dir + '.json', '--iter', str(TEX_SV_ITERS),
+                      '--device', str(dev)])
+        sv_s = time.perf_counter() - t0
+        sv_launches = ops.launch_counts()
+        assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
+                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + TEX_SV_ITERS + 1}, sv_launches
+        d = torch.load(path)
+        assert set(d) == {'sdf', 'deform', 'vis', 'vis_rast'} and d['sdf'].shape == (V,)
+        assert 0 < float(d['vis'].sum()) < V and all(
+            bool(torch.isfinite(t.float()).all()) for t in d.values())
+        print(f'fit_singleview under the .hdr sky: {TEX_SV_ITERS} iterations, command '
+              f'{sv_s:.2f} s; launches {sv_launches}; vis {int(d["vis"].sum())} of {V}')
+        out['fit_singleview_envmap'] = {'command_s': sv_s, 'vis': float(d['vis'].sum())}
+        launches['fit_singleview_envmap'] = sv_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {'launches': launches, 'json': out}
 
 
 def main() -> int:
@@ -1882,7 +2277,12 @@ def main() -> int:
                    'uncond_gen': gen128, 'extract_viz': viz128, 'likelihood': lk64,
                    'card': _smi()}, f, indent=1)
 
-    # ---- 19. results ----
+    # ---- 19-20. the textured fit ----
+    tex = textured_phases(port_main, rec, record, per_shape, dev)
+    with open(os.path.join(out_dir, 'textured.json'), 'w') as f:
+        json.dump({**tex['json'], 'card': _smi()}, f, indent=1)
+
+    # ---- 21. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
     meta = {
@@ -1900,7 +2300,8 @@ def main() -> int:
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
                'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,
                'train': train_launches, 'uncond_gen_res128': uncond128_launches,
-               'extract_viz': viz_launches, 'likelihood': likelihood_launches}
+               'extract_viz': viz_launches, 'likelihood': likelihood_launches,
+               **tex['launches']}
     print(json.dumps({'launches_by_path': by_path}))
     path_launches = {n: sum(p[n] for p in by_path.values()) for n in launches}
     # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted

@@ -107,10 +107,11 @@ def render_viz(verts: np.ndarray, faces: np.ndarray, out_png: str, angle_ind: in
     image then lacks the triangles it dropped: a res128 mesh has ~200k
     faces, past the 65,536 live-face default). Returns the last render's
     buffers."""
-    from .fitting.fit import RASTER_CAPS, _grow, default_material
+    from .fitting.fit import RASTER_CAPS, default_material
     from .render import mesh as mesh_mod
     from .render import utils as rutils
     from .render.light import EnvironmentLight
+    from .render.rasterize import grow_capacity
     from .render.render import render_mesh
     device = resolve_device(device)
     m = mesh_mod.Mesh(v_pos=torch.as_tensor(verts, dtype=torch.float32, device=device),
@@ -126,7 +127,7 @@ def render_viz(verts: np.ndarray, faces: np.ndarray, out_png: str, angle_ind: in
             out = render_mesh(m, torch.as_tensor(mvp), torch.as_tensor(campos), light,
                               display_res, num_layers=1, **caps)
         over = {key: int(out[key]) for _, key in RASTER_CAPS}
-        grown = {k: _grow(caps[k], over[key], _VIZ_CAPS[k][1]) for k, key in RASTER_CAPS}
+        grown = {k: grow_capacity(caps[k], over[key], _VIZ_CAPS[k][1]) for k, key in RASTER_CAPS}
         if grown == caps:
             break
         caps = grown

@@ -5,9 +5,12 @@ Counterpart of ``meshdiffusion_tpu/fitting/dataset.py`` (reference
 validation poses:67-76, the target dict:132-163): the GT mesh is rendered
 by the same renderer at random cameras (radius fixed, fov 45 degrees,
 random rigid jitter +-0.2), and the target carries images, depths, masks
-and surface samples. Cameras come from a numpy ``Generator`` with the JAX
-package's calls in the same order, so they match it bit for bit; the
-surface samples draw from the renderer's ``torch.Generator``.
+and surface samples. With ``random_lgt`` every target batch also turns the
+environment light by a random rotation (``envlight_transform``, drawn
+after the batch's cameras). Cameras and light rotations come from a numpy
+``Generator`` with the JAX package's calls in the same order, so they
+match it bit for bit; the surface samples draw from the renderer's
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class TargetRenderer:
     cam_near_far: tuple = (0.1, 1000.0)
     fovy: float = float(np.deg2rad(45))
     layers: int = 2
+    random_lgt: bool = False
     num_surface_samples: int = 50000
     # >0: render this many random view batches once and sample from the
     # pool each iteration instead of rendering the GT every iteration.
@@ -84,16 +88,19 @@ class TargetRenderer:
                              torch_uniform(self.generator, self.device), face_mask=m.face_mask)
 
     @torch.no_grad()
-    def render_target(self, mvp, campos) -> Dict:
+    def render_target(self, mvp, campos, envlight_transform=None) -> Dict:
         """Render the GT mesh into a target dict (reference
-        dataset_mesh.py:119-163)."""
+        dataset_mesh.py:119-163), the light turned by
+        ``envlight_transform`` (1, 4, 4) when given."""
         dev = self.device
         mvp = torch.as_tensor(mvp, device=dev)
         campos = torch.as_tensor(campos, device=dev)
+        xfm = (None if envlight_transform is None
+               else torch.as_tensor(envlight_transform, dtype=torch.float32, device=dev))
         out = render_mesh(self.ref_mesh, mvp, campos, self.envlight, self.train_res,
-                          num_layers=self.layers)
+                          num_layers=self.layers, xfm_lgt=xfm)
         return {
-            'mvp': mvp, 'campos': campos,
+            'mvp': mvp, 'campos': campos, 'envlight_transform': xfm,
             'img': out['shaded'], 'img_second': out['shaded_second'],
             'spts': self._spts(),
             'depth': out['depth'], 'depth_second': out['depth_second'],
@@ -106,14 +113,20 @@ class TargetRenderer:
     # carve_occluded): colour and coverage pooled in f16, depth in f32
     _POOLED_F16_KEYS = ('img', 'img_second', 'mask_cont')
     _POOLED_IMAGE_KEYS = _POOLED_F16_KEYS + ('depth', 'depth_second')
-    _POOLED_KEYS = _POOLED_IMAGE_KEYS + ('mvp', 'campos')
+    _POOLED_KEYS = _POOLED_IMAGE_KEYS + ('mvp', 'campos', 'envlight_transform')
+
+    def _random_view_batch(self, batch: int, np_rng: np.random.Generator):
+        """(mvp, campos, envlight_transform or None) in the JAX package's
+        draw order: the cameras, then the light's rotation."""
+        _, mvp, campos = self.random_cameras(batch, np_rng)
+        xfm = U.random_rotation_translation(0.0, np_rng)[None] if self.random_lgt else None
+        return mvp, campos, xfm
 
     def _build_pool(self, batch: int, np_rng: np.random.Generator):
         t0 = time.perf_counter()
         entries = []
         for _ in range(self.target_pool):
-            _, mvp, campos = self.random_cameras(batch, np_rng)
-            t = self.render_target(mvp, campos)
+            t = self.render_target(*self._random_view_batch(batch, np_rng))
             entries.append({k: t[k].half() if k in self._POOLED_F16_KEYS else t[k]
                             for k in self._POOLED_KEYS})
         if self.device.type == 'cuda':
@@ -132,5 +145,4 @@ class TargetRenderer:
             with torch.no_grad():
                 t['spts'] = self._spts()
             return t
-        _, mvp, campos = self.random_cameras(batch, np_rng)
-        return self.render_target(mvp, campos)
+        return self.render_target(*self._random_view_batch(batch, np_rng))

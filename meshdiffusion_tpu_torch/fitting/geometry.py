@@ -24,7 +24,7 @@ from ..geometry.marching_tets import marching_tets
 from ..geometry.tet_grid import TetGrid
 from ..render import mesh as mesh_mod
 from ..render import ops as rops
-from ..render.render import render_mesh
+from ..render.render import Normal, render_mesh
 
 
 @dataclasses.dataclass
@@ -129,22 +129,24 @@ class DMTetFitter:
     # ---- loss (reference dmtet.py:362-462) ----
 
     def _render(self, m, lgt, target, raster_K, raster_Kg, aa, aa_budget, raster_live,
-                shade_cap):
+                shade_cap, normal):
         res = (target['img'].shape[1], target['img'].shape[2])
         return render_mesh(m, target['mvp'], target['campos'], lgt, res, num_layers=2,
                            raster_K=raster_K, raster_Kg=raster_Kg, aa=aa, aa_budget=aa_budget,
-                           raster_live=raster_live, remat=True, shade_cap=shade_cap)
+                           raster_live=raster_live, remat=True, shade_cap=shade_cap,
+                           xfm_lgt=target.get('envlight_transform'), normal=normal)
 
     def tick(self, state: FitState, material, lgt, target: Dict, iteration: int,
              uniform: Uniform, image_loss_fn, no_depth_thin: bool = True,
              raster_K: int = 256, raster_Kg: int = 64, aa: bool = True, aa_budget=None,
-             raster_live: int = 65536, shade_cap=None
+             raster_live: int = 65536, shade_cap=None, normal: Optional[Normal] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
         """Image, depth and regularizer losses of one iteration. ``uniform``
-        supplies the 50k prediction surface samples' draws."""
+        supplies the 50k prediction surface samples' draws, ``normal`` a
+        neural material's shading jitter (:func:`render_mesh`)."""
         m = self.get_mesh(state, material)
         buffers = self._render(m, lgt, target, raster_K, raster_Kg, aa,
-                               aa_budget, raster_live, shade_cap)
+                               aa_budget, raster_live, shade_cap, normal)
         t_iter = iteration / self.total_iter
 
         color_ref = target['img']
@@ -202,10 +204,11 @@ class FixedTopoFitter(DMTetFitter):
     def tick_fixed(self, state: FitState, init_v_pos: torch.Tensor, material, lgt,
                    target: Dict, iteration: int, uniform: Uniform, image_loss_fn,
                    mesh_edges: torch.Tensor, raster_K: int = 256, raster_Kg: int = 64,
-                   aa: bool = True, aa_budget=None, raster_live: int = 65536, shade_cap=None):
+                   aa: bool = True, aa_budget=None, raster_live: int = 65536, shade_cap=None,
+                   normal: Optional[Normal] = None):
         m = self.get_mesh(state, material)
         buffers = self._render(m, lgt, target, raster_K, raster_Kg, aa,
-                               aa_budget, raster_live, shade_cap)
+                               aa_budget, raster_live, shade_cap, normal)
         t_iter = iteration / self.total_iter
         color_ref = target['img']
         img_loss = torch.mean((buffers['shaded'][..., 3:] - color_ref[..., 3:]) ** 2)

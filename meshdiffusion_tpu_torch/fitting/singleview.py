@@ -224,15 +224,16 @@ def fit_singleview(mesh_path: str, cfg: FitConfig, out_dir: str, angle_ind: int 
     (reference fit_singleview.py driver) on ``device``, the card unless the
     caller names another; returns its path."""
     device = resolve_device(device or 'cuda')
-    if cfg.envmap is not None and not cfg.learn_light:
-        raise NotImplementedError('not ported yet: envmap (HDR environment maps)')
     os.makedirs(os.path.join(out_dir, 'tets'), exist_ok=True)
-    ref = obj_mod.load_mesh(mesh_path, device)
+    ref = obj_mod.load_mesh(mesh_path, device=device)
     ref = mesh_mod.center_by_reference(ref, mesh_mod.aabb(ref.v_pos), 1.0)
     ref = mesh_mod.auto_normals(ref)
     ref.material = default_material(device)
-    envlight = light_mod.create_trainable_env_rnd(512, scale=0.0, bias=0.5, device=device)
-    envlight.build_mips()
+    if cfg.learn_light or cfg.envmap is None:
+        envlight = light_mod.create_trainable_env_rnd(512, scale=0.0, bias=0.5, device=device)
+        envlight.build_mips()
+    else:
+        envlight = light_mod.load_env(cfg.envmap, scale=cfg.env_scale, device=device)
 
     gen = torch.Generator(device).manual_seed(seed)
     renderer = TargetRenderer(ref_mesh=ref, envlight=envlight, cam_radius=cfg.cam_radius,

@@ -1,18 +1,26 @@
-"""Shading math, image loss and transforms (renderutils equivalents).
+"""Shading math, BSDFs, image loss and transforms (renderutils equivalents).
 
 Counterpart of ``meshdiffusion_tpu/render/ops.py`` (reference
-``nvdiffrec/lib/render/renderutils/{bsdf,loss,ops}.py``), limited to what
-the fitting path calls: shading-normal preparation, the fused tonemap +
+``nvdiffrec/lib/render/renderutils/{bsdf,loss,ops}.py``): shading-normal
+preparation, the Lambert, Frostbite and GGX BSDFs, the fused tonemap +
 image loss, and homogeneous transforms. Autograd supplies every backward.
+
+The shading-normal, BSDF and loss math is derived from the reference
+Python oracle (nvdiffrec's ``renderutils/bsdf.py`` and ``loss.py``, by
+NVIDIA CORPORATION, under the NVIDIA Source Code License), as the JAX
+package's is.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .utils import dot, safe_normalize
 
 NORMAL_THRESHOLD = 0.1
+SPECULAR_EPSILON = 1e-4
 
 
 # --------------------------------------------------------- shading normals
@@ -49,6 +57,82 @@ def prepare_shading_normal(pos, view_pos, perturbed_nrm, smooth_nrm,
         smooth_tng = safe_normalize(smooth_tng)
         shading_nrm = _perturb_normal(perturbed_nrm, smooth_nrm, smooth_tng, opengl)
     return _bend_normal(view_vec, shading_nrm, geom_nrm, two_sided_shading)
+
+
+# ------------------------------------------------------------------- BSDFs
+
+def lambert(nrm, wi):
+    return torch.clamp(dot(nrm, wi), min=0.0) / math.pi
+
+
+def fresnel_shlick(f0, f90, cos_theta):
+    c = torch.clamp(cos_theta, SPECULAR_EPSILON, 1.0 - SPECULAR_EPSILON)
+    return f0 + (f90 - f0) * (1.0 - c) ** 5.0
+
+
+def frostbite_diffuse(nrm, wi, wo, linear_roughness):
+    wiDotN = dot(wi, nrm)
+    woDotN = dot(wo, nrm)
+    h = safe_normalize(wo + wi)
+    wiDotH = dot(wi, h)
+    energy_bias = 0.5 * linear_roughness
+    energy_factor = 1.0 - (0.51 / 1.51) * linear_roughness
+    f90 = energy_bias + 2.0 * wiDotH * wiDotH * linear_roughness
+    wi_scatter = fresnel_shlick(1.0, f90, wiDotN)
+    wo_scatter = fresnel_shlick(1.0, f90, woDotN)
+    res = wi_scatter * wo_scatter * energy_factor
+    return torch.where((wiDotN > 0.0) & (woDotN > 0.0), res, torch.zeros_like(res))
+
+
+def ndf_ggx(alpha_sqr, cos_theta):
+    c = torch.clamp(cos_theta, SPECULAR_EPSILON, 1.0 - SPECULAR_EPSILON)
+    d = (c * alpha_sqr - c) * c + 1
+    return alpha_sqr / (d * d * math.pi)
+
+
+def lambda_ggx(alpha_sqr, cos_theta):
+    c = torch.clamp(cos_theta, SPECULAR_EPSILON, 1.0 - SPECULAR_EPSILON)
+    c2 = c * c
+    tan2 = (1.0 - c2) / c2
+    return 0.5 * (torch.sqrt(1 + alpha_sqr * tan2) - 1.0)
+
+
+def masking_smith(alpha_sqr, cos_theta_i, cos_theta_o):
+    return 1 / (1 + lambda_ggx(alpha_sqr, cos_theta_i) + lambda_ggx(alpha_sqr, cos_theta_o))
+
+
+def pbr_specular(col, nrm, wo, wi, alpha, min_roughness=0.08):
+    _alpha = torch.clamp(alpha, min_roughness * min_roughness, 1.0)
+    alpha_sqr = _alpha * _alpha
+    h = safe_normalize(wo + wi)
+    woDotN = dot(wo, nrm)
+    wiDotN = dot(wi, nrm)
+    woDotH = dot(wo, h)
+    nDotH = dot(nrm, h)
+    D = ndf_ggx(alpha_sqr, nDotH)
+    G = masking_smith(alpha_sqr, woDotN, wiDotN)
+    F = fresnel_shlick(col, 1, woDotH)
+    w = F * D * G * 0.25 / torch.clamp(woDotN, min=SPECULAR_EPSILON)
+    frontfacing = (woDotN > SPECULAR_EPSILON) & (wiDotN > SPECULAR_EPSILON)
+    return torch.where(frontfacing, w, torch.zeros_like(w))
+
+
+def pbr_bsdf(kd, arm, pos, nrm, view_pos, light_pos, min_roughness=0.08, bsdf='lambert'):
+    """Punctual-light PBR BSDF (reference bsdf.py:139-154): arm is
+    (specular strength, roughness, metallic)."""
+    wo = safe_normalize(view_pos - pos)
+    wi = safe_normalize(light_pos - pos)
+    spec_str = arm[..., 0:1]
+    roughness = arm[..., 1:2]
+    metallic = arm[..., 2:3]
+    ks = (0.04 * (1.0 - metallic) + kd * metallic) * (1 - spec_str)
+    kd = kd * (1.0 - metallic)
+    if bsdf == 'lambert':
+        diffuse = kd * lambert(nrm, wi)
+    else:
+        diffuse = kd * frostbite_diffuse(nrm, wi, wo, roughness)
+    specular = pbr_specular(ks, nrm, wo, wi, roughness * roughness, min_roughness=min_roughness)
+    return diffuse + specular
 
 
 # -------------------------------------------------------------- image loss

@@ -322,6 +322,16 @@ def rasterize(v_clip: torch.Tensor, faces: torch.Tensor, res: Tuple[int, int],
                            global_over[0])
 
 
+def grow_capacity(cur: int, over: int, cap: Optional[int] = None, first: int = 1) -> int:
+    """Double ``cur`` (times ``first`` at once) until it holds cur + over,
+    at most ``cap``: the capacity a render that overflowed by ``over`` is
+    redone with."""
+    new = max(cur, 1) * first
+    while new < cur + over:
+        new *= 2
+    return new if cap is None else min(new, cap)
+
+
 def interpolate(attr: torch.Tensor, rast: RasterOut, faces: torch.Tensor) -> torch.Tensor:
     """Perspective-correct attribute interpolation (``dr.interpolate``):
     attr (V, C) -> (..., C); zeros where empty."""

@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package.
 
 :func:`from_jax_params`: JAX/flax parameter tree -> this package's U-Net;
-:func:`fit_state_from_jax`: a JAX fitting state -> this package's.
+:func:`fit_state_from_jax`: a JAX fitting state -> this package's;
+:func:`mlp_texture_state_from_jax`: a JAX neural material -> this package's.
 
 :func:`from_jax_params` is the inverse of ``meshdiffusion_tpu/utils/torch_convert.py``
 (``convert_model_state``, which maps the reference torch layout onto the
@@ -138,3 +139,18 @@ def fit_state_from_jax(state, device=None):
                     sdf_ema=t('sdf_ema', torch.float32),
                     sdf_buffer=t('sdf_buffer', torch.float32),
                     buf_len=t('buf_len', torch.int64), buf_ptr=t('buf_ptr', torch.int64))
+
+
+def mlp_texture_state_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A JAX ``MLPTexture3D`` parameter tree ({'params': {'encoder':
+    {'table'}, 'dense_{i}': {'kernel'}}}) -> the port's
+    :class:`~meshdiffusion_tpu_torch.render.mlptexture.MLPTexture3D`
+    parameters: ``encoder.table`` (L, T, F) as it is, ``dense_{i}.weight``
+    the kernel transposed (out, in). Load with
+    ``mat.load_state_dict({**mat.state_dict(), **state})``."""
+    tree = params['params'] if 'params' in params else params
+    out = {'encoder.table': torch.from_numpy(np.array(tree['encoder']['table'], np.float32))}
+    for name, leaf in tree.items():
+        if name.startswith('dense_'):
+            out[f'{name}.weight'] = torch.from_numpy(np.array(leaf['kernel'], np.float32).T.copy())
+    return out

@@ -271,26 +271,67 @@ def _compare_state(pst, jst, atol):
     assert int(pst.buf_len) == int(jst.buf_len) and int(pst.buf_ptr) == int(jst.buf_ptr)
 
 
-@pytest.mark.parametrize('pass_idx,its,learn_light', [(0, (220,), False), (0, (300,), False),
-                                                      (1, (0, 1), False), (0, (220,), True)])
-def test_fit_step_matches_jax(fit_setup, pass_idx, its, learn_light):
+def _materials(s):
+    """JAX's neural material over the GT's box, its six coarsest hash levels
+    N(0, 0.3^2) (a material that varies over the shape), and the port's
+    with the same weights."""
+    from meshdiffusion_tpu_torch.utils.convert import mlp_texture_state_from_jax
+    aabb = (np.full(3, -0.5, np.float32), np.full(3, 0.5, np.float32))
+    module, params = JF.make_mlp_material(aabb)
+    table = params['params']['encoder']['table']
+    coarse = (jnp.arange(table.shape[0]) < 6)[:, None, None]
+    table = table + 0.3 * coarse * jax.random.normal(jax.random.key(3), table.shape)
+    params = {'params': {**params['params'], 'encoder': {'table': table}}}
+    mat = F.make_mlp_material(aabb, device='cpu')
+    mat.load_state_dict({**mat.state_dict(), **mlp_texture_state_from_jax(params)})
+    return module, params, mat
+
+
+def jax_shade_draws(key, batch, shape):
+    """The neural material's jitter draws inside JAX's tick(..., key): one
+    normal draw a view from the split of the shading key."""
+    return [np.asarray(jax.random.normal(k, shape))
+            for k in jax.random.split(jax.random.split(key)[0], batch)]
+
+
+@pytest.mark.parametrize('pass_idx,its,learn_light,textured', [
+    (0, (220,), False, False), (0, (300,), False, False), (1, (0, 1), False, False),
+    (0, (220,), True, False), (0, (220,), True, True), (1, (0, 1), False, True)])
+def test_fit_step_matches_jax(fit_setup, pass_idx, its, learn_light, textured):
     """Whole fit steps from a fresh Adam: loss, backward, Adam (lr from
     its own update count: pass 2 warms up from 0), then shrink -> carve ->
     clamp -> EMA. Pass 1 at iteration 220 (carve fires) and 300 (shrink
     and carve fire); pass 2 two steps (the sdf gradient zeroed); and pass 1
     with ``learn_light``: the light's cubemap is a second Adam's leaf, its
-    gradient x64, clamped at 0 (compared after the step like the state)."""
+    gradient x64, clamped at 0 (compared after the step like the state).
+    ``textured`` (normal_only False): the candidate is shaded by the neural
+    material (its jitter draws JAX's), whose parameters a third Adam
+    updates on the material schedule with the encoder's gradient / 8:
+    every parameter after the steps, and Adam's first moment of the table
+    (where the / 8 shows, as Adam's update itself hardly changes under a
+    gradient's scale), against JAX's."""
+    import dataclasses
     s = fit_setup
     cfg, pcfg = s['cfg'], s['pcfg']
+    mat_module = jparams = mat = jopt_m = popt_m = None
+    if textured:
+        cfg = dataclasses.replace(cfg, normal_only=False)
+        pcfg = dataclasses.replace(pcfg, normal_only=False)
+        mat_module, jparams, mat = _materials(s)
     if pass_idx == 0:
         jfit, pfit, jst = s['jfit'], s['pfit'], s['jstate']
         pst = fit_state_from_jax(jst)
-        jstep, tx = JF.make_fit_step(jfit, cfg, s['jren'], None, 0)[:2]
-        pstep = F.make_fit_step(pfit, pcfg, s['pren'], 0)
+        jstep, tx, tx_m = JF.make_fit_step(jfit, cfg, s['jren'], mat_module, 0)[:3]
+        pstep = F.make_fit_step(pfit, pcfg, s['pren'], 0, mat=mat)
     else:
         jfit, pfit, jst, pst, jinit, edges = _pass2(s, s['jstate'])
-        jstep, tx = JF.make_fit_step(jfit, cfg, s['jren'], None, 1, jinit, jnp.asarray(edges))[:2]
-        pstep = F.make_fit_step(pfit, pcfg, s['pren'], 1, _t(jinit), _t(edges).long())
+        jstep, tx, tx_m = JF.make_fit_step(jfit, cfg, s['jren'], mat_module, 1, jinit,
+                                           jnp.asarray(edges))[:3]
+        pstep = F.make_fit_step(pfit, pcfg, s['pren'], 1, _t(jinit), _t(edges).long(), mat=mat)
+    if textured:
+        jopt_m = tx_m.init(jparams)
+        popt_m = torch.optim.Adam(mat.parameters(), lr=0.0)
+        table0 = mat.encoder.table.detach().numpy().copy()
     opt = tx.init({'sdf': jst.sdf, 'deform': jst.deform})
     pst = pst.replace(sdf=pst.sdf.requires_grad_(), deform=pst.deform.requires_grad_())
     popt = torch.optim.Adam([pst.sdf, pst.deform], lr=0.0)
@@ -305,12 +346,15 @@ def test_fit_step_matches_jax(fit_setup, pass_idx, its, learn_light):
         plight = _t(light0).requires_grad_()
         popt_l = torch.optim.Adam([plight], lr=0.0)
     before = np.asarray(jst.sdf).copy()
+    cap = (RES[0] * RES[1] // 4, 3)
     for i, it in enumerate(its):
         key = jax.random.key(10 + i)
-        jst, _, jlight, opt, _, jopt_l, jm = jstep(jst, None, jlight, opt, None, jopt_l,
-                                                   s['jtarget'], jnp.asarray(it, jnp.float32), key)
+        jst, jparams, jlight, opt, jopt_m, jopt_l, jm = jstep(
+            jst, jparams, jlight, opt, jopt_m, jopt_l, s['jtarget'], jnp.asarray(it, jnp.float32),
+            key)
         pst, pm = pstep(pst, plight, popt, popt_l, s['ptarget'], it,
-                        replay(*jax_tick_draws(key)))
+                        replay(*jax_tick_draws(key)), popt_m,
+                        replay(*jax_shade_draws(key, BATCH, cap)))
         np.testing.assert_allclose(float(pm['total']), float(jm['total']), rtol=RTOL)
         for k in ('raster_overflow', 'raster_overflow_global', 'raster_overflow_live',
                   'shade_overflow', 'aa_overflow'):
@@ -320,6 +364,24 @@ def test_fit_step_matches_jax(fit_setup, pass_idx, its, learn_light):
         moved = np.abs(np.asarray(jlight) - light0).max()
         assert moved > 1e-3, moved
         np.testing.assert_allclose(plight.detach().numpy(), np.asarray(jlight), rtol=0, atol=1e-6)
+    if textured:
+        # the MLP's weights as the state; the table, whose gradient entries
+        # sum many pixels' contributions with cancellation (and many lie
+        # within Adam's eps, where its step rests on their last bits), by
+        # relative L2 of its update and of Adam's first moment, which
+        # carries the / 8 (an unscaled gradient would be 700 % off)
+        for i in range(3):
+            np.testing.assert_allclose(getattr(mat, f'dense_{i}').weight.detach().numpy().T,
+                                       np.asarray(jparams['params'][f'dense_{i}']['kernel']),
+                                       rtol=0, atol=1e-6)
+        t_got = mat.encoder.table.detach().numpy() - table0
+        t_want = np.asarray(jparams['params']['encoder']['table']) - table0
+        assert np.linalg.norm(t_want) > 0.1 or pass_idx == 1
+        assert np.linalg.norm(t_got - t_want) <= 1e-3 * np.linalg.norm(t_want)
+        mu = popt_m.state[mat.encoder.table]['exp_avg'].numpy()
+        mu_want = np.asarray(jopt_m[0].mu['params']['encoder']['table'])
+        assert np.linalg.norm(mu - mu_want) <= 2e-4 * np.linalg.norm(mu_want)
+        assert F._count(popt_m) == len(its)
     if pass_idx == 0:
         assert (np.asarray(jst.sdf) == np.float32(1e-2)).sum() > 10     # carved
     else:

@@ -263,3 +263,45 @@ def test_tile_zmin_kernel_matches_plain(cuda, rng, scene, res, K, layers):
         assert int(args[2].max()) > K
     assert torch.equal(kt, pt) and torch.equal(kz, pz)
     assert torch.equal(kt, kt2) and torch.equal(kz, kz2)
+
+
+def _uv_scene(rng, res):
+    """The UV bake's case: one view of 1024^2 tiles, every triangle at
+    z = 0 (so every candidate ties and the tie-break picks each pixel):
+    a lattice of 6.5-pixel quads, each split on its diagonal, whose
+    corners and diagonals pass through pixel centres (as an atlas of a
+    grid-aligned mesh does), under 20,000 small triangles scattered over
+    it."""
+    H, W = res
+    s = 6.5
+    gy, gx = np.mgrid[0:int(H / s) - 1, 0:int(W / s) - 1]
+    x0, y0 = (gx * s + 0.5).ravel(), (gy * s + 0.5).ravel()
+    quads = []
+    for (ax, ay), (bx, by), (cx, cy) in ((((0, 0), (s, 0), (s, s))), (((0, 0), (s, s), (0, s)))):
+        quads.append(np.stack([x0 + ax, y0 + ay, x0 + bx, y0 + by, x0 + cx, y0 + cy], 1))
+    quads = np.concatenate(quads)
+    n = 20000
+    c = rng.uniform(0.0, 1.0, (n, 1, 2)) * (W, H)
+    small = (c + rng.normal(0.0, 3.0, (n, 3, 2))).reshape(n, 6)
+    xy = np.concatenate([quads, small]).reshape(-1, 3, 2)
+    return np.concatenate([xy, np.zeros(xy.shape[:2] + (1,))], 2).reshape(-1, 9).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_tile_zmin_kernel_matches_plain_on_the_uv_bake(cuda, rng):
+    """The bake's z-test: one view at 1024^2 (1,024 tiles), one layer,
+    every candidate at z = 0, binned at K 256 (counts cut to it) + Kg 64:
+    ids equal and z bit-equal to the plain version, and equal from one
+    launch to the next."""
+    res = (1024, 1024)
+    views = _uv_scene(rng, res)[None]
+    args = _zmin_inputs(torch.from_numpy(views).to(cuda), res, 256, 64)
+    n0 = ops.tile_zmin.launches
+    kt, kz = ops.tile_zmin(*args, res, num_layers=1)
+    kt2, kz2 = ops.tile_zmin(*args, res, num_layers=1)
+    pt, pz = ops.tile_zmin_reference(*args, res, num_layers=1)
+    assert ops.tile_zmin.launches == n0 + 2
+    assert kt.shape == (1, 1024, 32, 32) and (pt >= 0).float().mean() > 0.9
+    assert (pz[pt >= 0] == 0).all()
+    assert torch.equal(kt, pt) and torch.equal(kz, pz)
+    assert torch.equal(kt, kt2) and torch.equal(kz, kz2)
