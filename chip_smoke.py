@@ -1514,8 +1514,7 @@ def material_cost(mat, n: int, dev) -> dict:
     return {'points': n, 'ms': ms, 'device_ms': sum(fams.values()), 'device_ms_by_family': fams}
 
 
-
-def textured_phases(entry, rec, record, per_shape, dev, tex_cfg=None) -> dict:
+def textured_phases(entry, rec, record, per_shape, dev) -> dict:
     """Phases 19 and 20. 19: ``main --mode fit_dmtets`` on the textured GT
     with the neural material (``normal_only`` false), the sky .hdr as the
     light (``envmap``), ``random_lgt``, ``validate`` (TEX_VIEWS views) and
@@ -1526,15 +1525,12 @@ def textured_phases(entry, rec, record, per_shape, dev, tex_cfg=None) -> dict:
     sample count. 20: the same fit with ``learn_light`` in place of the
     .hdr, TEX_LL_ITERS iterations a pass; then ``main --mode
     fit_singleview`` under the .hdr, TEX_SV_ITERS iterations.
-    ``tex_cfg`` adds fit-config keys (a rehearsal's small shapes).
     Returns {'launches': by path, 'json': the numbers}."""
     import torch
     from meshdiffusion_tpu_torch import ops
     from meshdiffusion_tpu_torch.fitting.fit import FitConfig
     from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
-    extra = dict(tex_cfg or {})
-    fcfg = FitConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in extra.items()
-                        if k in FitConfig.__dataclass_fields__})
+    fcfg = FitConfig()
     V = TetGrid.load(fcfg.dmtet_grid, fcfg.tet_root).num_verts
     tmp = tempfile.mkdtemp(prefix='chip_smoke_tex_')
     out = {}
@@ -1544,7 +1540,7 @@ def textured_phases(entry, rec, record, per_shape, dev, tex_cfg=None) -> dict:
         sky_hdr(hdr)
         # ---- 19. the textured fit under the .hdr light ----
         cfg19 = {'normal_only': False, 'envmap': hdr, 'random_lgt': True, 'validate': True,
-                 'validate_views': TEX_VIEWS, 'save_baked': True, **extra}
+                 'validate_views': TEX_VIEWS, 'save_baked': True}
         run = textured_fit_run(entry, rec, gt, os.path.join(tmp, 'tex'), cfg19, TEX_ITERS, dev,
                                profile_iter=TEX_ITERS // 2)
         seen = check_textured_fit(run, os.path.join(tmp, 'tex'), cfg19, V, dev)
@@ -1603,7 +1599,7 @@ def textured_phases(entry, rec, record, per_shape, dev, tex_cfg=None) -> dict:
 
         sv_dir = os.path.join(tmp, 'sv')
         with open(sv_dir + '.json', 'w') as f:
-            json.dump({'envmap': hdr, 'log_interval': 5, **extra}, f)
+            json.dump({'envmap': hdr, 'log_interval': 5}, f)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         path = entry(['--mode', 'fit_singleview', '--meta_path', gt, '--out_dir', sv_dir,

@@ -26,40 +26,41 @@ from torch import nn
 _PRIMES = (1, 2654435761, 805459861)
 
 
-def _hash(c0: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor, T: int) -> torch.Tensor:
-    h = (c0 * _PRIMES[0]) ^ (c1 * _PRIMES[1]) ^ (c2 * _PRIMES[2])
-    return torch.remainder(h & 0xFFFFFFFF, T)
-
-
-def hash_index(c: torch.Tensor, T: int) -> torch.Tensor:
-    """(N, 3) int64 lattice coords in [0, res] -> (N,) table rows."""
-    return _hash(c[:, 0], c[:, 1], c[:, 2], T)
+def hash_corners(x: torch.Tensor, resolutions, T: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lattice corners of every level at once: x (N, 3) in [0, 1],
+    resolutions (L,) ints -> their table rows (L, 8, N) int64 (level l's
+    offset by l * T) and trilinear weights (L, 8, N), corner
+    k = o0 + 2 o1 + 4 o2 as in JAX's loop. Each axis has two lattice
+    coordinates a point (lower, upper, clipped to [0, res]), hashed and
+    weighted once; the eight corners are their XORs and products by
+    broadcasting."""
+    L = len(resolutions)
+    res = torch.as_tensor(np.asarray(resolutions, np.int64), device=x.device)
+    xs = x.t()[None] * res.to(x.dtype)[:, None, None]                    # (L, 3, N)
+    x0 = torch.floor(xs)
+    frac = xs - x0
+    lo = x0.long()
+    c = torch.minimum(torch.stack((lo, lo + 1), dim=2).clamp_(min=0),
+                      res[:, None, None, None])                           # (L, 3, 2, N)
+    h = (c * torch.tensor(_PRIMES, device=x.device)[None, :, None, None]) & 0xFFFFFFFF
+    idx = h[:, 2, :, None, None] ^ h[:, 1, None, :, None] ^ h[:, 0, None, None, :]
+    idx = torch.remainder(idx, T) + torch.arange(L, device=x.device)[:, None, None, None, None] * T
+    w = torch.stack((1.0 - frac, frac), dim=2)                            # (L, 3, 2, N)
+    wts = (w[:, 0, None, None, :] * w[:, 1, None, :, None]) * w[:, 2, :, None, None]
+    return idx.reshape(L, 8, -1), wts.reshape(L, 8, -1)
 
 
 def hash_encode(x: torch.Tensor, table: torch.Tensor, resolutions) -> torch.Tensor:
     """Multilevel hash encoding: x (N, 3) in [0, 1], table (L, T, F),
-    resolutions (L,) ints -> (N, L*F), level-major. Each level's eight
-    corners are computed together, and the rows of every level and corner
-    are read by one gather from the flattened table, so the backward is one
-    index_add into it (a few hundred small kernels a call, not thousands:
-    the fit samples it 16 times a step)."""
+    resolutions (L,) ints -> (N, L*F), level-major. The rows of every level
+    and corner are read by one gather from the flattened table, so the
+    backward is one index_add into it: a call is a few dozen kernels
+    whatever L is (the fit samples it 16 times a step)."""
     L, T, F = table.shape
     N = x.shape[0]
-    ar = torch.arange(8, device=x.device)
-    offs = (ar[:, None] >> ar[None, :3]) & 1                    # (8, 3) corner offsets
-    upper = offs.bool()[:, None, :]
-    idx, wts = [], []
-    for lvl in range(L):
-        res = int(resolutions[lvl])
-        xs = x * res
-        x0 = torch.floor(xs)
-        frac = xs - x0
-        c = torch.clamp(x0.long()[None] + offs[:, None, :], 0, res)        # (8, N, 3)
-        idx.append(_hash(c[..., 0], c[..., 1], c[..., 2], T) + lvl * T)
-        w = torch.where(upper, frac[None], 1.0 - frac[None])
-        wts.append(w[..., 0] * w[..., 1] * w[..., 2])                       # (8, N)
-    rows = table.reshape(L * T, F).index_select(0, torch.cat(idx).reshape(-1))
-    feat = (rows.view(L, 8, N, F) * torch.cat(wts).view(L, 8, N, 1)).sum(dim=1)
+    idx, wts = hash_corners(x, resolutions, T)
+    rows = table.reshape(L * T, F).index_select(0, idx.reshape(-1))
+    feat = (rows.view(L, 8, N, F) * wts.view(L, 8, N, 1)).sum(dim=1)
     return feat.permute(1, 0, 2).reshape(N, L * F)
 
 

@@ -13,6 +13,7 @@ so it writes ``texture_kd_{level}.png`` while its .mtl names
 ``texture_kd.png``; the port writes that one file from the base level
 (``test_export_baked_matches_jax`` compares it with JAX's level 0)."""
 
+import functools
 import os
 
 import jax
@@ -33,6 +34,7 @@ from meshdiffusion_tpu_torch.fitting import fit as F
 from meshdiffusion_tpu_torch.geometry import uv_unwrap as UV
 from meshdiffusion_tpu_torch.geometry.obj_io import read_obj
 from meshdiffusion_tpu_torch.render import mesh as M
+from meshdiffusion_tpu_torch.render import mlptexture as MLP
 from meshdiffusion_tpu_torch.render import obj as Obj
 from meshdiffusion_tpu_torch.render import utils as U
 from meshdiffusion_tpu_torch.render.render import render_uv
@@ -71,16 +73,23 @@ def meshes(tiny_tet_grid):
     return out
 
 
-@pytest.fixture(scope='module')
-def material():
+SMALL_HASH = dict(num_levels=4, log2_hashmap_size=14, desired_resolution=64)
+
+
+@pytest.fixture
+def material(monkeypatch):
     """JAX's neural material over the meshes' box with a smooth, non-trivial
-    table (the six coarsest levels N(0, 0.3^2)), and the port's with the
-    same weights."""
+    table (every level N(0, 0.3^2)), and the port's with the same weights.
+    Both packages' hash grid is cut to 4 levels of 2^14 entries, 16 -> 64
+    cells a side: the JAX package traces its encoder level by level and
+    corner by corner, so at 16 x 2^19 a bake spends most of its time
+    tracing it (``test_torch_textured.py`` holds the full-size encoder)."""
+    monkeypatch.setattr(JMLP, 'HashEncoder', functools.partial(JMLP.HashEncoder, **SMALL_HASH))
+    monkeypatch.setattr(MLP, 'HashEncoder', functools.partial(MLP.HashEncoder, **SMALL_HASH))
     aabb = (np.full(3, -0.45, np.float32), np.full(3, 0.45, np.float32))
     module, params = JF.make_mlp_material(aabb)
     table = params['params']['encoder']['table']
-    coarse = (jnp.arange(table.shape[0]) < 6)[:, None, None]
-    table = table + 0.3 * coarse * jax.random.normal(jax.random.key(2), table.shape)
+    table = table + 0.3 * jax.random.normal(jax.random.key(2), table.shape)
     params = {'params': {**params['params'], 'encoder': {'table': table}}}
     mat = F.make_mlp_material(aabb, device='cpu')
     mat.load_state_dict({**mat.state_dict(), **mlp_texture_state_from_jax(params)})
@@ -219,7 +228,8 @@ def test_render_uv_drops_nothing(meshes, material, one_thread):
     np.testing.assert_array_equal(mask[..., 0].numpy(), ample.valid.float().numpy())
 
 
-def test_export_baked_matches_jax(meshes, material, jax_tile_kernel, tmp_path, one_thread):
+def test_export_baked_matches_jax(meshes, material, jax_tile_kernel, tmp_path, monkeypatch,
+                                  one_thread):
     """export_baked of the sphere at 64^2: the .obj's positions, texture
     coordinates and faces equal JAX's, its normals to fp32 tolerance; the
     .mtl's lines; the ks and normal maps within one 8-bit step of JAX's,
@@ -230,6 +240,9 @@ def test_export_baked_matches_jax(meshes, material, jax_tile_kernel, tmp_path, o
     v, f = meshes['sphere']
     jm = JM.auto_normals(JM.Mesh(v_pos=jnp.asarray(v), t_pos_idx=jnp.asarray(f)))
     pm = M.auto_normals(M.Mesh(v_pos=_t(v), t_pos_idx=_t(f).long()))
+    # JAX's bake with its UV render jitted (op by op each op compiles on its own)
+    monkeypatch.setattr(JE, 'render_uv', lambda mesh, res, tex: jax.jit(
+        lambda: JR.render_uv(mesh, res, tex))())
     jout = JE.export_baked(jm, jmat, str(tmp_path / 'j'), texture_res=RES)
     with torch.no_grad():
         out = E.export_baked(pm, pmat, str(tmp_path / 'p'), texture_res=RES)

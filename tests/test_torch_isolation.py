@@ -335,8 +335,8 @@ def test_data_tools_and_viz_run_without_jax(tmp_path):
 
 def test_sources_import_nothing_of_jax():
     pattern = re.compile(r'^\s*(import|from)\s+(%s)\b' % '|'.join(FORBIDDEN), re.M)
-    files = sorted((REPO / 'meshdiffusion_tpu_torch').rglob('*.py')) + [REPO / 'chip_smoke.py',
-                                                                         REPO / 'zmin_compare.py']
+    files = sorted((REPO / 'meshdiffusion_tpu_torch').rglob('*.py')) + [
+        REPO / 'chip_smoke.py', REPO / 'zmin_compare.py', REPO / 'material_compare.py']
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {'meshdiffusion_tpu_torch/data/convert.py', 'meshdiffusion_tpu_torch/extract.py',

@@ -18,6 +18,7 @@ vmap on one view's (H, W, 3) or compacted (cap, 3) G-buffer), so its
 renders with :class:`AnyRankLight`, which hands JAX's own ``shade`` the
 view's G-buffer as a batch of one."""
 
+import functools
 import os
 import struct
 import zlib
@@ -108,53 +109,76 @@ def _points(rng, n, lo=0.0, hi=1.0):
 
 
 def test_hash_indices_and_encoding_match_jax(rng):
-    """The uint32 spatial hash: the port's int64 form against the uint32
-    formula of JAX's ``hash_encode`` at every level and corner, exactly,
-    on 3000 points including x = 0 and x = 1.0; then the encoding of a
-    random table at fp32 tolerance."""
+    """The uint32 spatial hash: the rows ``hash_encode`` reads (its int64
+    form, every level at once) against the uint32 formula of JAX's
+    ``hash_encode`` at every level and corner, exactly, on 3000 points
+    including x = 0 and x = 1.0, and its trilinear weights; then the
+    encoding of a random table at fp32 tolerance."""
     enc = JMLP.HashEncoder()
     res = enc.resolutions()
     x = _points(rng, 3000)
     T = 2 ** enc.log2_hashmap_size
-    for r in res:
-        x0 = jnp.floor(jnp.asarray(x) * int(r)).astype(jnp.int32)
+    idx, wts = MLP.hash_corners(_t(x), res, T)
+    assert idx.shape == wts.shape == (len(res), 8, len(x))
+    for lvl, r in enumerate(res):
+        xs = jnp.asarray(x) * int(r)
+        x0 = jnp.floor(xs).astype(jnp.int32)
+        frac = xs - x0
         for corner in range(8):
             offs = np.array([(corner >> k) & 1 for k in range(3)], np.int32)
             c = jnp.clip(x0 + offs, 0, int(r)).astype(jnp.uint32)
             h = ((c[:, 0] * jnp.uint32(1)) ^ (c[:, 1] * jnp.uint32(2654435761))
                  ^ (c[:, 2] * jnp.uint32(805459861)))
             want = np.asarray(jnp.remainder(h, jnp.uint32(T)).astype(jnp.int32))
-            got = MLP.hash_index(torch.from_numpy(np.asarray(c, np.int64)), T)
-            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(idx[lvl, corner].numpy(), want + lvl * T)
+            w = jnp.prod(jnp.where(offs[None, :] == 1, frac, 1.0 - frac), axis=-1)
+            _close(wts[lvl, corner], w)
     table = rng.uniform(-1, 1, (len(res), T, 2)).astype(np.float32)
     want = JMLP.hash_encode(jnp.asarray(x), jnp.asarray(table), res)
     got = MLP.hash_encode(_t(x), _t(table), res)
     _close(got, want)
 
 
+def material_pair(aabb, key, coarse=6):
+    """JAX's neural material (``make_mlp_material``) over ``aabb``, its
+    ``coarse`` coarsest hash levels N(0, 0.3^2), the rest at their +-1e-4
+    start, and the port's with the same weights."""
+    module, params = JF.make_mlp_material(aabb)
+    table = params['params']['encoder']['table']
+    lvl = (jnp.arange(table.shape[0]) < coarse)[:, None, None]
+    table = table + 0.3 * lvl * jax.random.normal(jax.random.key(key), table.shape)
+    params = {'params': {**params['params'], 'encoder': {'table': table}}}
+    mat = F.make_mlp_material(aabb, device='cpu')
+    mat.load_state_dict({**mat.state_dict(), **mlp_texture_state_from_jax(params)})
+    return module, params, mat
+
+
+SMALL_HASH = dict(num_levels=4, log2_hashmap_size=14, desired_resolution=64)
+
+
+@pytest.fixture
+def small_hash(monkeypatch):
+    """Both packages' hash grid cut to 4 levels of 2^14 entries, 16 -> 64
+    cells a side, for the tests of what the material feeds (the render, the
+    bake, fit steps): the JAX package traces its encoder level by level and
+    corner by corner, so at 16 x 2^19 such a test spends most of its time
+    tracing it. The full-size encoder is held in
+    ``test_mlp_texture_forward_and_grads_match_jax``."""
+    monkeypatch.setattr(JMLP, 'HashEncoder', functools.partial(JMLP.HashEncoder, **SMALL_HASH))
+    monkeypatch.setattr(MLP, 'HashEncoder', functools.partial(MLP.HashEncoder, **SMALL_HASH))
+
+
 @pytest.fixture(scope='module')
 def jax_material():
     """JAX's neural material at full size (16 x 2^19 x 2 table, 2 x 32
-    hidden, 9 outputs) over a box. The six coarsest levels (16 to 59 cells
+    hidden, 9 outputs) over a box. The six coarsest levels (16 to 102 cells
     a side) get N(0, 0.3^2) entries, the rest keep their +-1e-4 start: a
     material that varies over the sphere like a fitted one. (Noise of that
     size at the 4096 level would make the texture vary by ~1e-3 over
     1e-7 of position, so renders would differ by the rounding of their
     interpolated positions.)"""
     aabb = (np.array([-0.4, -0.3, -0.5], np.float32), np.array([0.5, 0.35, 0.45], np.float32))
-    module, params = JF.make_mlp_material(aabb)
-    table = params['params']['encoder']['table']
-    coarse = (jnp.arange(table.shape[0]) < 6)[:, None, None]
-    table = table + 0.3 * coarse * jax.random.normal(jax.random.key(1), table.shape)
-    params = {'params': {**params['params'], 'encoder': {'table': table}}}
-    return aabb, module, params
-
-
-def port_material(jax_material):
-    aabb, _, params = jax_material
-    mat = F.make_mlp_material(aabb, device='cpu')
-    mat.load_state_dict({**mat.state_dict(), **mlp_texture_state_from_jax(params)})
-    return mat
+    return (aabb,) + material_pair(aabb, 1)
 
 
 def test_mlp_texture_forward_and_grads_match_jax(rng, jax_material, one_thread):
@@ -162,8 +186,7 @@ def test_mlp_texture_forward_and_grads_match_jax(rng, jax_material, one_thread):
     sigmoid into min_max) on 2500 points including the box's corners and
     points outside it, and the gradients of a weighted sum to the table
     (the encoder's scatter) and every dense kernel."""
-    aabb, module, params = jax_material
-    mat = port_material(jax_material)
+    aabb, module, params, mat = jax_material
     assert dict(mat.named_parameters()).keys() == {'encoder.table', 'dense_0.weight',
                                                    'dense_1.weight', 'dense_2.weight'}
     assert mat.encoder.table.shape == (16, 2 ** 19, 2)
@@ -323,11 +346,14 @@ def test_load_hdr_matches_jax(rng, tmp_path, rle):
 
 # ------------------------------------------------------------------- light
 
-def test_load_env_and_specular_match_jax(rng, tmp_path):
+def test_load_env_and_specular_match_jax(rng, tmp_path, monkeypatch):
     """load_env (HDR latlong -> 512^2 cubemap -> mips and the diffuse map),
     specular_cubemap at a tiny resolution, the GGX chain of
     build_mips(with_specular=True), get_mip, regularizer, clamp, clone,
-    and the latlong round trip."""
+    and the latlong round trip. (JAX's latlong resampling runs under
+    jax.jit, where op by op each op compiles on its own.)"""
+    latlong_to_cubemap = jax.jit(JU.latlong_to_cubemap, static_argnums=1)
+    monkeypatch.setattr(JU, 'latlong_to_cubemap', latlong_to_cubemap)
     p = str(tmp_path / 'sky.hdr')
     write_hdr(p, sky_rgbe(rng, 16, 32), True)
     jl = JL.load_env(p, scale=0.7)
@@ -361,9 +387,10 @@ def test_load_env_and_specular_match_jax(rng, tmp_path):
     jl2 = jl.clone()
     jl2.clamp(0.5, 1.5)
     _close(pl2.base, jl2.base)
-    _close(U.cubemap_to_latlong(_t(base), (16, 32)), JU.cubemap_to_latlong(jnp.asarray(base), (16, 32)))
+    want = jax.jit(JU.cubemap_to_latlong, static_argnums=1)(jnp.asarray(base), (16, 32))
+    _close(U.cubemap_to_latlong(_t(base), (16, 32)), want)
     lat = rng.uniform(0, 1, (10, 20, 3)).astype(np.float32)
-    _close(U.latlong_to_cubemap(_t(lat), (6, 6)), JU.latlong_to_cubemap(jnp.asarray(lat), (6, 6)))
+    _close(U.latlong_to_cubemap(_t(lat), (6, 6)), latlong_to_cubemap(jnp.asarray(lat), (6, 6)))
 
 
 def test_shade_with_light_transform_matches_jax(rng):
@@ -572,24 +599,26 @@ def _cameras(n, seed=0, res=(48, 48)):
     return mvp, campos
 
 
-def test_neural_material_render_matches_jax(sphere, jax_material, one_thread):
-    """render_mesh of a 2-view batch with the kd_ks_normal material, the
-    jitter's normal draws JAX's (jax.random.normal of each view's key, one
-    draw a view for both layers), and the light rotated by a random
-    ``xfm_lgt``: every buffer, kd_grad and occlusion included, with the
-    fit's compacted shading (shade_cap H*W/4)."""
+def test_neural_material_render_matches_jax(sphere, small_hash, one_thread):
+    """render_mesh of a 2-view batch with the kd_ks_normal material (the
+    hash grid of ``small_hash``, every level N(0, 0.3^2)), the jitter's
+    normal draws JAX's (jax.random.normal of each view's key, one draw a
+    view for both layers), and the light rotated by a random ``xfm_lgt``:
+    every buffer, kd_grad and occlusion included, with the fit's compacted
+    shading (shade_cap H*W/4)."""
     shade_cap = 48 * 48 // 4
     import meshdiffusion_tpu.render.render as JR
     from meshdiffusion_tpu_torch.render.render import render_mesh
     jm, pm, _, _ = sphere
     jl, pl = _light(np.random.default_rng(3))
-    _, module, params = jax_material
+    aabb = (np.array([-0.4, -0.3, -0.5], np.float32), np.array([0.5, 0.35, 0.45], np.float32))
+    module, params, port_mat = material_pair(aabb, 1, coarse=SMALL_HASH['num_levels'])
     jmat = JF.default_material()
     jmat['kd_ks_normal'] = JMLP.BoundTexture3D(module, params)
     jm = JM.Mesh.combine(jm)
     jm.material = jmat
     pmat = F.default_material()
-    pmat['kd_ks_normal'] = port_material(jax_material)
+    pmat['kd_ks_normal'] = port_mat
     pm = M.Mesh.combine(pm)
     pm.material = pmat
     mvp, campos = _cameras(2)
