@@ -18,7 +18,10 @@ width and batch 7 on the generated 128 tet grid, with extraction on its
 12,002,256 tets and ``extract --save_viz``; the likelihood on the res64
 model; and the textured fit (the hash-grid neural material under an HDR
 sky with random light rotations, validation renders and the UV-baked
-export) at FitConfig's defaults. Phases, in order:
+export) at FitConfig's defaults; and training on rank meshes, every rank
+a process on this card joined by gloo: res64 at full width on a (2, 2)
+(data, spatial) mesh and res128 on (1, 2), the grid's depth split over the
+spatial axis. Phases, in order:
 
 1. the card: name and power limit, versions; TF32 off for fp32 comparisons;
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
@@ -153,7 +156,34 @@ export) at FitConfig's defaults. Phases, in order:
 20. the same fit with ``learn_light`` in place of the sky, 3 iterations a
     pass; then ``main --mode fit_singleview`` under the sky (10 iterations,
     tile_zmin 1 + 10 + 1);
-21. a JSON line of each path's launches, one JSON line of kernel results
+21. the two modes the spatially sharded U-Net runs, at every distinct conv
+    shape of a res64 forward at PAR_MICRO samples, the depth split over 2 and
+    4 slabs (halos (0, 1), (1, 1), (1, 0)): ``gn_moments`` (the statistics
+    kernel's moments mode) of each slab against its plain version, merged
+    and folded against the unsharded ``gn_affine`` (1e-6 relative to the
+    affine's size); K3's depth-halo mode (``gn_silu_conv3d_halo``) on each
+    slab against its plain version (relative L2 1e-2) and the slabs put
+    together against the unsharded K3; CUDA-event and device times of a
+    slab's call beside the unsharded kernels' at the same shapes, the
+    bounds; per-case rows to ``DIR/kernel_shapes.json``;
+22. res64 at full width on a (2, 2) mesh: 4 processes on this card, gloo
+    (``gpu.dist_backend``), PAR_MICRO samples a data row x iter_size 2. One
+    process runs a step on one seeded global batch and source (dropout 0),
+    then the 4 ranks run it on their shares: rank 0's all-reduced gradient
+    within relative L2 1e-2 of the one process's (bf16), every rank's
+    weights bit-equal after it (a digest of their bytes), K3 only in its
+    halo mode (4 x blocks a micro-batch: both chains, forward and remat
+    recompute); then ``main --mode train`` on the mesh (the preset's dropout,
+    steps 0..PAR_STEPS): s/step by the trainer's log, each rank's peak
+    memory, its launches (2 x blocks halo launches a micro-batch), the
+    gradient all-reduce's own seconds; then two ranks on this card under
+    NCCL, whose device check must raise;
+23. res128 at full width on a (1, 2) mesh (5^3 stem, 2-plane halos): 2
+    processes, micro-batch 1, steps 0..R128_PAR_STEPS, held against one
+    process running the res128 step at micro-batch 1 as phase 22 is, with
+    each rank's peak memory beside the one process's; numbers of 21-23 to
+    ``DIR/parallel.json``;
+24. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
     the statistics also ``library_device_ms``, torch.var_mean's device
@@ -164,6 +194,7 @@ Exits non-zero without a result when CUDA is unavailable or the package is
 not beside this file.
 """
 
+import gc
 import json
 import logging
 import os
@@ -273,9 +304,26 @@ def _window_ms(fn, expected: dict, iters: int = 1):
         ms[n] = (sum(_dev_us(e) for e in hits) / iters / 1000.0
                  if 2 * seen[n] >= iters * expected.get(n, 0) else None)
     total = sum(_dev_us(e) for e in evs) / iters / 1000.0
-    if any(ms[n] is None for n in expected):
+    if any(ms.get(n, 0.0) is None for n in expected):
         total = None
     return total, ms, seen
+
+
+def _window_full(fn, expected: dict, iters: int, tries: int = 3) -> dict:
+    """Device ms a call of ``fn`` by wrapper ({wrapper: launches a call}),
+    from the first of ``tries`` torch.profiler windows that recorded every
+    launch of each (the profiler drops records late in a long run, and a
+    window missing some would read low); None, not measured, for a wrapper
+    that no window recorded in full."""
+    out = {n: None for n in expected}
+    for _ in range(tries):
+        _, ms, seen = _window_ms(fn, expected, iters)
+        for n in expected:
+            if out[n] is None and seen[n] == iters * expected[n]:
+                out[n] = ms[n]
+        if all(v is not None for v in out.values()):
+            break
+    return out
 
 
 def _rel_l2(a, b) -> float:
@@ -555,26 +603,27 @@ TRAIN_MICRO, TRAIN_ITER, TRAIN_STEPS = 12, 4, 3   # phase 12: micro-batch, iter_
 TRAIN_GRIDS, TRAIN_PATHS = 16, 48                 # synthetic grids, meta-list entries
 
 
-def train_data(out_dir: str, mask) -> list:
-    """TRAIN_GRIDS synthetic (4, R, R, R) fp32 grids in the reference's file
+def train_data(out_dir: str, mask, n_grids: int = TRAIN_GRIDS,
+               n_paths: int = TRAIN_PATHS) -> list:
+    """``n_grids`` synthetic (4, R, R, R) fp32 grids in the reference's file
     layout: the SDF channel the sign of a noisy ball of random radius, the
     deforms normal(0, 0.1) zeroed outside the tet grid's ``mask``; and
-    ``meta.json``, a list of TRAIN_PATHS of their paths (each grid three
-    times). Returns the grid paths."""
+    ``meta.json``, a list of ``n_paths`` of their paths (each grid in turn).
+    Returns the grid paths."""
     import numpy as np
     rng = np.random.default_rng(0)
     R = mask.shape[0]
     c = (np.arange(R, dtype=np.float32) - (R - 1) / 2) / R
     dist = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
     paths = []
-    for i in range(TRAIN_GRIDS):
+    for i in range(n_grids):
         g = np.empty((4, R, R, R), np.float32)
         g[0] = np.sign(rng.uniform(0.15, 0.4) - dist + 0.02 * rng.standard_normal(dist.shape))
         g[1:] = 0.1 * rng.standard_normal((3, R, R, R)).astype(np.float32) * mask
         paths.append(os.path.join(out_dir, f'grid_{i:05d}.npy'))
         np.save(paths[-1], g)
     with open(os.path.join(out_dir, 'meta.json'), 'w') as f:
-        json.dump([paths[i % TRAIN_GRIDS] for i in range(TRAIN_PATHS)], f)
+        json.dump([paths[i % n_grids] for i in range(n_paths)], f)
     return paths
 
 
@@ -934,7 +983,7 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
         rel = _rel_l2(y_k, y_p)
         assert torch.isfinite(y_k).all() and y_k.shape == x1.shape and rel <= 1e-2, rel
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 65, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 64, 'tile_zmin': 0}, per_fwd
+                           'gn_silu_conv3d': 64, 'tile_zmin': 0, **NO_SHARDED}, per_fwd
         print(f'res128 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
               f'(bound 1e-2); launches a forward {per_fwd}')
         del model_p, y_k, y_p
@@ -996,7 +1045,7 @@ def uncond128_run(entry, rec, work: str, mask, dev) -> dict:
     peak_gen = torch.cuda.max_memory_allocated()
     n = R128_STEPS
     assert launches == {'ancestral_update': n, 'gn_affine': 65 * n, 'groupnorm_silu': n,
-                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0}, launches
+                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0, **NO_SHARDED}, launches
     assert rec.fields['steps'] == n
     sample_s = rec.fields['sample_s']
     sample = np.load(npy)
@@ -1079,7 +1128,8 @@ def viz128_run(entry, rec, work: str, record, dev) -> dict:
     renders = rec.fields['viz_renders']     # 1, and 1 more a capacity regrowth
     assert not any(rec.fields['viz_overflow'].values()), rec.fields['viz_overflow']
     assert launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': 0, 'tile_zmin': renders} and len(calls) == renders, \
+                        'gn_silu_conv3d': 0, 'tile_zmin': renders, **NO_SHARDED} \
+        and len(calls) == renders, \
         (launches, renders, len(calls))
     v, f = read_obj(objs[0])
     assert len(f) > 1000 and np.isfinite(v).all(), len(f)
@@ -1172,7 +1222,7 @@ def likelihood_run(sample, dev, g) -> dict:
         torch.cuda.synchronize()
         n = ops.launch_counts()
         assert n == {'ancestral_update': 0, 'gn_affine': n_conv, 'groupnorm_silu': 0,
-                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0}, n
+                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0, **NO_SHARDED}, n
         dp, vp = fns['plain'](x, tt, eps)
         rel_d = _rel_l2(dk, dp)
         rel_v = float((vk - vp).abs() / vp.abs())
@@ -1212,7 +1262,8 @@ def likelihood_run(sample, dev, g) -> dict:
     lk_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     assert launches == {'ancestral_update': 0, 'gn_affine': n_conv * nfe, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0}, (launches, nfe)
+                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0, **NO_SHARDED}, \
+        (launches, nfe)
     e0 = 1e-5
     integral = sde.beta_0 * (1 - e0) + (sde.beta_1 - sde.beta_0) * (1 - e0 ** 2) / 2
     n_dim = data[0].size
@@ -1608,7 +1659,8 @@ def textured_phases(entry, rec, record, per_shape, dev) -> dict:
         sv_s = time.perf_counter() - t0
         sv_launches = ops.launch_counts()
         assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + TEX_SV_ITERS + 1}, sv_launches
+                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + TEX_SV_ITERS + 1,
+                               **NO_SHARDED}, sv_launches
         d = torch.load(path)
         assert set(d) == {'sdf', 'deform', 'vis', 'vis_rast'} and d['sdf'].shape == (V,)
         assert 0 < float(d['vis'].sum()) < V and all(
@@ -1620,6 +1672,471 @@ def textured_phases(entry, rec, record, per_shape, dev) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {'launches': launches, 'json': out}
+
+
+# ---- phases 21-23: the sharded kernels' modes, data- and spatial-parallel training ----
+
+# the wrappers that only the spatially sharded U-Net launches: 0 on every one-card path
+NO_SHARDED = {'gn_silu_conv3d_halo': 0, 'gn_moments': 0}
+PAR_MICRO = 2              # phases 21-22: samples a data row a micro-batch
+PAR_STEPS = 3              # phase 22: main --mode train steps 0..PAR_STEPS
+R128_PAR_STEPS = 1         # phase 23: steps 0..R128_PAR_STEPS
+
+
+def parallel_kernels_run(cases, dev, g, record, per_shape) -> dict:
+    """Phase 21: the two modes the sharded U-Net runs, for each of ``cases``
+    (name, {(x shape, dtype, O): calls} of a forward, samples, splits) at
+    every distinct conv shape with that many samples, the depth split over
+    each of the splits (halos (0, 1), (1, 1), (1, 0)): each slab's moments
+    (``gn_moments``) against their plain version, merged and folded against
+    the unsharded ``gn_affine`` (1e-6 relative); each slab's K3 halo call
+    against its plain version (relative L2 1e-2, as phase 3) and the slabs
+    put together against the unsharded K3; CUDA-event and device times of
+    the slabs' calls against the unsharded kernels' at the same shapes, with
+    the bounds."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.ops.gn_silu_conv import gn_silu_conv3d_bound_ms
+    from meshdiffusion_tpu_torch.ops.roofline import bound_ms
+    worst = {'halo_rel': 0.0, 'cat_rel': 0.0, 'ab_err': 0.0, 'moments_err': 0.0}
+    todo = [(name, xs1, xdt, O, nb, splits) for name, conv_calls, nb, splits in cases
+            for xs1, xdt, O in sorted({(xs[1:], xdt, O) for xs, xdt, O in conv_calls},
+                                     key=lambda s: (-s[0][0], s[0][-1], s[2], str(s[1])))]
+    rows = []
+    with torch.inference_mode():
+        for name, xs1, xdt, O, nb, splits in todo:
+            xs, C = (nb,) + xs1, xs1[-1]
+            D = xs[1]
+            x = (torch.randn(xs, device=dev, generator=g) + 0.3).to(xdt)
+            sc = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
+            bi = 0.1 * torch.randn(C, device=dev, generator=g)
+            kern = (torch.randn((3, 3, 3, C, O), device=dev, generator=g)
+                    / (27 * C) ** 0.5).to(torch.bfloat16)
+            packed = ops.pack_conv_weights(kern)
+            cb = 0.1 * torch.randn(O, device=dev, generator=g)
+            full = lambda: ops.gn_silu_conv3d(x, sc, bi, kern, cb, packed=packed)
+            y_full = full()
+            a_full, b_full = ops.gn_affine(x, sc, bi)
+            full_ms = _time_ms(full, 5, 1)
+            full_dev = _window_full(full, {'gn_silu_conv3d': 1, 'gn_affine': 1}, 5)
+            for S in splits:
+                d = D // S
+                slabs = [x[:, s * d:(s + 1) * d].contiguous() for s in range(S)]
+                halos = [(int(s > 0), int(s < S - 1)) for s in range(S)]
+                haloed = [x[:, s * d - lo:(s + 1) * d + hi].contiguous()
+                          for s, (lo, hi) in enumerate(halos)]
+                m = torch.stack([ops.gn_moments(sl) for sl in slabs])
+                m_ref = torch.stack([ops.gn_moments_reference(sl) for sl in slabs])
+                # the moments as (mean, variance): M2 is a sum over up to 2^22 elements
+                n_slab = slabs[0][0].numel() // 32
+                mv, mv_ref = (t / torch.tensor([1.0, n_slab], device=dev) for t in (m, m_ref))
+                m_err = float((mv - mv_ref).abs().max())
+                assert m_err <= 1e-5, (xs, S, m_err)
+                mean, m2, n = ops.merge_moments(m, n_slab)
+                a, b = ops.affine_from_moments(mean, m2, n, sc, bi)
+                # relative to the affine's size (a ~ 1 / std of x): fp32 sums in another order
+                ab_err = max(float((a - a_full).abs().max()), float((b - b_full).abs().max())) \
+                    / max(1.0, float(a_full.abs().max()), float(b_full.abs().max()))
+                assert ab_err <= 1e-6, (xs, S, ab_err)
+                ys, rel = [], 0.0
+                for xh, halo in zip(haloed, halos):
+                    ys.append(ops.gn_silu_conv3d_halo(xh, a, b, kern, cb, halo, packed=packed))
+                    r = ops.gn_silu_conv3d_halo_reference(xh, a, b, kern, cb, halo)
+                    rel = max(rel, _rel_l2(ys[-1], r))
+                    err = float((ys[-1].float() - r.float()).abs().max())
+                cat_rel = _rel_l2(torch.cat(ys, 1), y_full)
+                assert rel <= 1e-2 and cat_rel <= 1e-2 and all(
+                    bool(torch.isfinite(y).all()) for y in ys), (xs, S, rel, cat_rel)
+                worst = {'halo_rel': max(worst['halo_rel'], rel),
+                         'cat_rel': max(worst['cat_rel'], cat_rel),
+                         'ab_err': max(worst['ab_err'], ab_err),
+                         'moments_err': max(worst['moments_err'], m_err)}
+                conv = lambda: [ops.gn_silu_conv3d_halo(xh, a, b, kern, cb, h, packed=packed)
+                                for xh, h in zip(haloed, halos)]
+                moments = lambda: [ops.gn_moments(sl) for sl in slabs]
+                both = lambda: (moments(), conv())
+                h_ms, m_ms = _time_ms(conv, 5, 1) / S, _time_ms(moments, 5, 1) / S
+                dev_ms = _window_full(both, {'gn_silu_conv3d': S, 'gn_affine': S}, 5)
+                h_dev = None if dev_ms['gn_silu_conv3d'] is None else dev_ms['gn_silu_conv3d'] / S
+                m_dev = None if dev_ms['gn_affine'] is None else dev_ms['gn_affine'] / S
+                h_pms = _time_ms(lambda: [ops.gn_silu_conv3d_halo_reference(xh, a, b, kern, cb, h)
+                                          for xh, h in zip(haloed, halos)], 3, 1) / S
+                m_pms = _time_ms(lambda: [ops.gn_moments_reference(sl) for sl in slabs], 3, 1) / S
+                h_bnd = sum(gn_silu_conv3d_bound_ms(xh.shape, xdt, O, h)[0]
+                            for xh, h in zip(haloed, halos)) / S
+                h_by = gn_silu_conv3d_bound_ms(haloed[0].shape, xdt, O, halos[0])[1]
+                m_bnd, m_by = bound_ms(*ops.gn_moments_cost(slabs[0].shape, xdt))
+                m_lms, m_ldms = _var_mean_ms(slabs[0])
+                record('gn_silu_conv3d_halo', err, h_ms, h_pms, h_bnd, h_by)
+                record('gn_moments', m_err, m_ms, m_pms, m_bnd, m_by, m_lms, m_ldms)
+                row = {'model': name, 'x': list(xs), 'dtype': str(xdt)[6:], 'O': O, 'spatial': S,
+                       'slab': [nb, d] + list(xs[2:]), 'halo_rel_l2': rel,
+                       'cat_rel_l2_vs_unsharded': cat_rel, 'ab_err': ab_err,
+                       'halo_ms': h_ms, 'halo_device_ms': h_dev, 'halo_plain_ms': h_pms,
+                       'halo_bound_ms': h_bnd, 'moments_ms': m_ms, 'moments_device_ms': m_dev,
+                       'moments_plain_ms': m_pms, 'moments_bound_ms': m_bnd,
+                       'moments_library_ms': m_lms, 'unsharded_ms': full_ms,
+                       'unsharded_k3_device_ms': full_dev['gn_silu_conv3d'],
+                       'unsharded_stats_device_ms': full_dev['gn_affine']}
+                rows.append(row)
+                per_shape.append({'name': 'sharded_modes', **row})
+                share = '' if h_dev is None else f' ({100 * h_bnd / h_dev:.0f} % of bound)'
+                print(f'K3 halo {name} x{xs} {str(xdt)[6:]} -> {O} over {S} slabs: rel_l2 '
+                      f'{rel:.2e} (slabs together vs unsharded {cat_rel:.2e}), a/b vs gn_affine '
+                      f'{ab_err:.1e}; a slab: halo {h_ms:.4f} ms, device {_ms(h_dev)}{share}, '
+                      f'plain {h_pms:.3f}, bound {h_bnd:.4f}; moments {m_ms:.4f} ms, device '
+                      f'{_ms(m_dev)}, bound {m_bnd:.4f}; unsharded K3 {full_ms:.4f} ms '
+                      f'(device {_ms(full_dev["gn_silu_conv3d"])} + stats '
+                      f'{_ms(full_dev["gn_affine"])})')
+            del x, y_full, slabs, haloed, ys
+    torch.cuda.empty_cache()
+    return {'worst': worst, 'rows': rows}
+
+
+def _train_config(spec: dict, dropout: float):
+    """The preset ``spec['config']`` with ``spec['overrides']`` (``a.b=value``),
+    the global micro-batch, iter_size and ``dropout``."""
+    from meshdiffusion_tpu_torch.config import apply_overrides, get_config
+    cfg = apply_overrides(get_config(spec['config']),
+                          [o.split('=', 1) for o in spec['overrides']])
+    cfg.training.batch_size, cfg.training.iter_size = spec['global_micro'], spec['iter_size']
+    cfg.model.dropout = dropout
+    return cfg
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated() if dev.type == 'cuda' else 0
+
+
+def _step_inputs(spec: dict, dev, mesh=None):
+    """The seeded full-width model (normal(0, 0.02) weights), dropout 0, its
+    TrainState, the global batch of one step (iter_size x the global
+    micro-batch, seeded) with its labels and noise: (state, mask, this rank's
+    batch, its source); the whole batch with ``mesh`` None."""
+    import torch
+    from meshdiffusion_tpu_torch.diffusion import losses
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.parallel import shard_batch
+    cfg = _train_config(spec, 0.0)
+    R = cfg.data.image_size
+    g = torch.Generator(device=dev).manual_seed(7)
+    model = create_model(cfg, dev)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    state = losses.TrainState.create(model, cfg, torch.Generator(device=dev))
+    shape = (spec['iter_size'], spec['global_micro'], R, R, R, 4)
+    x = torch.randn(shape, device=dev, generator=g)
+    x[..., 0] = torch.sign(x[..., 0])
+    labels = torch.randint(0, cfg.model.num_scales, shape[:2], device=dev, generator=g)
+    noise = torch.randn(shape, device=dev, generator=g)
+    mask = torch.ones((1, R, R, R, 1), device=dev)
+    if mesh is None:
+        return state, mask, x, lambda j, s: (labels[j], noise[j])
+    nb = spec['global_micro'] // mesh.data
+    rows = slice(mesh.data_index * nb, (mesh.data_index + 1) * nb)
+    batch = shard_batch(x, mesh, spatial=True, batch_dim=1).contiguous()
+    return state, mask, batch, lambda j, s: (labels[j, rows], noise[j, rows])
+
+
+def _flat_grads(state):
+    import torch
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in state.optimizer.params])
+
+
+def _reference_main(rank: int, spec: dict) -> None:
+    """A process of its own running :func:`reference_step` (so that its
+    memory is the card's again when it exits): its gradient to
+    ``spec['dir']/ref_grad.pt``, the rest to ``ref.json``."""
+    import torch
+    dev = torch.device(spec['device'])
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = reference_step(spec, dev)
+    torch.save(ref.pop('grad'), os.path.join(spec['dir'], 'ref_grad.pt'))
+    with open(os.path.join(spec['dir'], 'ref.json'), 'w') as f:
+        json.dump(ref, f)
+
+
+def reference_step(spec: dict, dev) -> dict:
+    """One process running the step of :func:`_step_inputs` on the whole
+    batch: its gradient (fp32, on the host), loss, seconds and peak memory."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.diffusion import losses
+    from meshdiffusion_tpu_torch.diffusion.vpsde import VPSDE
+    cfg = _train_config(spec, 0.0)
+    state, mask, batch, source = _step_inputs(spec, dev)
+    step = losses.make_train_step(VPSDE(beta_min=cfg.model.beta_min, beta_max=cfg.model.beta_max,
+                                        N=cfg.model.num_scales), mask)
+    kept, opt_step = {}, state.optimizer.step
+
+    def keep(n):
+        kept['grad'] = _flat_grads(state).cpu()
+        return opt_step(n)
+    state.optimizer.step = keep
+    _reset_peak(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(state, batch, source)
+    _sync(dev)
+    res = {'grad': kept['grad'], 'loss': float(out['loss']), 's': time.perf_counter() - t0,
+           'peak': _peak(dev), 'launches': ops.launch_counts()}
+    _release(state)
+    del state, batch, out
+    gc.collect()
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    return res
+
+
+def _release(state) -> None:
+    """Undo the optimizer-step wrapper (it and the bound step it wraps form
+    a reference cycle that would keep the model and its Adam state alive)."""
+    del state.optimizer.step
+
+
+def _rank_main(rank: int, spec: dict) -> None:
+    """One rank of phases 22-23, a process on ``spec['device']`` (cuda:0)
+    joined to the others by gloo: the step of :func:`_step_inputs` on this rank's share (its
+    all-reduced gradient written by rank 0, a digest of its weights after
+    the step), then ``main --mode train`` on the mesh, the trainer's log,
+    launch counts, peak memory and the gradient all-reduce's seconds kept;
+    its numbers to ``spec['dir']/rank{rank}.json``."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.diffusion import losses
+    from meshdiffusion_tpu_torch.diffusion.vpsde import VPSDE
+    from meshdiffusion_tpu_torch.main import main as port_main
+    from meshdiffusion_tpu_torch.parallel import distributed, make_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logging.getLogger().addHandler(logging.NullHandler())    # the records, not the log lines
+    logging.getLogger().setLevel(logging.INFO)
+    rec = _Records()
+    logging.getLogger('meshdiffusion_tpu_torch').addHandler(rec)
+    dev = torch.device(spec['device'])
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    assert distributed.maybe_initialize('gloo', f'localhost:{spec["port"]}', spec['world'], rank)
+    out = {'rank': rank}
+    # the gradient all-reduce's own seconds (the host waits for the card on both sides)
+    ar_s, all_reduce = [], losses.all_reduce_grads
+
+    def timed_all_reduce(params, mesh):
+        _sync(dev)
+        t0 = time.perf_counter()
+        all_reduce(params, mesh)
+        _sync(dev)
+        ar_s.append(time.perf_counter() - t0)
+    losses.all_reduce_grads = timed_all_reduce
+
+    # one step on this rank's share of the global batch
+    mesh = make_mesh(spec['data'], spec['spatial'])
+    cfg = _train_config(spec, 0.0)
+    state, mask, batch, source = _step_inputs(spec, dev, mesh)
+    step = losses.make_train_step(VPSDE(beta_min=cfg.model.beta_min, beta_max=cfg.model.beta_max,
+                                        N=cfg.model.num_scales), mask, mesh=mesh)
+    kept, opt_step = {}, state.optimizer.step
+
+    def keep(n):
+        if rank == 0:
+            kept['grad'] = _flat_grads(state).cpu()
+        return opt_step(n)
+    state.optimizer.step = keep
+    _reset_peak(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = step(state, batch, source)
+    _sync(dev)
+    out['step'] = {'s': time.perf_counter() - t0, 'loss': float(res['loss']),
+                   'peak': _peak(dev), 'launches': ops.launch_counts(), 'all_reduce_s': ar_s[-1]}
+    digest = hashlib.sha256()
+    for p in state.model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out['digest'] = digest.hexdigest()
+    if rank == 0:
+        torch.save(kept['grad'], os.path.join(spec['dir'], 'grad.pt'))
+    _release(state)
+    del state, batch, res, kept
+    gc.collect()
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+
+    # main --mode train on the mesh (the preset's dropout)
+    run_dir = os.path.join(spec['dir'], 'run')
+    _reset_peak(dev)
+    ops.reset_launch_counts()
+    ar_s.clear()
+    port_main(['--config', spec['config'], '--mode', 'train', '--device', spec['device'],
+               f'--config.data.meta_path={spec["meta"]}',
+               f'--config.data.grid_mask_path={spec["mask"]}', '--config.data.num_workers=4',
+               f'--config.training.batch_size={spec["global_micro"]}',
+               f'--config.training.iter_size={spec["iter_size"]}',
+               f'--config.training.n_iters={spec["steps"]}',
+               f'--config.training.log_freq={spec["steps"]}',
+               f'--config.training.snapshot_freq_for_preemption={10 ** 6}',
+               f'--config.training.train_dir={run_dir}', '--config.gpu.dist_backend=gloo',
+               f'--config.gpu.mesh_data_axis={spec["data"]}',
+               f'--config.gpu.mesh_spatial_axis={spec["spatial"]}']
+              + [f'--config.{o}' for o in spec['overrides']])
+    _sync(dev)
+    out['train'] = {'logs': rec.train_logs, 'launches': ops.launch_counts(),
+                    'peak': _peak(dev), 'all_reduce_s': list(ar_s)}
+    with open(os.path.join(spec['dir'], f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _spawn(target, args: tuple, n: int, timeout_s: float) -> None:
+    """``n`` processes of ``target(rank, *args)`` (torch.multiprocessing,
+    spawn; the parent has built the kernels, so none builds); the first to
+    fail, or the time limit, kills them all and raises."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=target, args=(r,) + args) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout_s
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            if bad or time.time() > deadline:
+                raise RuntimeError(f'ranks {bad} failed (exit codes '
+                                   f'{[p.exitcode for p in procs]}) or the time limit passed')
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * len(procs), codes
+
+
+def spawn_ranks(spec: dict, timeout_s: float) -> list:
+    """``spec['world']`` ranks of :func:`_rank_main` on this card: their
+    numbers by rank."""
+    spec = dict(spec, port=_free_port())
+    _spawn(_rank_main, (spec,), spec['world'], timeout_s)
+    out = []
+    for r in range(spec['world']):
+        with open(os.path.join(spec['dir'], f'rank{r}.json')) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _nccl_rank(rank: int, port: int, out: str) -> None:
+    """Two ranks on cuda:0 under the nccl backend: the trainer's device check
+    (``distributed.check_devices``) must raise; what it did to ``out.{rank}``."""
+    import torch
+    import torch.distributed as dist
+    from meshdiffusion_tpu_torch.parallel import distributed
+    torch.cuda.set_device(0)
+    distributed.maybe_initialize('nccl', f'localhost:{port}', 2, rank)
+    try:
+        distributed.check_devices(torch.device('cuda', 0))
+        msg = 'did not raise'
+    except RuntimeError as e:      # the error this check is for, kept for the parent to read
+        msg = f'raised: {e}'
+    with open(f'{out}.{rank}', 'w') as f:
+        f.write(msg)
+    dist.destroy_process_group()
+
+
+def nccl_shared_card_check(tmp: str) -> str:
+    """NCCL with two ranks on one card raises, and nothing falls back to
+    another backend: both ranks' messages, each 'raised: ...'."""
+    out = os.path.join(tmp, 'nccl')
+    _spawn(_nccl_rank, (_free_port(), out), 2, 120)
+    msgs = []
+    for r in range(2):
+        with open(f'{out}.{r}') as f:
+            msgs.append(f.read())
+    assert all(m.startswith('raised: NCCL with several ranks on one card') for m in msgs), msgs
+    return msgs[0]
+
+
+def parallel_train_run(spec: dict, dev, timeout_s: float) -> dict:
+    """Phases 22 and 23: one process's step (:func:`reference_step`), then
+    the ranks (:func:`spawn_ranks`): rank 0's all-reduced gradient against
+    the one process's (relative L2 1e-2, bf16), every rank's weights
+    bit-equal after the step, and ``main --mode train`` on the mesh with its
+    s/step, launches a rank and peak memory."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch.models import get_model
+    from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
+    cfg = _train_config(spec, 0.0)
+    with torch.device('meta'):
+        blocks = sum(isinstance(m, ResnetBlockDDPM)
+                     for m in get_model(cfg.model.name).from_config(cfg).modules())
+    rank_dev = torch.device('cuda', dev.index or 0) if dev.type == 'cuda' else dev
+    spec = dict(spec, device=str(rank_dev))
+    _spawn(_reference_main, (spec,), 1, timeout_s)
+    with open(os.path.join(spec['dir'], 'ref.json')) as f:
+        ref = json.load(f)
+    ranks = spawn_ranks(spec, timeout_s)
+    grad = torch.load(os.path.join(spec['dir'], 'grad.pt'))
+    rel = _rel_l2(grad, torch.load(os.path.join(spec['dir'], 'ref_grad.pt')))
+    digests = {r['digest'] for r in ranks}
+    assert rel <= 1e-2 and np.isfinite(ranks[0]['step']['loss']), (rel, ranks[0]['step'])
+    assert len(digests) == 1, 'the ranks\' weights differ after the step'
+    loss_rel = abs(ranks[0]['step']['loss'] - ref['loss']) / abs(ref['loss'])
+    micro = (spec['steps'] + 1) * spec['iter_size']
+    for r in ranks:
+        logs = r['train']['logs']
+        assert [lg[0] for lg in logs] == [0, spec['steps']] and \
+            all(np.isfinite(lg[1]) for lg in logs), logs
+        # chain 0 of every block through K3's halo mode, forward and remat
+        # recompute (chain 1 runs plain under dropout); both chains at dropout 0
+        n, n1 = r['train']['launches'], r['step']['launches']
+        assert n['gn_silu_conv3d'] == n['gn_affine'] == n1['gn_silu_conv3d'] == 0, (n, n1)
+        assert n['gn_silu_conv3d_halo'] == 2 * blocks * micro and n['gn_moments'] > 0, n
+        assert n1['gn_silu_conv3d_halo'] == 4 * blocks * spec['iter_size'], n1
+    logs = ranks[0]['train']['logs']
+    launches = {k: sum(r['train']['launches'][k] for r in ranks)
+                for k in ranks[0]['train']['launches']}
+    return {'grad_rel_l2': rel, 'loss': ranks[0]['step']['loss'], 'loss_ref': ref['loss'],
+            'loss_rel_err': loss_rel, 'ref_step_s': ref['s'], 'ref_peak': ref['peak'],
+            'step_s': [r['step']['s'] for r in ranks],
+            'step_peak': [r['step']['peak'] for r in ranks],
+            'step_launches_rank0': ranks[0]['step']['launches'],
+            'step_all_reduce_s': [r['step']['all_reduce_s'] for r in ranks],
+            'warm_step_s': logs[0][2], 's_per_step': logs[-1][2] / logs[-1][3],
+            'train_peak': [r['train']['peak'] for r in ranks],
+            'train_all_reduce_s': [r['train']['all_reduce_s'] for r in ranks],
+            'launches_rank0_per_micro': {k: v / micro for k, v in
+                                         ranks[0]['train']['launches'].items()},
+            'launches': launches, 'card': _smi()}
 
 
 def main() -> int:
@@ -1793,7 +2310,7 @@ def main() -> int:
         assert torch.isfinite(y_k).all() and y_k.shape == x_in.shape
         assert rel <= 1e-2, rel
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 75, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 74, 'tile_zmin': 0}, per_fwd
+                           'gn_silu_conv3d': 74, 'tile_zmin': 0, **NO_SHARDED}, per_fwd
         fwd = {'kernels': [], 'plain': []}
         for which in ('plain', 'kernels', 'kernels', 'plain'):
             m = model_k if which == 'kernels' else model_p
@@ -1839,7 +2356,7 @@ def main() -> int:
               f'{1000 * sample_s / steps:.2f} ms per U-Net step; launches {launches}')
         assert launches == {'ancestral_update': steps, 'gn_affine': 75 * steps,
                             'groupnorm_silu': steps, 'gn_silu_conv3d': 74 * steps,
-                            'tile_zmin': 0}, launches
+                            'tile_zmin': 0, **NO_SHARDED}, launches
         sample = np.load(npy)
         m = mask[0, ..., 0].cpu().numpy()
         assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
@@ -1931,7 +2448,8 @@ def main() -> int:
         steps_run = sum(p[2] for p in passes)
         expect = FIT_POOL + steps_run         # one launch a render: GT pool + fit steps
         assert fit_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                                'gn_silu_conv3d': 0, 'tile_zmin': expect}, (fit_launches, expect)
+                                'gn_silu_conv3d': 0, 'tile_zmin': expect, **NO_SHARDED}, \
+            (fit_launches, expect)
         V = TetGrid.load(64).num_verts
         fitted = os.path.join(keep, os.path.basename(written[0]['tets']))
         shutil.copy(written[0]['tets'], fitted)        # phase 13 converts it
@@ -1957,7 +2475,8 @@ def main() -> int:
         sv_launches = ops.launch_counts()
         # one launch a render: the GT target, every step, the visibility render
         assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + SV_ITERS + 1}, sv_launches
+                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + SV_ITERS + 1,
+                               **NO_SHARDED}, sv_launches
         n_it, sv_s, sv_over = rec.fields['singleview_fit']
         assert n_it == SV_ITERS and len(one_layer) == 1, (n_it, len(one_layer))
         zargs, (kt, kz) = one_layer[0]
@@ -2037,7 +2556,7 @@ def main() -> int:
         cond_launches = ops.launch_counts()
         assert cond_launches == {'ancestral_update': COND_STEPS, 'gn_affine': 75 * COND_STEPS,
                                  'groupnorm_silu': COND_STEPS, 'gn_silu_conv3d': 74 * COND_STEPS,
-                                 'tile_zmin': 0}, cond_launches
+                                 'tile_zmin': 0, **NO_SHARDED}, cond_launches
         cond_s = rec.fields['sample_s']
         sample = np.load(npy)
         m = mask[0, ..., 0].cpu().numpy()
@@ -2067,7 +2586,7 @@ def main() -> int:
         fwd = 99                                 # 100 quad-schedule times, 99 pairs
         assert interp_launches == {'ancestral_update': 0, 'gn_affine': 75 * fwd,
                                    'groupnorm_silu': fwd, 'gn_silu_conv3d': 74 * fwd,
-                                   'tile_zmin': 0}, interp_launches
+                                   'tile_zmin': 0, **NO_SHARDED}, interp_launches
         interp_s = rec.fields['sample_s']
         sample = np.load(npy)
         assert sample.shape == (2, 4, R, R, R) and np.isfinite(sample).all()
@@ -2091,7 +2610,7 @@ def main() -> int:
         n_micro = (TRAIN_STEPS + 1) * TRAIN_ITER
         assert train_launches == {'ancestral_update': 0, 'gn_affine': 74 * n_micro,
                                   'groupnorm_silu': 0, 'gn_silu_conv3d': 74 * n_micro,
-                                  'tile_zmin': 0}, train_launches
+                                  'tile_zmin': 0, **NO_SHARDED}, train_launches
         assert [t['step'] for t in tsteps] == list(range(TRAIN_STEPS + 1)), tsteps
         assert tsteps[0]['unchanged'] is True, 'step 0 moved the weights (lr 0 under warm-up)'
         model = state.model
@@ -2278,7 +2797,79 @@ def main() -> int:
     with open(os.path.join(out_dir, 'textured.json'), 'w') as f:
         json.dump({**tex['json'], 'card': _smi()}, f, indent=1)
 
-    # ---- 21. results ----
+    # ---- 21. the sharded modes of K3 and the statistics against their plain versions ----
+    # at the shapes of phases 22 (res64, PAR_MICRO samples a rank, 2 and 4
+    # slabs) and 23 (res128, 1 sample, 2 slabs), res128's captured on the meta device
+    cfg128 = get_config('res128')
+    with torch.device('meta'):
+        model128 = get_model(cfg128.model.name).from_config(cfg128, kernels=False).eval()
+        conv_calls128, _ = capture_conv_shapes(
+            model128, torch.empty((1, R128, R128, R128, 4)), torch.full((1,), 500.0),
+            torch.empty((1, R128, R128, R128, 1)))
+    par_k = parallel_kernels_run([('res64', conv_calls, PAR_MICRO, (2, 4)),
+                                  ('res128', conv_calls128, 1, (2,))], dev, g, record, per_shape)
+    print(f'sharded modes at {len(par_k["rows"])} (shape, split) cases: K3 halo rel_l2 <= '
+          f'{par_k["worst"]["halo_rel"]:.2e}, slabs together vs unsharded <= '
+          f'{par_k["worst"]["cat_rel"]:.2e}, merged a/b vs gn_affine <= '
+          f'{par_k["worst"]["ab_err"]:.1e}, moments vs plain <= '
+          f'{par_k["worst"]["moments_err"]:.1e}')
+
+    # ---- 22-23. training on rank meshes: every rank a process on this card, gloo ----
+    # the ranks share the card with this process: drop the tet grids' device
+    # tables it caches (the 128 grid's hold over a GiB), and let the ranks'
+    # allocator grow its segments in place
+    TetGrid.load.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ.setdefault('PYTORCH_CUDA_ALLOC_CONF', 'expandable_segments:True')
+    print(f'before the ranks: this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB '
+          f'({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved)')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_par_')
+    par = {}
+    try:
+        mask64 = TetGrid.load(R).grid_mask()
+        d64 = os.path.join(tmp, 'data64')
+        os.makedirs(d64)
+        train_data(d64, mask64)
+        np.save(os.path.join(d64, 'mask.npy'), mask64)
+        d128 = os.path.join(tmp, 'data128')
+        os.makedirs(d128)
+        mask128 = np.ones((R128,) * 3, np.float32)
+        train_data(d128, mask128, n_grids=2, n_paths=2)
+        np.save(os.path.join(d128, 'mask.npy'), mask128)
+        cases = (('res64 (2, 2)', {'config': 'res64', 'world': 4, 'data': 2, 'spatial': 2,
+                                   'global_micro': 2 * PAR_MICRO, 'iter_size': 2,
+                                   'steps': PAR_STEPS, 'data_dir': d64, 'overrides': []}),
+                 ('res128 (1, 2)', {'config': 'res128', 'world': 2, 'data': 1, 'spatial': 2,
+                                    'global_micro': 1, 'iter_size': 1, 'steps': R128_PAR_STEPS,
+                                    'data_dir': d128, 'overrides': []}))
+        for name, spec in cases:
+            spec.update(meta=os.path.join(spec['data_dir'], 'meta.json'),
+                        mask=os.path.join(spec['data_dir'], 'mask.npy'),
+                        dir=os.path.join(tmp, spec['config']))
+            os.makedirs(spec['dir'])
+            res = par[name] = parallel_train_run(spec, dev, 900)
+            gib = lambda b: f'{b / 2 ** 30:.2f}'
+            print(f'train {name}, {spec["world"]} ranks on one card (gloo), micro-batch '
+                  f'{spec["global_micro"] // spec["data"]} a data row x iter_size '
+                  f'{spec["iter_size"]}: the step on one global batch, all-reduced gradient vs '
+                  f'one process rel_l2 {res["grad_rel_l2"]:.3e} (bound 1e-2), loss '
+                  f'{res["loss"]:.6f} vs {res["loss_ref"]:.6f}; weights bit-equal on every rank; '
+                  f'peak a rank {[gib(b) for b in res["step_peak"]]} GiB vs one process '
+                  f'{gib(res["ref_peak"])} GiB; main --mode train steps 0-{spec["steps"]}: '
+                  f'{res["s_per_step"]:.3f} s a step by the trainer\'s log (step 0 '
+                  f'{res["warm_step_s"]:.2f} s), peak a rank {[gib(b) for b in res["train_peak"]]} '
+                  f'GiB, gradient all-reduce {[round(t, 3) for t in res["train_all_reduce_s"][0]]} '
+                  f's (rank 0); launches a rank a micro-batch {res["launches_rank0_per_micro"]}')
+        nccl = nccl_shared_card_check(tmp)
+        print(f'nccl, two ranks on one card: {nccl}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(os.path.join(out_dir, 'parallel.json'), 'w') as f:
+        json.dump({'kernels': par_k, 'train': par, 'nccl_shared_card': nccl, 'card': _smi()}, f,
+                  indent=1)
+
+    # ---- 24. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
     meta = {
@@ -2292,12 +2883,17 @@ def main() -> int:
                            'meshdiffusion_tpu/ops/gn_silu_conv.py:142'),
         'tile_zmin': ('cuda', 'meshdiffusion_tpu_torch/csrc/tile_zmin.cu',
                       'meshdiffusion_tpu/ops/tile_raster.py:126'),
+        'gn_silu_conv3d_halo': ('cuda', 'meshdiffusion_tpu_torch/csrc/gn_silu_conv3d.cu',
+                                'meshdiffusion_tpu/ops/gn_silu_conv.py:142'),
+        'gn_moments': ('cuda', 'meshdiffusion_tpu_torch/csrc/gn_stats.cu',
+                       'meshdiffusion_tpu/ops/groupnorm.py:94'),
     }
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
                'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,
                'train': train_launches, 'uncond_gen_res128': uncond128_launches,
                'extract_viz': viz_launches, 'likelihood': likelihood_launches,
-               **tex['launches']}
+               **tex['launches'], 'train_res64_2x2': par['res64 (2, 2)']['launches'],
+               'train_res128_1x2': par['res128 (1, 2)']['launches']}
     print(json.dumps({'launches_by_path': by_path}))
     path_launches = {n: sum(p[n] for p in by_path.values()) for n in launches}
     # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted
@@ -2305,9 +2901,11 @@ def main() -> int:
     assert fit_launches['tile_zmin'] % (FIT_POOL + steps_run) == 0, (fit_launches, steps_run)
     per_step = dict(per_fwd, ancestral_update=launches['ancestral_update'] // steps,
                     tile_zmin=fit_launches['tile_zmin'] // (FIT_POOL + steps_run))
+    # the sharded modes: a rank's launches a res64 training micro-batch on the (2, 2) mesh
+    per_step.update({n: par['res64 (2, 2)']['launches_rank0_per_micro'][n] for n in NO_SHARDED})
     kernels = [{'name': n, 'route': route, 'source': src, 'replaces': rep,
                 'launches': path_launches[n], 'launches_per_forward': per_step[n],
-                'device_ms_per_forward': per_fwd_dev[n] or None, **results[n]}
+                'device_ms_per_forward': per_fwd_dev.get(n) or None, **results[n]}
                for n, (route, src, rep) in meta.items()]
     assert all(k['launches'] > 0 for k in kernels)
     print(json.dumps({'kernels': kernels}))

@@ -72,7 +72,11 @@ def get_default_config() -> Config:
 
     config.gpu = Config(
         compute_dtype='bfloat16',  # conv/matmul compute dtype
-        tet_root="")               # dir holding {R}_tets_cropped.npz; '' -> bundled
+        tet_root="",               # dir holding {R}_tets_cropped.npz; '' -> bundled
+        mesh_data_axis=-1,         # ranks along the batch; -1: every rank left
+        mesh_spatial_axis=1,       # ranks along the grid's depth
+        allow_device_idle=False,   # shrink the data axis to a divisor of the batch
+        dist_backend='nccl')       # 'gloo' on the CPU and where ranks share a card
     return config
 
 

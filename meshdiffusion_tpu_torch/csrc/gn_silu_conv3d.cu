@@ -59,6 +59,15 @@
 //   written while a group is in flight. The two consumer warpgroups overlap
 //   instead: one's ldmatrix and waits run under the other's products.
 //
+// * depth-halo mode (lo, hi planes, each 0 or 1): for a rank that holds one
+//   depth slab of the grid. The input holds D + lo + hi planes, the slab's
+//   own D with its neighbours' boundary planes before and after it, and the
+//   kernel writes the D planes of the slab. The brick builder reads output
+//   tap plane dd (-1 .. D) from input plane dd + lo, and treats it as inside
+//   the volume iff -lo <= dd < D + hi: zero padding applies only where the
+//   slab meets the grid's ends, and the halo planes are normalised with the
+//   same (whole-grid) a and b as the rest. lo = hi = 0 is the SAME conv.
+//
 // What holds it now, at 64^3 about half of the tensor-core peak: the brick,
 // the weight ring's turnaround and the per-tap synchronization each take
 // about as long as the products and overlap them only in part.
@@ -86,7 +95,8 @@ constexpr int PRODUCER_REGS = 72;     // 128 * 72 + 256 * 216 = 384 * 168
 constexpr int CONSUMER_REGS = 216;
 
 struct Params {
-    int B, D, H, W, C, O;
+    int B, D, H, W, C, O;             // D: output planes
+    int Din, lo, hi;                  // input planes D + lo + hi: lo before the output's first
     int TD, TH, TW;                   // output tile
     int ntd, nth, ntw, tiles;         // tiles a sample, over every sample
     int NB, CK, KS;                   // N blocks, 64-channel chunks, KS = 27 * CK k-steps
@@ -345,9 +355,10 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
                         int bw = v0 % BW, bh = (v0 / BW) % BH, bd = v0 / (BW * BH);
                         for (int v = v0, i = 0; v < brick_vox; v += VSTEP, ++i) {
                             const int dd = it.d0 + bd - 1, hh = it.h0 + bh - 1, ww = it.w0 + bw - 1;
-                            const bool in = live && dd >= 0 && dd < p.D && hh >= 0 && hh < p.H
-                                            && ww >= 0 && ww < p.W;
-                            const bf16* src = in ? x + ((((size_t)it.b * p.D + dd) * p.H + hh) * p.W + ww) * p.C + c : x;
+                            const bool in = live && dd >= -p.lo && dd < p.D + p.hi && hh >= 0
+                                            && hh < p.H && ww >= 0 && ww < p.W;
+                            const bf16* src = in ? x + ((((size_t)it.b * p.Din + dd + p.lo) * p.H + hh)
+                                                        * p.W + ww) * p.C + c : x;
                             cp_async16(brick_s + v * ROW_BYTES + ((q8 ^ (v & 7)) << 4), src, in ? 16 : 0);
                             inside |= (uint64_t)in << i;
                             for (bw += VSTEP; bw >= BW;) {
@@ -548,21 +559,24 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* w, c
 
 }  // namespace
 
-// x (B, D, H, W, C) bf16; a, b (B, C) fp32; w the packed
+// x (B, D + lo + hi, H, W, C) bf16; a, b (B, C) fp32; w the packed
 // weights (NB, CK, 27, BN, 64) bf16 in the swizzled image; bias (O,) fp32;
 // out (B, D, H, W, O) bf16; partial (splits, M, O) fp32 scratch when
 // splits > 1. tiling: 0 = 256 voxels x 128 channels, 1 = 128 x 256,
-// 2 = 64 x 256; (TD, TH, TW) the output tile; grid the persistent block count.
+// 2 = 64 x 256; (TD, TH, TW) the output tile; grid the persistent block count;
+// lo, hi the depth halo (0 0: the SAME conv over D planes).
 extern "C" int gn_silu_conv3d_bf16(const void* x, const void* a,
                                    const void* b, const void* w, const void* bias,
                                    void* out, void* partial, int B, int D, int H, int W,
                                    int C, int O, int tiling, int TD, int TH, int TW,
-                                   int splits, int grid, void* stream)
+                                   int splits, int grid, int lo, int hi, void* stream)
 {
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const int BN = tiling == 0 ? 128 : 256;
+    if (lo < 0 || lo > 1 || hi < 0 || hi > 1) return (int)cudaErrorInvalidValue;
     Params p;
     p.B = B; p.D = D; p.H = H; p.W = W; p.C = C; p.O = O;
+    p.Din = D + lo + hi; p.lo = lo; p.hi = hi;
     p.TD = TD; p.TH = TH; p.TW = TW;
     p.ntd = (D + TD - 1) / TD; p.nth = (H + TH - 1) / TH; p.ntw = (W + TW - 1) / TW;
     p.tiles = B * p.ntd * p.nth * p.ntw;

@@ -32,6 +32,15 @@
 // on which block finishes last, so it is deterministic, needs no memset, and
 // takes one launch. CUDA and not Triton:
 // the last-block merge needs an explicit fence and ticket.
+//
+// Moments mode (given an output `moments` (B, G, 2)): the same passes, but
+// the merged fp32 (mean, M2) of each (sample, group) is written instead of
+// a and b: M2 the sum of squared deviations from the mean over the
+// (sample, group)'s S * C / G elements. A rank that holds one depth slab
+// of a grid computes its slab's moments so; the slabs' moments are then
+// merged across ranks (ops/groupnorm.py merge_moments) and folded into a
+// and b (affine_from_moments), so that every slab is normalised with the
+// whole grid's statistics.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -104,7 +113,8 @@ __global__ void __launch_bounds__(THREADS)
 gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                 const float* __restrict__ bias, float* __restrict__ ga, float* __restrict__ gb,
                 float* __restrict__ work, unsigned int* __restrict__ ticket,
-                __nv_bfloat16* __restrict__ xb, int S, int C, int G, int CC, int R, float eps)
+                __nv_bfloat16* __restrict__ xb, float* __restrict__ moments, int S, int C, int G,
+                int CC, int R, float eps)
 {
     __shared__ float s_mean[2048], s_m2[2048];   // (row lane, channel): RP * CC <= 2048
     __shared__ float s_n[THREADS];
@@ -193,7 +203,10 @@ gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
             m2 += s_m2[c0 + c] + rows * d * d;
         }
         const int g = cc * groups + tid;
-        if (NBr == 1) {
+        if (NBr == 1 && moments != nullptr) {
+            moments[((size_t)b * G + g) * 2] = mean;
+            moments[((size_t)b * G + g) * 2 + 1] = m2;
+        } else if (NBr == 1) {
             s_gmean[tid] = mean;
             s_grstd[tid] = 1.0f / sqrtf(m2 / (rows * gw) + eps);
         } else {
@@ -203,6 +216,7 @@ gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
         }
     }
     if (NBr == 1) {           // one block covers these channels: a and b, a thread a channel
+        if (moments != nullptr) return;
         __syncthreads();
         if (tid < CC) write_affine(scale, bias, ga, gb, b, C, cc * CC + tid, s_gmean[tid / gw], s_grstd[tid / gw]);
         return;
@@ -250,12 +264,16 @@ gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
         if (slice == 0 && pair < P) {
             for (int sl = 1; sl < ks; ++sl)
                 chan(n, mean, m2, s_n[sl * npr + pl], s_mean[sl * npr + pl], s_m2[sl * npr + pl]);
+            if (moments != nullptr) {
+                moments[(size_t)pair * 2] = mean;
+                moments[(size_t)pair * 2 + 1] = m2;
+            }
             s_gmean[pl] = mean;
             s_grstd[pl] = 1.0f / sqrtf(m2 / n + eps);
         }
         __syncthreads();
         // a and b of the round's pairs' channels, a thread a channel
-        const int np = min(npr, P - base);
+        const int np = moments != nullptr ? 0 : min(npr, P - base);
         for (int i = tid; i < np * gw; i += THREADS) {
             const int q = base + i / gw;
             write_affine(scale, bias, ga, gb, q / G, C, (q % G) * gw + i % gw, s_gmean[i / gw], s_grstd[i / gw]);
@@ -267,14 +285,15 @@ gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
 template <typename T>
 cudaError_t launch(const void* x, const void* scale, const void* bias, void* a, void* b,
-                   void* work, void* ticket, void* xb, int B, int S, int C, int G, int CC,
-                   int R, float eps, cudaStream_t s)
+                   void* work, void* ticket, void* xb, void* moments, int B, int S, int C, int G,
+                   int CC, int R, float eps, cudaStream_t s)
 {
     const dim3 grid((unsigned)((S + R - 1) / R), (unsigned)(C / CC), (unsigned)B);
     gn_stats_kernel<T><<<grid, THREADS, 0, s>>>(
         static_cast<const T*>(x), static_cast<const float*>(scale), static_cast<const float*>(bias),
         static_cast<float*>(a), static_cast<float*>(b), static_cast<float*>(work),
-        static_cast<unsigned int*>(ticket), static_cast<__nv_bfloat16*>(xb), S, C, G, CC, R, eps);
+        static_cast<unsigned int*>(ticket), static_cast<__nv_bfloat16*>(xb),
+        static_cast<float*>(moments), S, C, G, CC, R, eps);
     return cudaGetLastError();
 }
 
@@ -284,18 +303,20 @@ cudaError_t launch(const void* x, const void* scale, const void* bias, void* a, 
 // fp32; a, b (B, C) fp32 out; work (B, ceil(S / R), G, 2) fp32 scratch and
 // ticket one uint32 that is 0 between launches (both unused when R >= S);
 // xb (B, S, C) bf16, x rounded, written when not null (fp32 x only).
+// moments (B, G, 2) fp32 (mean, M2): when not null, written in the place of
+// a and b (scale, bias, a and b then unused, and may be null).
 // CC: channels a block (a multiple of 8 and of C / G, dividing C, at most
 // 256); R: rows a block.
 extern "C" int gn_stats(const void* x, int dtype, const void* scale, const void* bias, void* a,
-                        void* b, void* work, void* ticket, void* xb, int B, int S, int C, int G,
-                        int CC, int R, float eps, void* stream)
+                        void* b, void* work, void* ticket, void* xb, void* moments, int B, int S,
+                        int C, int G, int CC, int R, float eps, void* stream)
 {
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     if (xb != nullptr && dtype != 0) return (int)cudaErrorInvalidValue;
     switch (dtype) {
-    case 0: return (int)launch<float>(x, scale, bias, a, b, work, ticket, xb, B, S, C, G, CC, R, eps, s);
-    case 1: return (int)launch<__nv_bfloat16>(x, scale, bias, a, b, work, ticket, xb, B, S, C, G, CC, R, eps, s);
-    case 2: return (int)launch<__half>(x, scale, bias, a, b, work, ticket, xb, B, S, C, G, CC, R, eps, s);
+    case 0: return (int)launch<float>(x, scale, bias, a, b, work, ticket, xb, moments, B, S, C, G, CC, R, eps, s);
+    case 1: return (int)launch<__nv_bfloat16>(x, scale, bias, a, b, work, ticket, xb, moments, B, S, C, G, CC, R, eps, s);
+    case 2: return (int)launch<__half>(x, scale, bias, a, b, work, ticket, xb, moments, B, S, C, G, CC, R, eps, s);
     default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -71,7 +71,13 @@ class ShapeNetDMTetDataset:
     def __len__(self) -> int:
         return len(self.fpath_list)
 
-    def __getitem__(self, idx: int) -> np.ndarray:
+    def draw_jitter(self) -> np.ndarray:
+        """The next sample's deform jitter, uniform(-0.5, 0.5) a channel."""
+        with self._rng_lock:
+            return self._rng.random(3, dtype=np.float32) - 0.5
+
+    def __getitem__(self, idx: int, jitter: Optional[np.ndarray] = None) -> np.ndarray:
+        """Sample ``idx``, augmented with ``jitter`` (drawn here when None)."""
         datum = _load_grid(self.fpath_list[idx])       # (4, r, r, r)
         r = datum.shape[-1]
         if self.normalize_sdf:
@@ -82,8 +88,8 @@ class ShapeNetDMTetDataset:
             # global +-0.005 deform jitter on nonempty cells
             # (reference shapenet_dmtet_dataset.py:42-44)
             nonempty = (np.abs(datum[1:]).sum(axis=0, keepdims=True) != 0)
-            with self._rng_lock:
-                jitter = (self._rng.random(3, dtype=np.float32) - 0.5)
+            if jitter is None:
+                jitter = self.draw_jitter()
             datum[1:] = datum[1:] + (jitter[:, None, None, None] * 0.01
                                      * nonempty / (r / self.resolution))
             datum = datum * self.grid_mask[None, :r, :r, :r]
@@ -125,7 +131,10 @@ class GridLoader:
         for idxs in self._index_stream():
             if self._stop.is_set():
                 return
-            samples = list(self.pool.map(self.dataset.__getitem__, idxs))
+            # the jitters drawn in batch order, whichever worker takes a sample,
+            # so two loaders with one seed give the same batches (spatial peers)
+            jitters = [self.dataset.draw_jitter() for _ in idxs]
+            samples = list(self.pool.map(self.dataset.__getitem__, idxs, jitters))
             batch = np.stack(samples)
             while not self._stop.is_set():
                 try:

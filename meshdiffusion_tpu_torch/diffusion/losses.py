@@ -16,6 +16,14 @@ masked epsilon loss:54-85, the step:87-141):
 * the timestep labels and the noise of each micro-batch come from a
   source the caller may replace (:func:`torch_source` by default), so a
   test can replay the JAX package's key splits.
+
+On a (data, spatial) rank mesh (``parallel/``) each rank holds its data
+row's share of the micro-batch and, with ``spatial`` > 1, its depth slab of
+each grid: the loss sums its slab's terms and then over the row's ranks,
+spatial peers draw the same labels and the whole grid's noise (each keeps
+its slab), and once a step the gradients are summed over every rank and
+divided by the data axis, what JAX's psum under the mesh gives: every rank
+then clips and steps on the same gradient.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
+from ..parallel import spatial
 from ..utils.checkpoint import EMA
 from .vpsde import VPSDE
 
@@ -131,10 +141,25 @@ def ddpm_loss(model, batch: torch.Tensor, labels: torch.Tensor, noise: torch.Ten
         raise NotImplementedError(loss_type)
     if mask is not None:
         losses = losses * mask
+    if spatial.current() is not None:
+        return _sharded_loss(losses, mask)
     loss = losses.reshape(losses.shape[0], -1).mean(dim=-1).mean()
     if mask is not None:
         # reweight by the mask's density: x R^3 / sum(mask) (reference losses.py:78)
         loss = loss * (mask.numel() / mask.sum())
+    return loss
+
+
+def _sharded_loss(losses: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`ddpm_loss` over the whole grid from this rank's depth slab of
+    its terms (and of the mask): the slab's sum, summed over the slabs, over
+    the whole grid's element count; the mask's density from its whole sum."""
+    S = spatial.current().size
+    loss = spatial.sum_over_ranks(losses.sum()) / (losses.numel() * S)
+    if mask is not None:
+        with torch.no_grad():
+            total = spatial.sum_over_ranks(mask.sum().float())
+        loss = loss * (mask.numel() * S / total)
     return loss
 
 
@@ -143,15 +168,37 @@ def _tables(sde: VPSDE, device):
             torch.as_tensor(sde.sqrt_1m_alphas_cumprod, dtype=torch.float32, device=device))
 
 
-def make_train_step(sde: VPSDE, mask: Optional[torch.Tensor], loss_type: str = 'l2'):
+def all_reduce_grads(params, mesh) -> None:
+    """Sum every parameter's gradient over the mesh's ranks, in one flat
+    buffer, and divide by the data axis: the mean over the data rows of
+    each row's gradient, whose slabs' parts the sum adds up (JAX's psum of
+    the gradients under the mesh). Every rank holds the same sum after."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch._utils._flatten_dense_tensors(grads)
+    dist.all_reduce(flat, group=mesh.group)
+    flat /= mesh.data
+    for p, g in zip(params, torch._utils._unflatten_dense_tensors(flat, grads)):
+        p.grad = g
+
+
+def make_train_step(sde: VPSDE, mask: Optional[torch.Tensor], loss_type: str = 'l2',
+                    mesh=None):
     """The train step (JAX ``make_train_step``): ``step(state, batch,
     source=None)`` with batch (iter_size, micro_bs, R, R, R, C) runs the
     training forward and backward of each micro-batch, summing the
     gradients, then one optimizer step and one EMA update; it returns
     {'loss': the mean micro-batch loss, 'grad_norm'}, both tensors, so that
     the host runs on to the next batch while the card works.
-    ``source`` defaults to :func:`torch_source` of ``state.generator``."""
+    ``source`` defaults to :func:`torch_source` of ``state.generator``.
+
+    With a ``mesh`` of more than one rank, batch is this rank's share
+    (``parallel.shard_batch(..., spatial=True, batch_dim=1)``): its data
+    row's micro_bs samples, and its depth slab where the mesh's spatial axis
+    splits the grid (``mask`` is the whole grid's). ``source`` is then asked
+    for the data row's whole grids (R planes); the loss reported is the mean
+    over the data rows."""
     tables = {}
+    multi = mesh is not None and mesh.size > 1
 
     def train_step(state: TrainState, batch: torch.Tensor, source: Optional[Source] = None):
         dev = batch.device
@@ -160,12 +207,23 @@ def make_train_step(sde: VPSDE, mask: Optional[torch.Tensor], loss_type: str = '
         sqrt_ac, sqrt_1m_ac = tables[dev]
         source = source or torch_source(state.generator, sde.N)
         loss_sum = torch.zeros((), device=dev)
-        for j in range(batch.shape[0]):
-            labels, noise = source(j, tuple(batch[j].shape))
-            loss = ddpm_loss(state.model, batch[j], labels, noise, sqrt_ac, sqrt_1m_ac, mask,
-                             loss_type, train=True)
-            loss.backward()
-            loss_sum += loss.detach()
+        depth = (0, batch.shape[2])
+        if multi and mesh.spatial > 1:
+            depth = mesh.depth_range(batch.shape[2] * mesh.spatial)
+        m = mask if mask is None else mask[:, depth[0]:depth[1]]
+        shape = (batch.shape[1], batch.shape[2] * (mesh.spatial if multi else 1)) \
+            + tuple(batch.shape[3:])
+        with spatial.sharded(mesh if multi else None):
+            for j in range(batch.shape[0]):
+                labels, noise = source(j, shape)
+                loss = ddpm_loss(state.model, batch[j], labels, noise[:, depth[0]:depth[1]],
+                                 sqrt_ac, sqrt_1m_ac, m, loss_type, train=True)
+                loss.backward()
+                loss_sum += loss.detach()
+        if multi:
+            all_reduce_grads(state.optimizer.params, mesh)
+            dist.all_reduce(loss_sum, group=mesh.data_group)
+            loss_sum /= mesh.data
         grad_norm = state.optimizer.step(state.step)
         state.ema.update(state.model)
         state.step += 1

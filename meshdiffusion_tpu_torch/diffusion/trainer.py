@@ -24,8 +24,20 @@ Counterpart of ``meshdiffusion_tpu/diffusion/trainer.py`` (reference
   global generator seeded the same way; a resumed run does not replay the
   JAX package's key stream, which the reference's files do not hold.
 
-There is no fallback device: on ``cuda`` without a card it raises, and a
-device count other than one is refused (data parallelism is not ported).
+Several processes, one a rank (the MESHDIFFUSION_* launch of
+``parallel/distributed.py``, backend ``gpu.dist_backend``), train on a
+(``gpu.mesh_data_axis``, ``gpu.mesh_spatial_axis``) mesh, as the JAX
+trainer does on its device mesh: ``training.batch_size`` is the global
+micro-batch, split over the data axis; each data row loads a disjoint
+share of the dataset (seed ``config.seed + 1031 * data_index``), its
+spatial peers the same samples, each keeping its depth slab; parameters
+are replicated, the gradients summed (``losses.make_train_step``). A batch
+the data axis does not divide is refused unless ``gpu.allow_device_idle``,
+which shrinks the data axis and leaves the ranks past the mesh idle. Only
+rank 0 writes the metrics, TensorBoard and snapshots; every rank restores
+the preemption snapshot. A rank runs on ``cuda:{rank % device count}``.
+
+There is no fallback device: on ``cuda`` without a card it raises.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import torch
 
 from ..data.dataset import GridLoader, ShapeNetDMTetDataset
 from ..models import create_model
+from ..parallel import distributed, make_mesh
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from . import losses as L
@@ -86,16 +99,22 @@ class MetricWriter:
             self._tb.close()
 
 
-def _loader(config, mask_host, seed: int):
+def _loader(config, mask_host, seed: int, mesh):
     """The native C++ loader for ``.npy`` grids (a warning and the Python
-    loader where it cannot be built), the Python loader otherwise:
-    (loader, 'native' or 'python')."""
+    loader where it cannot be built), the Python loader otherwise, over the
+    mesh data row's share of the dataset: (loader, 'native' or 'python')."""
     d = config.data
     dataset = ShapeNetDMTetDataset(
         d.meta_path, mask_host, deform_scale=config.model.deform_scale, aug=d.aug,
         filter_meta_path=d.filter_meta_path if _is_set(d.filter_meta_path) else None,
         normalize_sdf=d.normalize_sdf, extension=d.extension, seed=seed)
-    batch = config.training.batch_size * config.training.iter_size
+    if mesh.data > 1:
+        dataset.fpath_list = dataset.fpath_list[mesh.data_index::mesh.data]
+        if not dataset.fpath_list:
+            raise ValueError(f'dataset smaller than the data axis ({mesh.data}): no samples '
+                             f'for data row {mesh.data_index}')
+    batch = (distributed.process_local_batch_size(config.training.batch_size, mesh.data)
+             * config.training.iter_size)
     if d.extension == 'npy':
         from ..native import NativeGridLoader, native_available
         if native_available():
@@ -106,16 +125,47 @@ def _loader(config, mask_host, seed: int):
     return GridLoader(dataset, batch_size=batch, num_workers=d.num_workers, seed=seed), 'python'
 
 
-def train(config, max_steps: Optional[int] = None, device='cuda') -> L.TrainState:
-    """Run the training loop on ``device``; returns the final TrainState.
-    ``max_steps`` in the place of ``training.n_iters``."""
-    device = resolve_device(device)
-    if device.type == 'cuda' and torch.cuda.device_count() != 1:
-        raise RuntimeError(f'training runs on one card; this machine has '
-                           f'{torch.cuda.device_count()} (data parallelism is not ported)')
+def _mesh(config):
+    """The (data, spatial) mesh over the process group's ranks (JAX
+    trainer's): the data axis must divide the global micro-batch, or with
+    ``gpu.allow_device_idle`` it shrinks until it does. None on a rank past
+    the mesh."""
+    n, _ = distributed.world()
+    spatial = config.gpu.mesh_spatial_axis
+    data = config.gpu.mesh_data_axis
+    if data == -1:
+        data = n // spatial
+    bs = config.training.batch_size
+    if bs % data != 0:
+        if not config.gpu.allow_device_idle:
+            raise ValueError(
+                f'training.batch_size={bs} is not divisible by the data mesh axis ({data} = '
+                f'{n} ranks / spatial {spatial}); pick a divisible batch, set '
+                f'gpu.mesh_data_axis, or set gpu.allow_device_idle=True to shrink the mesh')
+        while data > 1 and bs % data != 0:
+            data -= 1
+        logger.warning('mesh uses %d of %d ranks (batch %d not divisible)', data * spatial, n, bs)
+    return make_mesh(data, spatial, world_size=data * spatial, rank=distributed.world()[1])
+
+
+def train(config, max_steps: Optional[int] = None, device='cuda') -> Optional[L.TrainState]:
+    """Run the training loop on ``device`` (in a process group: this rank's
+    card); returns the final TrainState, None on a rank left idle by
+    ``gpu.allow_device_idle``. ``max_steps`` in the place of
+    ``training.n_iters``."""
+    distributed.maybe_initialize(config.gpu.dist_backend)
+    device = distributed.rank_device(resolve_device(device))
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    distributed.check_devices(device)
+    mesh = _mesh(config)
+    if mesh is None:
+        logger.warning('rank %d is outside the mesh: idle', distributed.world()[1])
+        return None
+    is_main = mesh.rank == 0
     workdir = config.training.train_dir
     logger.info('working dir: %s', workdir)
-    writer = MetricWriter(workdir)
+    writer = MetricWriter(workdir) if is_main else None
 
     mask_host = load_grid_mask(config)
     mask = torch.as_tensor(mask_host, device=device)[None, ..., None]
@@ -133,12 +183,16 @@ def train(config, max_steps: Optional[int] = None, device='cuda') -> L.TrainStat
                                               'optimizer': state.optimizer, 'step': 0}, config)
     state.step = initial_step = restored['step']
     seed = config.seed + 1000003 * initial_step
-    state.generator.manual_seed(seed)
-    torch.manual_seed(seed)
+    # labels, noise and data: one stream a data row, its spatial peers alike;
+    # dropout: one stream a rank
+    row_seed = seed + 1031 * mesh.data_index
+    state.generator.manual_seed(row_seed)
+    torch.manual_seed(seed + 7919 * mesh.rank)
 
-    train_step = L.make_train_step(sde, mask, config.training.loss_type)
-    iter_size, bs = config.training.iter_size, config.training.batch_size
-    loader, kind = _loader(config, mask_host, seed)
+    train_step = L.make_train_step(sde, mask, config.training.loss_type, mesh)
+    iter_size = config.training.iter_size
+    bs = distributed.process_local_batch_size(config.training.batch_size, mesh.data)
+    loader, kind = _loader(config, mask_host, row_seed, mesh)
     n_iters = config.training.n_iters if max_steps is None else max_steps
     log_freq = config.training.log_freq
     logger.info('Starting training loop at step %d (%s loader).', initial_step, kind)
@@ -146,11 +200,14 @@ def train(config, max_steps: Optional[int] = None, device='cuda') -> L.TrainStat
     try:
         for step in range(initial_step, n_iters + 1):
             t0 = time.perf_counter()
-            batch = torch.from_numpy(next(loader))
+            batch = torch.from_numpy(next(loader))     # this data row's samples
+            batch = batch.reshape((iter_size, bs) + batch.shape[1:])
+            if mesh.spatial > 1:                         # this rank's depth slab
+                batch = batch[:, :, slice(*mesh.depth_range(batch.shape[2]))].contiguous()
             load_s += time.perf_counter() - t0
             if device.type == 'cuda':
                 batch = batch.pin_memory()   # so that the copy does not wait for the card
-            batch = batch.to(device, non_blocking=True).reshape((iter_size, bs) + batch.shape[1:])
+            batch = batch.to(device, non_blocking=True)
             metrics = train_step(state, batch)
             n_run += 1
 
@@ -160,11 +217,14 @@ def train(config, max_steps: Optional[int] = None, device='cuda') -> L.TrainStat
                 logger.info('step: %d, training_loss: %.5e (%.3f s for %d steps; loader %.3f s)',
                             step, loss, dt, n_run, load_s,
                             extra={'train_log': (step, loss, dt, n_run, load_s, kind)})
-                writer.scalar('training_loss', loss, step)
+                if writer is not None:
+                    writer.scalar('training_loss', loss, step)
                 t_last, load_s, n_run = time.perf_counter(), 0.0, 0
 
             snap = {'model': model, 'ema': state.ema, 'optimizer': state.optimizer,
                     'step': state.step}
+            if not is_main:
+                continue
             if step != 0 and step % config.training.snapshot_freq_for_preemption == 0:
                 logger.info('save meta at iter %d', step)
                 save_checkpoint(ckpt_meta, snap, config)
@@ -174,5 +234,6 @@ def train(config, max_steps: Optional[int] = None, device='cuda') -> L.TrainStat
                                 config)
     finally:
         loader.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

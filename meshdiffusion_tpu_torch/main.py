@@ -22,6 +22,12 @@ Usage:
 ``--config`` takes a preset (res64/res128/default) or a Python file that
 defines ``get_config()``; ``--config.a.b=value`` overrides one key. The
 device defaults to ``cuda``; there is no fallback when it is missing.
+
+Training on several ranks: start one process a rank (a card each, or with
+``--config.gpu.dist_backend=gloo`` several on one card or on the CPU), each
+with MESHDIFFUSION_COORDINATOR=host:port, MESHDIFFUSION_NUM_PROCESSES=N and
+MESHDIFFUSION_PROCESS_ID=rank, and the mesh in ``--config.gpu.mesh_data_axis``
+and ``--config.gpu.mesh_spatial_axis`` (diffusion/trainer.py).
 """
 
 from __future__ import annotations
@@ -125,6 +131,8 @@ def main(argv=None):
     config = apply_overrides(_load_config(args.config), overrides)
     if args.mode == 'train':
         from .diffusion.trainer import train
+        from .parallel.distributed import maybe_initialize
+        maybe_initialize(config.gpu.dist_backend)      # before the first device use
         return train(config, device=device)
     from .diffusion import evaler
     if args.mode == 'uncond_gen':

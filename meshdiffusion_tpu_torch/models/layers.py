@@ -19,6 +19,15 @@ the plain version), or with ``kernels=False`` through its plain version,
 which is how the plain comparison on the card is built. In training,
 dropout sits between the second chain's SiLU and its conv; that chain then
 runs decomposed, as in the JAX package.
+
+Under ``parallel.spatial.sharded`` each rank holds a depth slab of the
+grid, and the layers do what XLA's partitioner does for the JAX package's
+sharded grid: every SAME conv reads its neighbours' boundary planes
+(zeros only at the grid's ends), every GroupNorm normalises with the whole
+grid's statistics, attention gathers its keys and values over the slabs.
+The chains then run the conv kernel's depth-halo mode
+(``ops.gn_silu_conv3d_halo``) on the whole grid's ``a, b``, which the
+statistics kernel's moments mode feeds.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import ops
+from ..parallel import spatial
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -127,9 +137,13 @@ class Conv3D(nn.Conv3d):
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+        dt, padding = self.dtype, self.padding
+        if spatial.current() is not None and padding[0]:
+            # a depth slab: its neighbours' planes in the place of D's padding
+            x = spatial.pad_depth(x, padding[0], padding[0])
+            padding = (0,) + tuple(padding[1:])
         y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(dt), self.weight.to(dt), self.bias.to(dt),
-                     self.stride, self.padding)
+                     self.stride, padding)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -163,10 +177,13 @@ class ResnetBlockDDPM(nn.Module):
                 train: bool = False) -> torch.Tensor:
         dt = self.dtype
         grad = torch.is_grad_enabled()
+        sh = spatial.current()
 
         def chain(x, gn, conv, drop=0.0):
             # under autograd the live weight: dhwio() is a detached copy
             kernel = conv.weight.permute(2, 3, 4, 1, 0) if grad else conv.dhwio()
+            if sh is not None:
+                return sharded_chain(x, gn, conv, kernel, drop)
             if drop:
                 # dropout between SiLU and the conv: the decomposed chain of
                 # the JAX package's _fused_body, the conv outside any kernel
@@ -182,6 +199,21 @@ class ResnetBlockDDPM(nn.Module):
             op = ops.gn_silu_conv3d_autograd if grad else ops.gn_silu_conv3d
             return op(x.contiguous(), gn.weight, gn.bias, kernel, conv.bias, 32, 1e-6, dt,
                       packed=conv.packed())
+
+        def sharded_chain(x, gn, conv, kernel, drop):
+            # this rank's depth slab: the whole grid's statistics, then the conv
+            # over the slab with its neighbours' boundary planes
+            a, b = spatial.gn_affine(x, gn.weight, gn.bias, 32, 1e-6)
+            if drop:
+                h = F.silu(x.float() * a[:, None, None, None] + b[:, None, None, None])
+                h = F.dropout(h.to(x.dtype), drop, training=True).to(dt)
+                return (ops.conv3d_depth_valid(spatial.pad_depth(h, 1, 1), kernel.to(dt))
+                        + conv.bias.to(dt))
+            x_h, halo = spatial.halo(x.contiguous(), 1, 1), sh.halo_sizes(1)
+            if not self.kernels:
+                return ops.gn_silu_conv3d_halo_reference(x_h, a, b, kernel, conv.bias, halo, dt)
+            op = ops.gn_silu_conv3d_halo_autograd if grad else ops.gn_silu_conv3d_halo
+            return op(x_h, a, b, kernel, conv.bias, halo, dt, packed=conv.packed())
 
         h = chain(x, self.GroupNorm_0, self.Conv_0)
         if temb is not None:
@@ -207,10 +239,16 @@ class AttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, D, H, W, C = x.shape
-        h = ops.groupnorm_reference(x, self.GroupNorm_0.weight, self.GroupNorm_0.bias)
+        if spatial.current() is not None:
+            # a depth slab: the whole grid's statistics; this slab's queries
+            # against every slab's keys and values
+            h = spatial.groupnorm(x, self.GroupNorm_0)
+            k, v = (spatial.gather_depth(nin(h)) for nin in (self.NIN_1, self.NIN_2))
+        else:
+            h = ops.groupnorm_reference(x, self.GroupNorm_0.weight, self.GroupNorm_0.bias)
+            k, v = self.NIN_1(h), self.NIN_2(h)
         q = self.NIN_0(h).reshape(B, -1, C)
-        k = self.NIN_1(h).reshape(B, -1, C)
-        v = self.NIN_2(h).reshape(B, -1, C)
+        k, v = k.reshape(B, -1, C), v.reshape(B, -1, C)
         w = torch.matmul(q, k.transpose(1, 2)) * (C ** -0.5)
         h = torch.matmul(torch.softmax(w, dim=-1), v).reshape(B, D, H, W, C)
         return x + self.NIN_3(h)
@@ -243,6 +281,10 @@ class Downsample(nn.Module):
             self.Conv_0 = Conv3D(channels, channels, 3, stride=2, padding=0, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.with_conv and spatial.current() is not None:
+            # a depth slab (of even depth): D's right pad is the next slab's
+            # first plane, a zero plane on the last slab
+            return self.Conv_0(F.pad(spatial.pad_depth(x, 0, 1), (0, 0, 0, 1, 0, 1)))
         if self.with_conv:
             return self.Conv_0(F.pad(x, (0, 0, 0, 1, 0, 1, 0, 1)))
         y = F.avg_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2)

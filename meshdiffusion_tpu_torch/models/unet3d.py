@@ -15,6 +15,12 @@ dormant one).
 * res128: 5^3 stem/output convs, no coordinates, level 0 fixed at
   ``num_res_blocks_first`` blocks.
 
+Under ``parallel.spatial.sharded`` x and the mask are this rank's depth
+slab of the grid (see ``models/layers.py``); the stem, the mask and output
+convs read their neighbours' planes (2 at res128's 5^3), and the output
+head normalises with the whole grid's statistics. The deepest level's
+depth, R / 2^(L-1), must split evenly over the slabs.
+
 ``kernels`` routes the ResnetBlocks' GN->SiLU->conv chains and the output
 head's GroupNorm+SiLU through the hand-written kernels (on CUDA tensors);
 only a plain comparison turns it off.
@@ -40,6 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import ops
+from ..parallel import spatial
 from . import layers
 from .registry import register_alias, register_model
 
@@ -159,6 +166,10 @@ class UNet3D(nn.Module):
         dt = self.dtype
         L = len(self.ch_mult)
         res = [self.image_size // (2 ** i) for i in range(L)]
+        sh = spatial.current()
+        if sh is not None and (res[-1] % sh.size or x.shape[1] * sh.size != self.image_size):
+            raise ValueError(f'a grid of depth {self.image_size} (the deepest level '
+                             f'{res[-1]}) does not split over {sh.size} slabs of {x.shape[1]}')
         mods = iter(self.all_modules)
 
         def resblock(h, temb):
@@ -181,9 +192,8 @@ class UNet3D(nn.Module):
             # the reference zeroes the coordinate volume, so pos_layer's
             # output is its bias at every voxel
             stem = stem + self.pos_layer.bias.to(dt)
-        R = self.image_size
         if mask is None:
-            mask = torch.zeros((1, R, R, R, 1), dtype=dt, device=x.device)
+            mask = torch.zeros((1,) + tuple(x.shape[1:4]) + (1,), dtype=dt, device=x.device)
         stem = stem + self.mask_layer(mask.to(dt))
 
         hs = [stem]
@@ -216,7 +226,10 @@ class UNet3D(nn.Module):
         # the likelihood's divergence) the head runs its plain version
         head = (ops.groupnorm_silu if self.kernels and not (train or torch.is_grad_enabled())
                 else ops.groupnorm_silu_reference)
-        h = head(h.contiguous(), norm.weight, norm.bias, 32, 1e-6)
+        if sh is not None:
+            h = spatial.groupnorm(h, norm, silu=True)
+        else:
+            h = head(h.contiguous(), norm.weight, norm.bias, 32, 1e-6)
         h = next(mods)(h).float()
 
         if self.scale_by_sigma:

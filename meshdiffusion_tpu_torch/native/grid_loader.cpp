@@ -115,7 +115,10 @@ struct LoaderState {
   std::atomic<int> pending{0};
   std::atomic<bool> stop{false};
   std::string last_error;
-  std::atomic<uint64_t> aug_counter{0};
+  // samples filled before the current fill: a sample's jitter is drawn from
+  // its place in the stream, whichever worker takes it, so two loaders with
+  // one seed and one index stream give the same batches (spatial peers)
+  uint64_t fill_base = 0;
 
   ~LoaderState() {
     stop.store(true);
@@ -125,7 +128,7 @@ struct LoaderState {
 };
 
 // one sample: load + normalize + jitter + mask + pad, channels-last output
-bool process_sample(LoaderState* st, int64_t idx, float* dst) {
+bool process_sample(LoaderState* st, int64_t idx, float* dst, uint64_t ordinal) {
   NpyArray arr;
   std::string err;
   if (!load_npy(st->paths[idx].c_str(), &arr, &err)) {
@@ -152,8 +155,7 @@ bool process_sample(LoaderState* st, int64_t idx, float* dst) {
   // one uniform(-0.5, 0.5)*0.01/(r/R) offset per deform channel per sample
   float jit[3] = {0.f, 0.f, 0.f};
   if (st->aug) {
-    std::mt19937_64 rng(st->seed ^ (0x9E3779B97F4A7C15ULL *
-                                    st->aug_counter.fetch_add(1)));
+    std::mt19937_64 rng(st->seed ^ (0x9E3779B97F4A7C15ULL * ordinal));
     std::uniform_real_distribution<float> uni(-0.5f, 0.5f);
     const float scale = 0.01f / (float(r) / float(R));
     for (int c = 0; c < 3; ++c) jit[c] = uni(rng) * scale;
@@ -193,7 +195,7 @@ void worker_loop(LoaderState* st) {
     }
     const int64_t R = st->resolution;
     float* dst = st->batch_out + job.second * R * R * R * 4;
-    process_sample(st, job.first, dst);
+    process_sample(st, job.first, dst, st->fill_base + uint64_t(job.second));
     if (st->pending.fetch_sub(1) == 1) st->cv_done.notify_all();
   }
 }
@@ -237,6 +239,7 @@ int grid_loader_fill(void* handle, const int64_t* indices, int64_t batch,
   {
     std::unique_lock<std::mutex> lk(st->mu);
     st->cv_done.wait(lk, [&] { return st->pending.load() == 0; });
+    st->fill_base += uint64_t(batch);
     if (!st->last_error.empty()) return 1;
   }
   return 0;

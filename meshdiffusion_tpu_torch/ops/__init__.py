@@ -6,29 +6,38 @@
 | :func:`gn_affine` | CUDA C++, sm_90a (gn_stats, one launch) | statistics phase of ``ops/groupnorm.py:94`` |
 | :func:`groupnorm_silu` | Triton (apply) | ``meshdiffusion_tpu/ops/groupnorm.py:94`` |
 | :func:`gn_silu_conv3d` | CUDA C++, sm_90a (wgmma) | ``meshdiffusion_tpu/ops/gn_silu_conv.py:142`` |
+| :func:`gn_silu_conv3d_halo` | the same kernel, depth-halo mode | the same, on a depth slab |
+| :func:`gn_moments` | the gn_stats kernel, moments mode | the statistics, on a depth slab |
 | :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches.
 :func:`gn_silu_conv3d_autograd` is the conv kernel under autograd: its
-forward is :func:`gn_silu_conv3d`, its backward the plain version's.
+forward is :func:`gn_silu_conv3d`, its backward the plain version's
+(:func:`gn_silu_conv3d_halo_autograd` and :func:`gn_moments_autograd` the
+same for the two modes that the spatially sharded U-Net runs).
 Each kernel module also has a ``*_cost`` helper, the (FLOP, bytes) of a
 call, from which ``roofline.bound_ms`` gives the least time an H100 could
 take for it (the z-test's counts fp32 and ALU operations apart, and
 ``tile_zmin_bound_ms`` takes the busier pipe).
 """
 
-from .gn_silu_conv import (conv3d_same, gn_silu_conv3d, gn_silu_conv3d_autograd,  # noqa: F401
-                           gn_silu_conv3d_cost, gn_silu_conv3d_reference, pack_conv_weights)
-from .groupnorm import (gn_affine, gn_affine_cost, gn_affine_reference,  # noqa: F401
-                        groupnorm_reference, groupnorm_silu, groupnorm_silu_cost,
-                        groupnorm_silu_reference)
+from .gn_silu_conv import (conv3d_depth_valid, conv3d_same, gn_silu_conv3d,  # noqa: F401
+                           gn_silu_conv3d_autograd, gn_silu_conv3d_cost, gn_silu_conv3d_halo,
+                           gn_silu_conv3d_halo_autograd, gn_silu_conv3d_halo_reference,
+                           gn_silu_conv3d_reference,
+                           pack_conv_weights)
+from .groupnorm import (affine_from_moments, gn_affine, gn_affine_cost,  # noqa: F401
+                        gn_affine_reference, gn_moments, gn_moments_autograd, gn_moments_cost,
+                        gn_moments_reference, groupnorm_reference, groupnorm_silu,
+                        groupnorm_silu_cost, groupnorm_silu_reference, merge_moments)
 from .sampler_step import (ancestral_update, ancestral_update_cost,  # noqa: F401
                            ancestral_update_reference)
 from .tile_zmin import (tile_zmin, tile_zmin_bound_ms, tile_zmin_cost,  # noqa: F401
                         tile_zmin_reference)
 
-KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, tile_zmin)
+KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, tile_zmin,
+                   gn_silu_conv3d_halo, gn_moments)
 
 
 def reset_launch_counts() -> None:

@@ -23,6 +23,15 @@ differentiable op, the counterpart of the JAX package's ``custom_vjp``
 (``meshdiffusion_tpu/ops/gn_silu_conv.py:199-231``): the forward is the
 kernel, the backward recomputes through the plain version and
 differentiates that.
+
+:func:`gn_silu_conv3d_halo` is the kernel's depth-halo mode, for a rank
+that holds one depth slab of the grid (``parallel/spatial.py``): it takes
+the whole grid's ``a, b`` (from the statistics' moments mode, merged over
+the ranks) in the place of the statistics pass, and a slab of D + lo + hi
+planes (its neighbours' boundary planes around it), and writes the slab's
+D planes, zero-padded only at the grid's ends. It counts its launches in
+``gn_silu_conv3d_halo.launches``; :func:`gn_silu_conv3d_halo_autograd` is
+its differentiable op, built as the one above.
 """
 
 from __future__ import annotations
@@ -64,19 +73,45 @@ def gn_silu_conv3d_reference(x, scale, bias, kernel, conv_bias, num_groups: int 
     return conv3d_same(h.to(dtype), kernel.to(dtype)) + conv_bias.to(dtype)
 
 
-def gn_silu_conv3d_cost(x_shape, x_dtype: torch.dtype, out_ch: int) -> Tuple[float, float]:
-    """(FLOP, bytes) of one call: 2 * M * 27 * C * O on the bf16 tensor
-    cores; x, the bf16 weights, the bf16 output, the fp32 affine and bias
-    each moved once."""
+def conv3d_depth_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Stride-1 k^3 conv of channels-last x with a (k, k, k, C, O) kernel,
+    SAME in H and W and VALID in D: x holds the k // 2 planes of depth
+    padding (or halo) on each side already."""
+    p = kernel.shape[0] // 2
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), kernel.permute(4, 3, 0, 1, 2), padding=(0, p, p))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def gn_silu_conv3d_halo_reference(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
+                                  dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the depth-halo mode: ``silu(x_h * a + b)`` in fp32
+    with the whole grid's per-(B, C) affine, in ``dtype``, zero-padded in D
+    by (1 - lo, 1 - hi) (zeros only where the slab meets the grid's ends),
+    then the 3^3 conv, VALID in D and SAME in H and W, + bias in ``dtype``.
+    x_h (B, D + lo + hi, H, W, C); output (B, D, H, W, O)."""
+    lo, hi = halo
+    h = F.silu(x_h.float() * a[:, None, None, None, :] + b[:, None, None, None, :])
+    h = F.pad(h.to(dtype), (0, 0, 0, 0, 0, 0, 1 - lo, 1 - hi))
+    return conv3d_depth_valid(h, kernel.to(dtype)) + conv_bias.to(dtype)
+
+
+def gn_silu_conv3d_cost(x_shape, x_dtype: torch.dtype, out_ch: int,
+                        halo: Tuple[int, int] = (0, 0)) -> Tuple[float, float]:
+    """(FLOP, bytes) of one call (in the depth-halo mode, x_shape's D holds
+    the halo's planes too): 2 * M * 27 * C * O over the M output voxels on
+    the bf16 tensor cores; x, the bf16 weights, the bf16 output, the fp32
+    affine and bias each moved once."""
     B, D, H, W, C = x_shape
-    M = B * D * H * W
+    M = B * (D - sum(halo)) * H * W
     esize = torch.empty((), dtype=x_dtype).element_size()
-    nbytes = M * C * esize + 27 * C * out_ch * 2 + M * out_ch * 2 + 2 * B * C * 4 + out_ch * 4
+    nbytes = (B * D * H * W * C * esize + 27 * C * out_ch * 2 + M * out_ch * 2
+              + 2 * B * C * 4 + out_ch * 4)
     return 2.0 * M * 27 * C * out_ch, float(nbytes)
 
 
-def gn_silu_conv3d_bound_ms(x_shape, x_dtype: torch.dtype, out_ch: int) -> Tuple[float, str]:
-    return bound_ms(*gn_silu_conv3d_cost(x_shape, x_dtype, out_ch), PEAK_BF16_FLOPS)
+def gn_silu_conv3d_bound_ms(x_shape, x_dtype: torch.dtype, out_ch: int,
+                            halo: Tuple[int, int] = (0, 0)) -> Tuple[float, str]:
+    return bound_ms(*gn_silu_conv3d_cost(x_shape, x_dtype, out_ch, halo), PEAK_BF16_FLOPS)
 
 
 def block_n(out_ch: int) -> int:
@@ -199,33 +234,93 @@ def gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError('x must be contiguous float32 or bfloat16')
     plan = _plan(B, D, H, W, C, O, _build.sm_count(x.device.index or 0))
-    if packed is None:
-        packed = pack_conv_weights(kernel)
-    elif (packed.dtype != torch.bfloat16 or packed.numel() != packed_numel(C, O)
-          or not packed.is_contiguous()):
-        raise ValueError('packed is not pack_conv_weights(kernel)')
+    packed = _check_packed(packed, kernel, C, O)
     if x.data_ptr() % 16 or packed.data_ptr() % 16:
         raise ValueError('x and the packed weights must be 16-byte aligned')
-    cb = conv_bias.float().contiguous()
-    M = B * D * H * W
-    out = torch.empty((B, D, H, W, O), device=x.device, dtype=torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        partial = _scratch(x.device, stream, plan.splits * M * O) if plan.splits > 1 else None
         # the statistics; an fp32 x also comes back rounded to bf16, the operand
         a, b, xb = _gn_stats(x, scale, bias, num_groups, eps, stream,
                              round_bf16=x.dtype == torch.float32)
-        err = _build.lib().gn_silu_conv3d_bf16(
-            (x if xb is None else xb).data_ptr(), a.data_ptr(), b.data_ptr(), packed.data_ptr(),
-            cb.data_ptr(), out.data_ptr(), partial.data_ptr() if partial is not None else None,
-            B, D, H, W, C, O, plan.tiling, plan.TD, plan.TH, plan.TW, plan.splits, plan.grid,
-            stream)
-    _build.check(err, 'gn_silu_conv3d')
+        out = _launch(x if xb is None else xb, a, b, packed, conv_bias, plan, D, O, (0, 0),
+                      stream, 'gn_silu_conv3d')
     gn_silu_conv3d.launches += 1
     return out
 
 
 gn_silu_conv3d.launches = 0
+
+
+def _launch(xb, a, b, packed, conv_bias, plan: ConvPlan, D: int, O: int,
+            halo: Tuple[int, int], stream: int, what: str) -> torch.Tensor:
+    """One launch of ``csrc/gn_silu_conv3d.cu`` on ``stream`` (x's device
+    current): bf16 xb (B, D + lo + hi, H, W, C) -> (B, D, H, W, O) bf16."""
+    B, _, H, W, C = xb.shape
+    cb = conv_bias.float().contiguous()
+    out = torch.empty((B, D, H, W, O), device=xb.device, dtype=torch.bfloat16)
+    partial = (_scratch(xb.device, stream, plan.splits * B * D * H * W * O)
+               if plan.splits > 1 else None)
+    err = _build.lib().gn_silu_conv3d_bf16(
+        xb.data_ptr(), a.data_ptr(), b.data_ptr(), packed.data_ptr(), cb.data_ptr(),
+        out.data_ptr(), partial.data_ptr() if partial is not None else None,
+        B, D, H, W, C, O, plan.tiling, plan.TD, plan.TH, plan.TW, plan.splits, plan.grid,
+        halo[0], halo[1], stream)
+    _build.check(err, what)
+    return out
+
+
+def _check_packed(packed: Optional[torch.Tensor], kernel: torch.Tensor, C: int, O: int
+                  ) -> torch.Tensor:
+    if packed is None:
+        return pack_conv_weights(kernel)
+    if (packed.dtype != torch.bfloat16 or packed.numel() != packed_numel(C, O)
+            or not packed.is_contiguous()):
+        raise ValueError('packed is not pack_conv_weights(kernel)')
+    return packed
+
+
+def gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
+                        dtype=torch.bfloat16, packed: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The depth-halo mode: ``silu(x_h * a + b)`` then the 3^3 conv + bias
+    over a depth slab. x_h (B, D + lo + hi, H, W, C) in fp32 or bf16 (cast
+    once to bf16, the operand), its lo / hi (each 0 or 1) planes before and
+    after the slab's D taken from the neighbouring slabs (0 where the slab
+    meets the grid's end); a, b (B, C) fp32, the whole grid's affine; kernel
+    (3, 3, 3, C, O); output (B, D, H, W, O) in ``dtype``."""
+    tensors = (x_h, a, b, kernel, conv_bias) + ((packed,) if packed is not None else ())
+    if not _build.use_kernel('gn_silu_conv3d_halo', *tensors):
+        return gn_silu_conv3d_halo_reference(x_h, a, b, kernel, conv_bias, halo, dtype)
+    lo, hi = halo
+    B, Dh, H, W, C = x_h.shape
+    O, D = kernel.shape[-1], Dh - lo - hi
+    if dtype != torch.bfloat16:
+        raise ValueError(f'the conv kernel computes in bfloat16, not {dtype}')
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError('gn_silu_conv3d_halo is forward-only on CUDA: call under '
+                           'torch.inference_mode() or torch.no_grad()')
+    if lo not in (0, 1) or hi not in (0, 1) or D < 1:
+        raise ValueError(f'halo {halo} on {Dh} planes: lo and hi must be 0 or 1, D >= 1')
+    if kernel.shape != (3, 3, 3, C, O):
+        raise ValueError(f'kernel {tuple(kernel.shape)} is not (3, 3, 3, {C}, O)')
+    if a.shape != (B, C) or b.shape != (B, C) or a.dtype != torch.float32 \
+            or b.dtype != torch.float32 or not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f'a and b must be contiguous fp32 ({B}, {C})')
+    if x_h.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError('x_h must be float32 or bfloat16')
+    plan = _plan(B, D, H, W, C, O, _build.sm_count(x_h.device.index or 0))
+    packed = _check_packed(packed, kernel, C, O)
+    xb = x_h.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError('x and the packed weights must be 16-byte aligned')
+    with torch.cuda.device(x_h.device):
+        out = _launch(xb, a, b, packed, conv_bias, plan, D, O, (lo, hi),
+                      torch.cuda.current_stream().cuda_stream, 'gn_silu_conv3d_halo')
+    gn_silu_conv3d_halo.launches += 1
+    return out
+
+
+gn_silu_conv3d_halo.launches = 0
 
 
 class _GnSiluConv3d(torch.autograd.Function):
@@ -261,3 +356,34 @@ def gn_silu_conv3d_autograd(x, scale, bias, kernel, conv_bias, num_groups: int =
     the forward launches the kernel (the plain version on the CPU), the
     backward differentiates the plain version."""
     return _GnSiluConv3d.apply(x, scale, bias, kernel, conv_bias, num_groups, eps, dtype, packed)
+
+
+class _GnSiluConv3dHalo(torch.autograd.Function):
+    """The halo mode's kernel forward, the gradients of its plain version
+    (as :class:`_GnSiluConv3d`): a and b get theirs, so the whole grid's
+    statistics carry the gradient back to every slab."""
+
+    @staticmethod
+    def forward(ctx, x_h, a, b, kernel, conv_bias, halo, dtype, packed):
+        ctx.save_for_backward(x_h, a, b, kernel, conv_bias)
+        ctx.args = (halo, dtype)
+        return gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo, dtype, packed=packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = gn_silu_conv3d_halo_reference(*inputs, *ctx.args)
+        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], g,
+                                         allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None, None, None)
+
+
+def gn_silu_conv3d_halo_autograd(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
+                                 dtype=torch.bfloat16, packed: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """:func:`gn_silu_conv3d_halo` with gradients for every tensor argument:
+    the forward launches the kernel (the plain version on the CPU), the
+    backward differentiates the plain version."""
+    return _GnSiluConv3dHalo.apply(x_h, a, b, kernel, conv_bias, halo, dtype, packed)

@@ -10,6 +10,12 @@ Replaces the TPU kernel ``meshdiffusion_tpu/ops/groupnorm.py``
   ``meshdiffusion_tpu/ops/gn_silu_conv.py:62``) feeds the conv kernel of
   ``gn_silu_conv.py``, 75 times a res64 forward.
 * ``groupnorm_silu_apply`` (:func:`groupnorm_silu`, Triton): ``silu(x * a + b)``.
+* the statistics kernel's moments mode (:func:`gn_moments`): each (sample,
+  group)'s fp32 (mean, M2) over a rank's depth slab, for the spatially
+  sharded U-Net (``parallel/spatial.py``): the slabs' moments are gathered,
+  merged in rank order (:func:`merge_moments`, Chan's formula) and folded
+  (:func:`affine_from_moments`, shared with the plain route) into the whole
+  grid's ``a, b``. :func:`gn_moments_autograd` gives them gradients.
 
 What bounds them on the H100: both are memory-bound (the statistics read x
 once, the apply reads it again and writes the output); below 32^3 the
@@ -77,6 +83,44 @@ def gn_affine_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     mean_c = mean.repeat_interleave(C // num_groups, dim=1)
     a = inv_c * scale.float()[None]
     return a, bias.float()[None] - mean_c * a
+
+
+def gn_moments_reference(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """(B, G, 2) fp32: the mean and M2 (the sum of squared deviations from
+    the mean) of each (sample, group) of channels-last x."""
+    B, C = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(B, -1, num_groups, C // num_groups)
+    mean = xf.mean(dim=(1, 3))
+    m2 = torch.square(xf - mean[:, None, :, None]).sum(dim=(1, 3))
+    return torch.stack([mean, m2], dim=-1)
+
+
+def merge_moments(moments: torch.Tensor, count: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """Merge S slabs' moments (S, B, G, 2), each over ``count`` elements of a
+    (sample, group), in slab order with Chan's formula: (mean, M2) (B, G) of
+    the whole and its element count. Plain torch, differentiable, the same
+    order on every rank."""
+    n, mean, m2 = float(count), moments[0, ..., 0], moments[0, ..., 1]
+    for s in range(1, moments.shape[0]):
+        t = n + count
+        d = moments[s, ..., 0] - mean
+        mean = mean + d * (count / t)
+        m2 = m2 + moments[s, ..., 1] + d * d * (n * count / t)
+        n = t
+    return mean, m2, n
+
+
+def affine_from_moments(mean: torch.Tensor, m2: torch.Tensor, count: float,
+                        scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold a (sample, group)'s mean and M2 over ``count`` elements with the
+    GroupNorm scale and bias into per-(B, C) fp32 ``a, b`` (as
+    :func:`gn_affine_reference` folds them)."""
+    gw = scale.shape[0] // mean.shape[1]
+    inv_c = torch.rsqrt(m2 / count + eps).repeat_interleave(gw, dim=1)
+    a = inv_c * scale.float()[None]
+    return a, bias.float()[None] - mean.repeat_interleave(gw, dim=1) * a
 
 
 def gn_affine_cost(x_shape, x_dtype: torch.dtype) -> Tuple[float, float]:
@@ -162,7 +206,7 @@ def _stats_scratch(device, stream: int, numel: int):
     return work, ticket
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int):
+def _check(x: torch.Tensor, scale, bias, num_groups: int):
     C = x.shape[-1]
     if C % num_groups:
         raise ValueError(f'channels {C} not divisible by {num_groups} groups')
@@ -170,11 +214,33 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups:
         raise ValueError('x must be contiguous channels-last (B, ..., C)')
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f'unsupported dtype {x.dtype}')
-    if scale.shape != (C,) or bias.shape != (C,):
+    if scale is not None and (scale.shape != (C,) or bias.shape != (C,)):
         raise ValueError(f'scale/bias must have shape ({C},)')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+    tensors = (x,) if scale is None else (x, scale, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError('the GroupNorm kernels are forward-only: call under '
                            'torch.inference_mode() or torch.no_grad()')
+
+
+def _stats_launch(x: torch.Tensor, num_groups: int, stream: int, outs, scale=None, bias=None,
+                  eps: float = 0.0, xb=None, moments=None) -> None:
+    """One launch of ``csrc/gn_stats.cu`` on ``stream`` (x's device current),
+    writing ``outs`` (a, b) from the fp32 contiguous ``scale`` and ``bias``
+    or, in moments mode, ``moments``."""
+    _check(x, scale, bias, num_groups)
+    B, C = x.shape[0], x.shape[-1]
+    S = x.numel() // (B * C)
+    CC, R = _gn_plan(S, C, num_groups, x.element_size(), _build.sm_count(x.device.index or 0))
+    if x.data_ptr() % 16:
+        raise ValueError('x must be 16-byte aligned')
+    work, ticket = _stats_scratch(x.device, stream, B * -(-S // R) * num_groups * 2)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    a, b = outs if outs is not None else (None, None)
+    err = _build.lib().gn_stats(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], ptr(scale), ptr(bias), ptr(a), ptr(b),
+        work.data_ptr(), ticket.data_ptr(), ptr(xb), ptr(moments), B, S, C, num_groups, CC, R,
+        float(eps), stream)
+    _build.check(err, 'gn_moments' if moments is not None else 'gn_affine')
 
 
 def _gn_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
@@ -182,23 +248,13 @@ def _gn_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_grou
     """One launch of ``csrc/gn_stats.cu`` on ``stream`` (x's device current):
     fp32 ``a, b`` (B, C), and with ``round_bf16`` (fp32 x only) x rounded to
     bf16 as well, else None."""
-    _check(x, scale, bias, num_groups)
-    B, C = x.shape[0], x.shape[-1]
-    S = x.numel() // (B * C)
-    CC, R = _gn_plan(S, C, num_groups, x.element_size(), _build.sm_count(x.device.index or 0))
-    if x.data_ptr() % 16:
-        raise ValueError('x must be 16-byte aligned')
     if round_bf16 and x.dtype != torch.float32:
         raise ValueError('only an fp32 x is rounded to bf16')
-    work, ticket = _stats_scratch(x.device, stream, B * -(-S // R) * num_groups * 2)
+    B, C = x.shape[0], x.shape[-1]
     a, b = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
     xb = torch.empty(x.shape, device=x.device, dtype=torch.bfloat16) if round_bf16 else None
-    err = _build.lib().gn_stats(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], scale.float().contiguous().data_ptr(),
-        bias.float().contiguous().data_ptr(), a.data_ptr(), b.data_ptr(), work.data_ptr(),
-        ticket.data_ptr(), xb.data_ptr() if xb is not None else None, B, S, C, num_groups, CC, R,
-        float(eps), stream)
-    _build.check(err, 'gn_affine')
+    scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    _stats_launch(x, num_groups, stream, (a, b), scale, bias, eps, xb=xb)
     gn_affine.launches += 1
     return a, b, xb
 
@@ -217,6 +273,58 @@ def gn_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 gn_affine.launches = 0
+
+
+def gn_moments(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """(B, G, 2) fp32 (mean, M2) of each (sample, group) of channels-last x:
+    the statistics kernel in its moments mode, one launch, on CUDA; the
+    plain version on the CPU."""
+    if not use_kernel('gn_moments', x):
+        return gn_moments_reference(x, num_groups)
+    out = torch.empty((x.shape[0], num_groups, 2), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        _stats_launch(x, num_groups, torch.cuda.current_stream().cuda_stream, None, moments=out)
+    gn_moments.launches += 1
+    return out
+
+
+gn_moments.launches = 0
+
+
+def gn_moments_cost(x_shape, x_dtype: torch.dtype, num_groups: int = 32) -> Tuple[float, float]:
+    """(FLOP, bytes) of one :func:`gn_moments` call: 3 fp32 operations an
+    element; x read once, the (B, G, 2) fp32 moments written once."""
+    n, B = math.prod(x_shape), x_shape[0]
+    esize = torch.empty((), dtype=x_dtype).element_size()
+    return 3.0 * n, float(n * esize + B * num_groups * 2 * 4)
+
+
+class _GnMoments(torch.autograd.Function):
+    """:func:`gn_moments` forward; the exact gradient backward: d mean / dx
+    = 1 / n and d M2 / dx = 2 (x - mean) over each (sample, group)."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups):
+        m = gn_moments(x, num_groups)
+        ctx.save_for_backward(x, m)
+        ctx.num_groups = num_groups
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        G = ctx.num_groups
+        B, C = x.shape[0], x.shape[-1]
+        xf = x.float().reshape(B, -1, G, C // G)
+        n = xf.shape[1] * xf.shape[3]
+        gx = (g[:, None, :, None, 0] / n
+              + 2.0 * g[:, None, :, None, 1] * (xf - m[:, None, :, None, 0]))
+        return gx.reshape(x.shape).to(x.dtype), None
+
+
+def gn_moments_autograd(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """:func:`gn_moments` with x's gradient."""
+    return _GnMoments.apply(x, num_groups)
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -2,7 +2,7 @@
 import no jax, flax, ml_collections or JAX package, and its command line
 runs its slices on the CPU: uncond_gen -> extract, fit_dmtets,
 fit_singleview -> cond_gen (with uncond_gen --traj and uncond_gen_interp),
-train, and the data tools with extract --save_viz on a generated grid, in
+train (in one process, and in two on a (1, 2) rank mesh), and the data tools with extract --save_viz on a generated grid, in
 a process where the JAX modules cannot be imported."""
 
 import json
@@ -259,6 +259,81 @@ def test_train_leaves_jax_out_of_the_process(tmp_path):
     assert result == {'step': 3, 'bad': []}
     events = list((tmp_path / 'run' / 'tensorboard').glob('events.out.tfevents.*'))
     assert len(events) == 1 and events[0].stat().st_size > 0
+
+
+_DIST_TRAIN_CHILD = r'''
+import hashlib, json, sys
+
+
+class Forbidden:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in %r:
+            raise ImportError('forbidden here: ' + name)
+
+
+sys.meta_path.insert(0, Forbidden())
+from meshdiffusion_tpu_torch.main import main
+out = sys.argv[1]
+state = main(['--mode', 'train', '--device', 'cpu', '--config', 'res64',
+              '--config.data.image_size=8', '--config.data.meta_path=' + out + '/meta.json',
+              '--config.data.grid_mask_path=' + out + '/mask.npy', '--config.data.num_workers=2',
+              '--config.model.nf=32', '--config.model.ch_mult=(1,2)',
+              '--config.model.num_res_blocks=1', '--config.model.attn_resolutions=(4,)',
+              '--config.model.num_scales=10', '--config.model.beta_max=2.0',
+              '--config.training.batch_size=2', '--config.training.iter_size=2',
+              '--config.training.n_iters=2', '--config.training.log_freq=1',
+              '--config.training.train_dir=' + out + '/run', '--config.gpu.compute_dtype=float32',
+              '--config.gpu.dist_backend=gloo', '--config.gpu.mesh_spatial_axis=2'])
+digest = hashlib.sha256()
+for p in state.model.parameters():
+    digest.update(p.detach().numpy().tobytes())
+bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)
+print('RESULT', json.dumps({'step': state.step, 'digest': digest.hexdigest(), 'bad': bad}))
+''' % (FORBIDDEN, FORBIDDEN)
+
+
+def test_two_rank_train_cli_runs_without_jax(tmp_path):
+    """``main --mode train --device cpu`` in two processes joined by the
+    MESHDIFFUSION_* variables (gloo, mesh (1, 2): each rank holds half of
+    every grid's depth), the JAX modules refused: both exit 0 after steps
+    0..2, rank 0 alone writes the metrics and the one snapshot, and both
+    ranks hold bit-equal weights."""
+    import socket
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(4):
+        paths.append(str(tmp_path / f'grid_{i:05d}.npy'))
+        np.save(paths[-1], rng.normal(size=(4, 8, 8, 8)).astype(np.float32))
+    (tmp_path / 'meta.json').write_text(json.dumps(paths))
+    np.save(tmp_path / 'mask.npy', (rng.random((8, 8, 8)) > 0.2).astype(np.float32))
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS='1',
+                   MESHDIFFUSION_COORDINATOR=f'localhost:{port}', MESHDIFFUSION_NUM_PROCESSES='2',
+                   MESHDIFFUSION_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen([sys.executable, '-c', _DIST_TRAIN_CHILD, str(tmp_path)],
+                                      cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    results = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f'rank {rank}:\n{err[-3000:]}'
+        line = [ln for ln in out.splitlines() if ln.startswith('RESULT')][-1]
+        results.append(json.loads(line.split(' ', 1)[1]))
+    assert [r['step'] for r in results] == [3, 3] and [r['bad'] for r in results] == [[], []]
+    assert results[0]['digest'] == results[1]['digest']
+    assert sorted(os.listdir(tmp_path / 'run' / 'checkpoints')) == ['checkpoint_3.pth']
+    lines = [json.loads(ln) for ln in (tmp_path / 'run' / 'metrics.jsonl').read_text().splitlines()]
+    assert [ln['step'] for ln in lines] == [0, 1, 2]
+    assert all(np.isfinite(ln['value']) for ln in lines)
 
 
 _TOOLS_CHILD = r'''

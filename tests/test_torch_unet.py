@@ -114,8 +114,9 @@ def test_full_width_parameter_count(name):
 
 def test_config_tree_matches_jax():
     """Same sections and keys as the JAX config, with ``gpu`` (compute_dtype,
-    tet_root: each a key of JAX's ``tpu``) in place of ``tpu`` and no
-    ``sampling.segment_steps``."""
+    tet_root and the mesh's mesh_data_axis, mesh_spatial_axis and
+    allow_device_idle: each a key of JAX's ``tpu``, with its value; and
+    dist_backend, 'nccl') in place of ``tpu`` and no ``sampling.segment_steps``."""
     def keys(c, prefix=''):
         out = set()
         for k, v in c.items():
@@ -125,11 +126,13 @@ def test_config_tree_matches_jax():
     for preset in ('res64', 'res128', 'default'):
         jc, pc = jax_get_config(preset), get_config(preset)
         jk = {k for k in keys(jc) if not k.startswith('tpu.')} - {'sampling.segment_steps'}
-        gpu = {'gpu.compute_dtype', 'gpu.tet_root'}
-        assert keys(pc) - gpu == jk
-        assert {k for k in keys(pc) if k.startswith('gpu.')} == gpu
+        gpu = {'gpu.compute_dtype', 'gpu.tet_root', 'gpu.mesh_data_axis', 'gpu.mesh_spatial_axis',
+               'gpu.allow_device_idle'}
+        assert keys(pc) - gpu - {'gpu.dist_backend'} == jk
+        assert {k for k in keys(pc) if k.startswith('gpu.')} == gpu | {'gpu.dist_backend'}
         for k in gpu:
             assert pc.gpu[k[4:]] == jc.tpu[k[4:]], k
+        assert pc.gpu.dist_backend == 'nccl'
         for k in jk:
             node_j, node_p = jc, pc
             for p in k.split('.'):
