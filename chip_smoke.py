@@ -21,7 +21,9 @@ sky with random light rotations, validation renders and the UV-baked
 export) at FitConfig's defaults; and training on rank meshes, every rank
 a process on this card joined by gloo: res64 at full width on a (2, 2)
 (data, spatial) mesh and res128 on (1, 2), the grid's depth split over the
-spatial axis. Phases, in order:
+spatial axis; and the edge-AA alternates (``MESHDIFFUSION_AA_IMPL``
+compact, flat and vmap) at the fit's full width, with the fit-quality gate
+under each. Phases, in order:
 
 1. the card: name and power limit, versions; TF32 off for fp32 comparisons;
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
@@ -183,7 +185,24 @@ spatial axis. Phases, in order:
     process running the res128 step at micro-batch 1 as phase 22 is, with
     each rank's peak memory beside the one process's; numbers of 21-23 to
     ``DIR/parallel.json``;
-24. a JSON line of each path's launches, one JSON line of kernel results
+24. (a) the GT mesh of phase 7 rendered at 512^2, batch 4, two layers,
+    through ``render_mesh`` under MESHDIFFUSION_AA_IMPL compact, flat and
+    vmap (capacities grown until nothing drops): flat's and vmap's shaded
+    image within max-abs 1e-5 of compact's and the gradient of a fixed
+    image loss w.r.t. v_pos within relative L2 1e-4, aa_overflow 0 in each,
+    each arm's tile_zmin call (one a render) bit-equal to plain, and each
+    render's AA pass replayed under torch.profiler (device ms, forward and
+    forward + backward); (b) the fit-quality gate of the JAX package
+    (tests/test_fit_convergence.py) on the tests' 8^3 tet grid, copied here:
+    the radius-0.3 sphere, 48^2, batch 1, 120 pass-1 iterations,
+    ``learn_light``, a GT pool of 8, capacities regrown as the fit driver
+    does, under each AA implementation, held to JAX's thresholds (cd1 <
+    0.5 cd0, cd1 < 0.025, the last quartile's image loss < 0.10 of the
+    first's, the light moved and >= 0), counters set to 0 before each arm
+    and read after; then the AA ablation's arms (tools/aa_ablation.py: 150
+    iterations at 64^2, AA on and off) with chamfer and 4-pose PSNR beside
+    the JAX package's recorded numbers; numbers to ``DIR/aa_gate.json``;
+25. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
     the statistics also ``library_device_ms``, torch.var_mean's device
@@ -2139,6 +2158,437 @@ def parallel_train_run(spec: dict, dev, timeout_s: float) -> dict:
             'launches': launches, 'card': _smi()}
 
 
+# ---- phase 24: the edge-AA alternates at full width, the fit-quality gate ----
+
+AA_IMPLS = ('compact', 'flat', 'vmap')      # MESHDIFFUSION_AA_IMPL's values
+GATE_ITERS, ABL_ITERS = 120, 150            # the gate's pass-1 iterations; the ablation's
+# the JAX package's AA ablation (AA_ABLATION.md: 150 iterations at 64^2, JAX on the
+# CPU): (chamfer, 4-pose validation PSNR dB) with AA on and off; a comparison only
+JAX_ABLATION = {'on': (0.01323, 33.31), 'off': (0.01284, 29.82)}
+
+
+class aa_impl:
+    """``MESHDIFFUSION_AA_IMPL`` set to ``impl`` inside the block, restored
+    after it."""
+
+    def __init__(self, impl: str):
+        self.impl = impl
+
+    def __enter__(self):
+        self.old = os.environ.get('MESHDIFFUSION_AA_IMPL')
+        os.environ['MESHDIFFUSION_AA_IMPL'] = self.impl
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop('MESHDIFFUSION_AA_IMPL', None)
+        else:
+            os.environ['MESHDIFFUSION_AA_IMPL'] = self.old
+
+
+def tiny_tet_grid():
+    """The tests' tiny tet grid (tests/conftest.py ``tiny_tet_grid``) as the
+    port's TetGrid: an 8^3 vertex lattice over [-0.45, 0.45]^3, each cube
+    cut into the 6 Kuhn tets."""
+    import numpy as np
+    from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
+    n = 8
+    xs = np.linspace(-0.45, 0.45, n, dtype=np.float32)
+    verts = np.stack(np.meshgrid(xs, xs, xs, indexing='ij'), -1).reshape(-1, 3)
+    vid = np.arange(n ** 3).reshape(n, n, n)
+    corner = [vid[i:n - 1 + i, j:n - 1 + j, k:n - 1 + k].reshape(-1)
+              for k in (0, 1) for j in (0, 1) for i in (0, 1)]
+    kuhn = ((0, 1, 3, 7), (0, 1, 5, 7), (0, 2, 3, 7), (0, 2, 6, 7), (0, 4, 5, 7), (0, 4, 6, 7))
+    tets = np.stack([np.stack([corner[a] for a in t], 1) for t in kuhn], 1).reshape(-1, 4)
+    return TetGrid.from_arrays(n, verts, tets.astype(np.int32))
+
+
+def _gate_reference(tg, work: str, dev):
+    """The gate's GT: the sphere of radius 0.3 marched on ``tg``, written
+    as an .obj and read back, centred, with normals and the default
+    material; and its constant light (bias 0.5), as the JAX gate builds
+    them."""
+    import torch
+    from meshdiffusion_tpu_torch.fitting import fit as F
+    from meshdiffusion_tpu_torch.geometry.marching_tets import compact_mesh, marching_tets
+    from meshdiffusion_tpu_torch.geometry.obj_io import write_obj
+    from meshdiffusion_tpu_torch.render import light as light_mod
+    from meshdiffusion_tpu_torch.render import mesh as mesh_mod
+    from meshdiffusion_tpu_torch.render import obj as obj_mod
+    import numpy as np
+    path = os.path.join(work, 'gt_sphere.obj')
+    sdf = np.linalg.norm(tg.verts, axis=1).astype(np.float32) - 0.3
+    v, f = compact_mesh(marching_tets(tg, torch.from_numpy(tg.verts), torch.from_numpy(sdf)))
+    write_obj(path, v, f)
+    ref = obj_mod.load_mesh(path, device=dev)
+    ref = mesh_mod.auto_normals(mesh_mod.center_by_reference(ref, mesh_mod.aabb(ref.v_pos), 1.0))
+    ref.material = F.default_material(dev)
+    env = light_mod.create_trainable_env_rnd(64, scale=0.0, bias=0.5, device=dev)
+    env.build_mips()
+    return ref, env
+
+
+def _gate_draws(fitter, dev):
+    """The gate's random stream and initial state: a CPU generator seeded 1
+    whose draws are handed to ``dev``, so that a run on the card sees the
+    draws of the same run on the CPU (JAX's threefry draws, which the JAX
+    gate's thresholds were set on, are the same on every device; torch's
+    CUDA generator draws others). Returns (generator, uniform source, the
+    fitter's initial state on ``dev``)."""
+    import dataclasses
+    import torch
+    from meshdiffusion_tpu_torch.geometry.fit_losses import torch_uniform
+    gen = torch.Generator().manual_seed(1)
+    state = fitter.init_state(gen, gen.device)
+    state = state.replace(**{f.name: getattr(state, f.name).to(dev)
+                             for f in dataclasses.fields(state)})
+    return gen, torch_uniform(gen, dev), state
+
+
+def _chamfer_to(fitter, state, gt_pts, uniform) -> float:
+    """The chamfer distance of 2000 samples of the fitted mesh to ``gt_pts``."""
+    import torch
+    from meshdiffusion_tpu_torch.geometry.fit_losses import chamfer_distance, sample_points
+    m = fitter.get_mesh(state)
+    with torch.no_grad():
+        pts = sample_points(m.v_pos, m.t_pos_idx, 2000, uniform, face_mask=m.face_mask)
+        return float(chamfer_distance(pts, gt_pts))
+
+
+def fit_gate(tg, work: str, dev, iters: int = GATE_ITERS) -> dict:
+    """The fit-quality gate (tests/test_fit_convergence.py
+    ``test_pass1_fit_converges``) on the port, under the current
+    MESHDIFFUSION_AA_IMPL: ``iters`` pass-1 iterations of the radius-0.3
+    sphere on ``tg`` at 48^2, batch 1, ``learn_light`` (the candidate's
+    light a second Adam's leaf), GT views from a pool of 8. A step whose
+    counters report an overflow is redone from its snapshot with the
+    capacity grown, as the fit driver does (raster_K, raster_Kg,
+    raster_live, shade_cap and aa_budget). Returns the numbers
+    :func:`gate_failures` checks."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch.fitting import fit as F
+    from meshdiffusion_tpu_torch.fitting.dataset import TargetRenderer
+    from meshdiffusion_tpu_torch.fitting.geometry import DMTetFitter
+    from meshdiffusion_tpu_torch.geometry.fit_losses import sample_points
+    from meshdiffusion_tpu_torch.render.rasterize import grow_capacity
+    ref, env = _gate_reference(tg, work, dev)
+    res = (48, 48)
+    cfg = F.FitConfig(iter=iters, batch=1, train_res=res, dmtet_grid=tg.resolution,
+                      mesh_scale=1.0, surface_samples=2000, raster_K=256, normal_only=True,
+                      learn_light=True, cam_radius=2.0)
+    fitter = DMTetFitter(grid=tg, scale=cfg.mesh_scale, deform_scale=2.0, sdf_regularizer=0.2,
+                         total_iter=cfg.iter, buffer_capacity=50)
+    gen, uniform, state = _gate_draws(fitter, dev)
+    renderer = TargetRenderer(ref_mesh=ref, envlight=env, cam_radius=2.0, train_res=res,
+                              num_surface_samples=2000, target_pool=8, generator=gen)
+    state = state.replace(sdf=state.sdf.requires_grad_(), deform=state.deform.requires_grad_())
+    opt_geo = torch.optim.Adam([state.sdf, state.deform], lr=0.0)
+    light_base = env.base.detach().clone().requires_grad_()
+    light_base0 = light_base.detach().clone()
+    opt_lgt = torch.optim.Adam([light_base], lr=0.0)
+    step = F.make_fit_step(fitter, cfg, renderer, 0)
+    with torch.no_grad():
+        gt_pts = sample_points(ref.v_pos, ref.t_pos_idx, 2000, uniform)
+    cd0 = _chamfer_to(fitter, state, gt_pts, uniform)
+    np_rng = np.random.default_rng(0)
+    img_hist, regrows, grown, it = [], 0, [], 0
+    t0 = time.perf_counter()
+    while it < cfg.iter:
+        target = renderer.random_target(1, np_rng)
+        saved = (state, state.sdf.detach().clone(), state.deform.detach().clone(),
+                 copy.deepcopy(opt_geo.state_dict()), light_base.detach().clone(),
+                 copy.deepcopy(opt_lgt.state_dict()), gen.get_state())
+        new, metrics = step(state, light_base, opt_geo, opt_lgt, target, it, uniform)
+        over = {k: int(metrics[k]) for k in ('raster_overflow', 'raster_overflow_global',
+                                             'raster_overflow_live', 'shade_overflow',
+                                             'aa_overflow')}
+        updates = {name: grow_capacity(getattr(cfg, name), over[key], F._FIT_CAP_MAX[name])
+                   for name, key in F.RASTER_CAPS if over[key] > 0}
+        if over['shade_overflow'] > 0:
+            cur = res[0] * res[1] // 4 if cfg.shade_cap < 0 else cfg.shade_cap
+            updates['shade_cap'] = grow_capacity(cur, over['shade_overflow'], res[0] * res[1])
+        if over['aa_overflow'] > 0:
+            cur = cfg.aa_budget or cfg.batch * (res[0] + res[1]) * 8
+            updates['aa_budget'] = grow_capacity(cur, over['aa_overflow'], first=2)
+        if updates:
+            # redo the step from its snapshot with the grown capacities
+            state, sdf, deform, geo_sd, lb, lgt_sd, rng_state = saved
+            with torch.no_grad():
+                state.sdf.copy_(sdf)
+                state.deform.copy_(deform)
+                light_base.copy_(lb)
+            opt_geo.load_state_dict(geo_sd)
+            opt_lgt.load_state_dict(lgt_sd)
+            gen.set_state(rng_state)
+            cfg = dataclasses.replace(cfg, **updates)
+            step = F.make_fit_step(fitter, cfg, renderer, 0)
+            regrows += 1
+            grown.append((it, updates))
+            assert regrows < 10, grown
+            continue
+        state = new
+        img_hist.append(float(metrics['img_loss']))
+        it += 1
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    cd1 = _chamfer_to(fitter, state, gt_pts, uniform)
+    q = len(img_hist) // 4
+    lb = light_base.detach()
+    return {'cd0': cd0, 'cd1': cd1, 'img_first_q': float(np.mean(img_hist[:q])),
+            'img_last_q': float(np.mean(img_hist[-q:])),
+            'light_moved': float((lb - light_base0).abs().max()), 'light_min': float(lb.min()),
+            'regrows': grown, 'fit_s': fit_s, 'steps_run': iters + regrows,
+            'pool_renders': renderer.target_pool}
+
+
+def gate_failures(r: dict) -> list:
+    """The JAX gate's thresholds (tests/test_fit_convergence.py:120-135)
+    that ``r`` (:func:`fit_gate`'s numbers) misses."""
+    import math
+    checks = [('cd1 finite', math.isfinite(r['cd1'])),
+              ('light base moved', r['light_moved'] > 0),
+              ('light base >= 0', r['light_min'] >= 0),
+              ('cd1 < 0.5 cd0', r['cd1'] < 0.5 * r['cd0']),
+              ('cd1 < 0.025', r['cd1'] < 0.025),
+              ('img last quartile < 0.10 x first', r['img_last_q'] < 0.10 * r['img_first_q'])]
+    return [name for name, ok in checks if not ok]
+
+
+def ablation_arm(tg, work: str, dev, aa: bool, iters: int = ABL_ITERS):
+    """One arm of the JAX package's AA ablation (tools/aa_ablation.py
+    ``run_arm``) on the port: the gate's sphere, ``iters`` pass-1
+    iterations at 64^2, batch 1, raster_K 2048, the light fixed, edge AA on
+    or off; then the chamfer distance and the PSNR over 4 circular
+    validation poses. Returns (chamfer, PSNR dB, steps)."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch.fitting import fit as F
+    from meshdiffusion_tpu_torch.fitting.dataset import TargetRenderer
+    from meshdiffusion_tpu_torch.fitting.geometry import DMTetFitter
+    from meshdiffusion_tpu_torch.geometry.fit_losses import sample_points
+    from meshdiffusion_tpu_torch.render.render import render_mesh
+    ref, env = _gate_reference(tg, work, dev)
+    res = (64, 64)
+    cfg = F.FitConfig(iter=iters, batch=1, train_res=res, dmtet_grid=tg.resolution,
+                      mesh_scale=1.0, surface_samples=2000, raster_K=2048, normal_only=True,
+                      learn_light=True, cam_radius=2.0, antialias=aa)
+    fitter = DMTetFitter(grid=tg, scale=1.0, deform_scale=2.0, sdf_regularizer=0.2,
+                         total_iter=cfg.iter, buffer_capacity=50)
+    gen, uniform, state = _gate_draws(fitter, dev)
+    renderer = TargetRenderer(ref_mesh=ref, envlight=env, cam_radius=2.0, train_res=res,
+                              num_surface_samples=2000, generator=gen)
+    state = state.replace(sdf=state.sdf.requires_grad_(), deform=state.deform.requires_grad_())
+    opt_geo = torch.optim.Adam([state.sdf, state.deform], lr=0.0)
+    step = F.make_fit_step(fitter, cfg, renderer, 0)
+    np_rng = np.random.default_rng(0)
+    for it in range(cfg.iter):
+        # the light fixed (light_base None), as the JAX arms
+        state, metrics = step(state, None, opt_geo, None, renderer.random_target(1, np_rng), it,
+                              uniform)
+        assert int(metrics['raster_overflow']) == 0, it
+    with torch.no_grad():
+        gt_pts = sample_points(ref.v_pos, ref.t_pos_idx, 2000, uniform)
+        cd = _chamfer_to(fitter, state, gt_pts, uniform)
+        m = fitter.get_mesh(state)
+        m.material = F.default_material(dev)
+        mses = []
+        for k in range(4):
+            _, mvp, campos = renderer.rotate_camera(k * 12)
+            tgt = renderer.render_target(mvp, campos)
+            pred = render_mesh(m, tgt['mvp'], tgt['campos'], env, res, num_layers=1,
+                               raster_K=2048)
+            mses.append(float(torch.mean((pred['shaded'][..., :3] - tgt['img'][..., :3]) ** 2)))
+    return cd, float(-10.0 * np.log10(max(np.mean(mses), 1e-10))), cfg.iter
+
+
+def _aa_pass_ms(calls, dev) -> dict:
+    """Device ms (torch.profiler) and CUDA-event ms of a render's edge AA
+    replayed from its recorded calls [(fn, args, kwargs)]: forward alone,
+    and forward + backward (the gradients w.r.t. each call's colour and
+    v_clip of a fixed weighting of its image)."""
+    import torch
+    leaves = []
+    for fn, args, kw in calls:
+        args = [a.detach() if torch.is_tensor(a) else a for a in args]
+        vi = 4 if fn.__name__ == 'antialias_views' else 2       # v_clip's place
+        args[0] = args[0].clone().requires_grad_()
+        args[vi] = args[vi].clone().requires_grad_()
+        leaves.append((fn, args, kw, vi))
+    gen = torch.Generator(dev).manual_seed(5)
+    wgts = [torch.rand(a[0].shape, generator=gen, device=dev) for _, a, _, _ in leaves]
+
+    def run(grad: bool):
+        outs = []
+        for fn, args, kw, vi in leaves:
+            out = fn(*args, **kw)
+            out = out[0] if isinstance(out, tuple) else out
+            if grad:
+                outs.append(torch.autograd.grad((out * wgts[len(outs)]).sum(),
+                                                (args[0], args[vi])))
+        return outs
+
+    with torch.no_grad():
+        fwd = lambda: run(False)
+        fwd_ms = sum(_device_ms(fwd, 5).values())
+        fwd_ev = _time_ms(fwd, 5, 1)
+    both = lambda: run(True)
+    return {'calls': len(calls), 'fwd_device_ms': fwd_ms, 'fwd_events_ms': fwd_ev,
+            'fwd_bwd_device_ms': sum(_device_ms(both, 5).values()),
+            'fwd_bwd_events_ms': _time_ms(both, 5, 1)}
+
+
+AA_RES, AA_BATCH = (512, 512), 4       # phase 24 (a): FitConfig's train_res and batch
+
+
+def aa_alternates_run(gt_path: str, dev, record, per_shape) -> dict:
+    """Phase 24 (a): the GT mesh (torus united with box, phase 7's) rendered
+    at 512^2, batch 4, two layers, through ``render_mesh`` under each
+    MESHDIFFUSION_AA_IMPL (capacities grown until nothing drops: raster_K,
+    raster_Kg, and compact's aa_budget); flat's and vmap's images and the
+    gradient of a fixed image loss w.r.t. v_pos held against compact's
+    (max-abs 1e-5; relative L2 1e-4), aa_overflow 0 in each; each arm's
+    tile_zmin call held bit-equal to plain; the AA pass replayed for its
+    device time."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.fitting.dataset import TargetRenderer
+    from meshdiffusion_tpu_torch.render import light as light_mod
+    from meshdiffusion_tpu_torch.render import mesh as mesh_mod
+    from meshdiffusion_tpu_torch.render import obj as obj_mod
+    from meshdiffusion_tpu_torch.render import rasterize as raster
+    from meshdiffusion_tpu_torch.render import render as render_mod
+    from meshdiffusion_tpu_torch.render.rasterize import grow_capacity
+    from meshdiffusion_tpu_torch.fitting.fit import default_material
+    ref = obj_mod.load_mesh(gt_path, device=dev)
+    ref = mesh_mod.center_by_reference(ref, mesh_mod.aabb(ref.v_pos), 1.0)
+    ren = TargetRenderer(ref_mesh=ref, envlight=None, cam_radius=3.0, train_res=AA_RES)
+    _, mvp, campos = ren.random_cameras(AA_BATCH, np.random.default_rng(0))
+    gen = torch.Generator(dev).manual_seed(3)
+    lgt = light_mod.create_trainable_env_rnd(64, scale=0.5, bias=0.25, generator=gen, device=dev)
+    lgt.build_mips()
+    wgt = torch.randn((AA_BATCH,) + AA_RES + (4,), generator=gen, device=dev)
+    caps = {'raster_K': 256, 'raster_Kg': 64, 'aa_budget': None}
+    out = {}
+    for impl in AA_IMPLS:
+        zcalls, aa_calls = [], []
+        launch = raster.tile_zmin
+        views_fn, one_fn = render_mod.antialias_views, render_mod.antialias
+
+        def zrec(*args):
+            o = launch(*args)
+            zcalls.append((args, o))
+            return o
+
+        def rec(fn):
+            def wrapped(*args, **kw):
+                aa_calls.append((fn, args, kw))
+                return fn(*args, **kw)
+            return wrapped
+        while True:
+            v_pos = ref.v_pos.detach().clone().requires_grad_()
+            m = mesh_mod.auto_normals(mesh_mod.Mesh(v_pos=v_pos, t_pos_idx=ref.t_pos_idx,
+                                                    material=default_material(dev)))
+            zcalls.clear()
+            aa_calls.clear()
+            ops.reset_launch_counts()
+            raster.tile_zmin, render_mod.antialias_views = zrec, rec(views_fn)
+            render_mod.antialias = rec(one_fn)
+            try:
+                with aa_impl(impl):
+                    o = render_mod.render_mesh(m, mvp, campos, lgt, AA_RES, num_layers=2,
+                                               raster_K=caps['raster_K'],
+                                               raster_Kg=caps['raster_Kg'],
+                                               aa_budget=caps['aa_budget'])
+            finally:
+                raster.tile_zmin, render_mod.antialias_views = launch, views_fn
+                render_mod.antialias = one_fn
+            launches = ops.launch_counts()
+            over = {k: int(o[k]) for k in ('raster_overflow', 'raster_overflow_global',
+                                           'raster_overflow_live', 'aa_overflow')}
+            assert over['raster_overflow_live'] == 0, over
+            if over['raster_overflow']:
+                caps['raster_K'] = grow_capacity(caps['raster_K'], over['raster_overflow'])
+            if over['raster_overflow_global']:
+                caps['raster_Kg'] = grow_capacity(caps['raster_Kg'],
+                                                  over['raster_overflow_global'])
+            if over['aa_overflow']:
+                cur = caps['aa_budget'] or AA_BATCH * sum(AA_RES) * 8
+                caps['aa_budget'] = grow_capacity(cur, over['aa_overflow'], first=2)
+            if not any(over.values()):
+                break
+            assert impl == 'compact', (impl, over)      # the others render at compact's capacities
+        (o['shaded'] * wgt).sum().backward()
+        assert launches['tile_zmin'] == 1 and len(zcalls) == 1, launches
+        shaded = o['shaded'].detach()
+        assert torch.isfinite(shaded).all() and float(o['mask'].mean()) > 0.02
+        row = zmin_plain_check(zcalls[0], record, f'AA {impl} render {AA_RES[0]}^2 x{AA_BATCH}')
+        per_shape.append(row)
+        out[impl] = {'shaded': shaded, 'grad': v_pos.grad.detach(), 'launches': launches,
+                     'aa': _aa_pass_ms(aa_calls, dev), 'zmin': row, 'caps': dict(caps)}
+    base = out['compact']
+    for impl in AA_IMPLS[1:]:
+        img_err = float((out[impl]['shaded'] - base['shaded']).abs().max())
+        grad_rel = _rel_l2(out[impl]['grad'], base['grad'])
+        out[impl].update(img_max_abs_vs_compact=img_err, grad_rel_l2_vs_compact=grad_rel)
+        assert img_err <= 1e-5 and grad_rel <= 1e-4, (impl, img_err, grad_rel)
+    return {impl: {k: v for k, v in r.items() if k not in ('shaded', 'grad')}
+            for impl, r in out.items()}
+
+
+def fit_quality_run(dev) -> dict:
+    """Phase 24 (b): the fit-quality gate (:func:`fit_gate`) under each
+    MESHDIFFUSION_AA_IMPL, every launch counter set to 0 just before each
+    arm and read just after (tile_zmin once a render: the pool's 8 GT
+    renders and every step run); then the AA ablation's two arms
+    (:func:`ablation_arm`, compact AA on and AA off). Prints every arm's
+    numbers, then fails if an arm missed one of JAX's thresholds."""
+    from meshdiffusion_tpu_torch import ops
+    tg = tiny_tet_grid()
+    work = tempfile.mkdtemp(prefix='chip_smoke_gate_')
+    out, launches = {'gate': {}, 'ablation': {}}, {}
+    try:
+        for impl in AA_IMPLS:
+            ops.reset_launch_counts()
+            with aa_impl(impl):
+                r = fit_gate(tg, work, dev)
+            n = launches[f'fit_gate_{impl}'] = ops.launch_counts()
+            assert n['tile_zmin'] == r['pool_renders'] + r['steps_run'], (impl, n, r)
+            r['failed'] = gate_failures(r)
+            out['gate'][impl] = r
+            print(f'fit gate, AA {impl} (sphere r 0.3 on the 8^3 grid, 48^2, batch 1, '
+                  f'{GATE_ITERS} pass-1 iterations, learn_light, pool 8): cd0 {r["cd0"]:.5f} -> '
+                  f'cd1 {r["cd1"]:.5f} (ratio {r["cd1"] / r["cd0"]:.3f}; JAX gates < 0.5 and '
+                  f'cd1 < 0.025); image loss first quartile {r["img_first_q"]:.5f} -> last '
+                  f'{r["img_last_q"]:.5f} (ratio {r["img_last_q"] / r["img_first_q"]:.4f}, gate '
+                  f'< 0.10); light base moved {r["light_moved"]:.4f}, min {r["light_min"]:.4f}; '
+                  f'{r["steps_run"]} steps run, capacity regrows {r["regrows"]}, '
+                  f'{r["fit_s"]:.2f} s; tile_zmin {n["tile_zmin"]}; '
+                  + ('missed: ' + ', '.join(r['failed']) if r['failed']
+                     else 'every threshold met'))
+        for arm, aa in (('on', True), ('off', False)):
+            ops.reset_launch_counts()
+            cd, psnr, iters = ablation_arm(tg, work, dev, aa)
+            n = launches[f'aa_ablation_{arm}'] = ops.launch_counts()
+            # a GT render and a fit step an iteration, then 4 validation poses x 2
+            assert n['tile_zmin'] == 2 * iters + 8, n
+            jcd, jpsnr = JAX_ABLATION[arm]
+            out['ablation'][arm] = {'chamfer': cd, 'psnr_db': psnr, 'jax_chamfer': jcd,
+                                    'jax_psnr_db': jpsnr}
+            print(f'AA ablation, AA {arm} ({ABL_ITERS} iterations at 64^2, 4 validation poses): '
+                  f'chamfer {cd:.5f}, PSNR {psnr:.2f} dB; the JAX package recorded {jcd} / '
+                  f'{jpsnr} dB (JAX on the CPU, AA_ABLATION.md; a comparison, not a target); '
+                  f'tile_zmin {n["tile_zmin"]}')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    missed = {impl: r['failed'] for impl, r in out['gate'].items() if r['failed']}
+    assert not missed, f'the fit gate missed JAX\'s thresholds: {missed}'
+    return {'json': out, 'launches': launches}
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2869,7 +3319,32 @@ def main() -> int:
         json.dump({'kernels': par_k, 'train': par, 'nccl_shared_card': nccl, 'card': _smi()}, f,
                   indent=1)
 
-    # ---- 24. results ----
+    # ---- 24. the edge-AA alternates at full width; the fit-quality gate ----
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_aa_')
+    try:
+        gt = os.path.join(tmp, 'gt.obj')
+        gt_mesh(gt)
+        aa = aa_alternates_run(gt, dev, record, per_shape)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for impl, r in aa.items():
+        cmp = ('' if impl == 'compact' else
+               f'; vs compact: image max-abs {r["img_max_abs_vs_compact"]:.3e} (bound 1e-5), '
+               f'v_pos gradient rel_l2 {r["grad_rel_l2_vs_compact"]:.3e} (bound 1e-4)')
+        print(f'AA {impl}: render {AA_RES[0]}^2 x{AA_BATCH}, 2 layers, capacities {r["caps"]}, '
+              f'aa_overflow 0, tile_zmin {r["launches"]["tile_zmin"]} launch, bit-equal to '
+              f'plain{cmp}')
+    for impl, r in aa.items():
+        a = r['aa']
+        print(f'AA pass device time, {impl}: {a["calls"]} call(s) a render, forward '
+              f'{a["fwd_device_ms"]:.4f} ms (CUDA events {a["fwd_events_ms"]:.4f}), forward + '
+              f'backward {a["fwd_bwd_device_ms"]:.4f} ms (CUDA events '
+              f'{a["fwd_bwd_events_ms"]:.4f})')
+    gate = fit_quality_run(dev)
+    with open(os.path.join(out_dir, 'aa_gate.json'), 'w') as f:
+        json.dump({'aa_alternates': aa, **gate['json'], 'card': _smi()}, f, indent=1)
+
+    # ---- 25. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
     meta = {
@@ -2893,7 +3368,9 @@ def main() -> int:
                'train': train_launches, 'uncond_gen_res128': uncond128_launches,
                'extract_viz': viz_launches, 'likelihood': likelihood_launches,
                **tex['launches'], 'train_res64_2x2': par['res64 (2, 2)']['launches'],
-               'train_res128_1x2': par['res128 (1, 2)']['launches']}
+               'train_res128_1x2': par['res128 (1, 2)']['launches'],
+               **{f'aa_alternates_{impl}': r['launches'] for impl, r in aa.items()},
+               **gate['launches']}
     print(json.dumps({'launches_by_path': by_path}))
     path_launches = {n: sum(p[n] for p in by_path.values()) for n in launches}
     # launches a forward, a sampler step or a fit step (GT renders count as steps), all counted

@@ -76,6 +76,9 @@ def get_default_config() -> Config:
         mesh_data_axis=-1,         # ranks along the batch; -1: every rank left
         mesh_spatial_axis=1,       # ranks along the grid's depth
         allow_device_idle=False,   # shrink the data axis to a divisor of the batch
+        # each ResnetBlock under torch.utils.checkpoint in the train forward
+        # (recomputed in the backward); res64 needs it to fit a micro-batch
+        remat_blocks=True,
         dist_backend='nccl')       # 'gloo' on the CPU and where ranks share a card
     return config
 

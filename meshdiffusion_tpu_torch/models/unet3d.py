@@ -30,9 +30,10 @@ only a plain comparison turns it off.
 GroupNorm+SiLU in its plain version (the Triton apply has no backward), and
 each ResnetBlock under ``torch.utils.checkpoint`` (its internals recomputed
 in the backward, the dropout mask too, from the saved RNG state): training
-at res64 needs it to fit a micro-batch, so no config key turns it off; the
-``remat_blocks`` argument does so only for a test that holds the recompute
-against the plain backward. ``nn.Module.training`` plays no part.
+at res64 needs it to fit a micro-batch. ``gpu.remat_blocks`` (the
+``remat_blocks`` argument; the JAX package's ``tpu.remat_blocks``) False
+keeps every block's activations instead. ``nn.Module.training`` plays no
+part.
 """
 
 from __future__ import annotations
@@ -132,7 +133,8 @@ class UNet3D(nn.Module):
             centered=config.data.centered, stem_kernel=5 if is_128 else 3,
             use_coords=not is_128, scale_by_sigma=m.scale_by_sigma,
             sigma_min=m.sigma_min, sigma_max=m.sigma_max, num_scales=m.num_scales,
-            dtype=getattr(torch, config.gpu.compute_dtype), dropout=m.dropout)
+            dtype=getattr(torch, config.gpu.compute_dtype), dropout=m.dropout,
+            remat_blocks=bool(config.gpu.get('remat_blocks', True)))
         kw.update(overrides)
         return cls(**kw)
 

@@ -16,7 +16,9 @@ nvdiffrast's rasterize/interpolate/antialias (reference
 * **Hard visibility, soft attributes.** Selection is detached; barycentrics
   are recomputed with autograd from the winning triangle's vertices, and
   silhouette gradients come from the analytic edge-AA pass
-  (:func:`antialias_views`, the ``dr.antialias`` equivalent).
+  (:func:`antialias_views`, the ``dr.antialias`` equivalent: on the
+  compacted silhouette pairs by default, or dense over every pair, all
+  views at once or one view at a time with :func:`antialias`).
 
 Conventions: clip-space input after an OpenGL projection
 (``utils.perspective``), y-down pixel grid, screen-linear z/w depth. A view
@@ -31,6 +33,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import tile_zmin
 from ..ops.tile_zmin import tile_grid
@@ -340,6 +343,154 @@ def interpolate(attr: torch.Tensor, rast: RasterOut, faces: torch.Tensor) -> tor
     return torch.where(rast.valid[..., None], out, 0.0)
 
 
+def uv_derivatives(texc: torch.Tensor) -> torch.Tensor:
+    """Screen-space uv derivatives (du/dx, du/dy, dv/dx, dv/dy) of a
+    (H, W, 2) uv image by one-pixel forward differences (the last row and
+    column difference to themselves): the cheap estimate;
+    :func:`uv_derivatives_analytic` is the exact ``rast_db`` equivalent."""
+    du_dx = torch.diff(texc, dim=1, append=texc[:, -1:])
+    du_dy = torch.diff(texc, dim=0, append=texc[-1:])
+    return torch.cat([du_dx[..., :1], du_dy[..., :1], du_dx[..., 1:2], du_dy[..., 1:2]], dim=-1)
+
+
+def uv_derivatives_analytic(uv_attr: torch.Tensor, rast: RasterOut, v_clip: torch.Tensor,
+                            faces: torch.Tensor, res: Tuple[int, int]) -> torch.Tensor:
+    """Exact screen-space derivatives (du/dx, du/dy, dv/dx, dv/dy) of the
+    perspective-correct interpolated uv: nvdiffrast's ``rast_db`` feeding
+    ``dr.texture``'s mip selection (reference texture.py:67-75).
+
+    The winning triangle's screen-linear barycentrics l_i are affine in the
+    pixel coordinates; with q_i = 1/w_i and s = sum_j l_j q_j the
+    perspective-correct p_i = l_i q_i / s has dp_i = (dl_i q_i s - l_i q_i
+    ds) / s^2, in closed form a pixel. uv_attr (V, 2); returns (H, W, 4),
+    zeros where nothing covers."""
+    x, y, _, inv_w = _screen_coords(v_clip, res)
+    f = faces[rast.tri_id.clamp(min=0)]                # (H, W, 3)
+    f0, f1, f2 = f[..., 0], f[..., 1], f[..., 2]
+    ax, bx, cx = gather(x, f0), gather(x, f1), gather(x, f2)
+    ay, by, cy = gather(y, f0), gather(y, f1), gather(y, f2)
+    qa, qb, qc = gather(inv_w, f0), gather(inv_w, f1), gather(inv_w, f2)
+    px, py = _pixel_centres(res, v_clip.device)
+    w0 = _edge(bx, by, cx, cy, px, py)
+    w1 = _edge(cx, cy, ax, ay, px, py)
+    area = _edge(ax, ay, bx, by, cx, cy)
+    tiny = torch.where(area >= 0, 1e-12, -1e-12)
+    inv_area = 1.0 / torch.where(area.abs() > 1e-12, area, tiny)
+    l0 = w0 * inv_area
+    l1 = w1 * inv_area
+    l2 = 1.0 - l0 - l1
+    # the affine gradients of the screen-linear barycentrics:
+    # w0 = (cx-bx)(py-by) - (cy-by)(px-bx)  =>  dw0 = (-(cy-by), cx-bx)
+    dl0x = (by - cy) * inv_area
+    dl0y = (cx - bx) * inv_area
+    dl1x = (cy - ay) * inv_area
+    dl1y = (ax - cx) * inv_area
+    dl2x = -(dl0x + dl1x)
+    dl2y = -(dl0y + dl1y)
+
+    n0, n1, n2 = l0 * qa, l1 * qb, l2 * qc
+    s = n0 + n1 + n2
+    s = torch.where(s.abs() > 1e-12, s, torch.full_like(s, 1e-12))
+    dsx = dl0x * qa + dl1x * qb + dl2x * qc
+    dsy = dl0y * qa + dl1y * qb + dl2y * qc
+    inv_s = 1.0 / s
+
+    def dp(dlx, dly, q, n):
+        return ((dlx * q - n * inv_s * dsx) * inv_s, (dly * q - n * inv_s * dsy) * inv_s)
+
+    dps = (dp(dl0x, dl0y, qa, n0), dp(dl1x, dl1y, qb, n1), dp(dl2x, dl2y, qc, n2))
+    uv = [gather(uv_attr, fi) for fi in (f0, f1, f2)]   # each (H, W, 2)
+    duv_dx = uv[0] * dps[0][0][..., None] + uv[1] * dps[1][0][..., None] \
+        + uv[2] * dps[2][0][..., None]
+    duv_dy = uv[0] * dps[0][1][..., None] + uv[1] * dps[1][1][..., None] \
+        + uv[2] * dps[2][1][..., None]
+    out = torch.stack([duv_dx[..., 0], duv_dy[..., 0], duv_dx[..., 1], duv_dy[..., 1]], dim=-1)
+    return torch.where(rast.valid[..., None], out, 0.0)
+
+
+def _aa_dir(color, tri, valid, z, x, y, faces, horizontal: bool):
+    """Edge AA for one view and one neighbour direction (right or down
+    pairs), dense over every pair: :func:`_aa_dir_flat` on a batch of one
+    view. color (H, W, C); tri/valid/z (H, W); x, y (V,) screen coords.
+    Returns the delta (H, W, C)."""
+    return _aa_dir_flat(color[None], tri[None], valid[None], z[None], torch.stack([x, y], -1),
+                        faces, torch.zeros(1, dtype=torch.int64, device=color.device),
+                        horizontal)[0]
+
+
+def _aa_dir_flat(color, tri, valid, z, xy, faces, voffs, horizontal: bool):
+    """Edge AA for one neighbour direction over every adjacent pixel pair
+    of every view (the JAX package's ``impl='flat'``): the math of
+    :func:`_aa_dir_compact`, dense. color (B, H, W, C); tri/valid/z (B, H,
+    W); xy (B*V, 2) every view's screen coords in one table; voffs (B,) a
+    view's offset into it. The vertex coords are gathered through the one
+    table, so the backward is one scatter a direction. Returns the delta
+    (B, H, W, C)."""
+    B, H, W, C = color.shape
+    dev = color.device
+    if horizontal:
+        sl_u = (slice(None), slice(None), slice(None, -1))
+        sl_v = (slice(None), slice(None), slice(1, None))
+        pux, puy = _pixel_centres((H, W - 1), dev)
+        pvx, pvy = pux + 1.0, puy
+    else:
+        sl_u = (slice(None), slice(None, -1), slice(None))
+        sl_v = (slice(None), slice(1, None), slice(None))
+        pux, puy = _pixel_centres((H - 1, W), dev)
+        pvx, pvy = pux, puy + 1.0
+
+    with torch.no_grad():
+        tu, tv = tri[sl_u], tri[sl_v]
+        vu, vv = valid[sl_u], valid[sl_v]
+        # which side of the pair covers: the only valid one, or the nearer one
+        cov_is_u = torch.where(vu & vv, z[sl_u] <= z[sl_v], vu)
+        active = (tu != tv) & (vu | vv)
+        tcov = torch.where(cov_is_u, tu, tv)
+        f = faces[tcov.clamp(min=0)] + voffs[:, None, None, None]   # (B, h, w, 3)
+
+    pc = gather(xy, f)                                              # (B, h, w, 3, 2)
+    ax, ay = pc[..., 0, 0], pc[..., 0, 1]
+    bx, by = pc[..., 1, 0], pc[..., 1, 1]
+    cx, cy = pc[..., 2, 0], pc[..., 2, 1]
+    # orient the edge functions so that the triangle's inside is positive
+    area = _edge(ax, ay, bx, by, cx, cy)
+    s = torch.where(area >= 0, 1.0, -1.0)
+
+    pcx, pcy = torch.where(cov_is_u, pux, pvx), torch.where(cov_is_u, puy, pvy)
+    pox, poy = torch.where(cov_is_u, pvx, pux), torch.where(cov_is_u, pvy, puy)
+
+    def edges_at(qx, qy):
+        return (_edge(bx, by, cx, cy, qx, qy) * s,
+                _edge(cx, cy, ax, ay, qx, qy) * s,
+                _edge(ax, ay, bx, by, qx, qy) * s)
+
+    # each edge belongs to one pair direction by its slope (see _aa_dir_compact)
+    exs = (cx - bx, ax - cx, bx - ax)
+    eys = (cy - by, ay - cy, by - ay)
+    t = torch.full(tu.shape, 2.0, device=dev)
+    for ec, eo, ex, ey in zip(edges_at(pcx, pcy), edges_at(pox, poy), exs, eys):
+        owned = ey.abs() >= ex.abs() if horizontal else ex.abs() > ey.abs()
+        crossing = (eo < 0) & (ec >= 0) & owned
+        denom = ec - eo
+        tk = ec / torch.where(denom.abs() > 1e-12, denom, torch.full_like(denom, 1e-12))
+        t = torch.minimum(t, torch.where(crossing, tk, 2.0))
+    act = (active & (t <= 1.0)).to(color.dtype)[..., None]
+    t = t.clamp(0.0, 1.0)[..., None]
+
+    cu_, cv_ = color[sl_u], color[sl_v]
+    cov = cov_is_u[..., None]
+    ccov = torch.where(cov, cu_, cv_)
+    coth = torch.where(cov, cv_, cu_)
+    d_oth = torch.relu(t - 0.5) * (ccov - coth) * act
+    d_cov = torch.relu(0.5 - t) * (coth - ccov) * act
+    du = torch.where(cov, d_cov, d_oth)
+    dv = torch.where(cov, d_oth, d_cov)
+    # du onto the pairs' first pixels, dv onto their second
+    if horizontal:
+        return F.pad(du, (0, 0, 0, 1)) + F.pad(dv, (0, 0, 1, 0))
+    return F.pad(du, (0, 0, 0, 0, 0, 1)) + F.pad(dv, (0, 0, 0, 0, 1, 0))
+
+
 def _aa_dir_compact(color, tri, valid, z, xy, faces, voffs, horizontal: bool, budget: int):
     """Edge AA for one neighbour direction, on the silhouette pairs only.
 
@@ -436,18 +587,40 @@ def _aa_dir_compact(color, tri, valid, z, xy, faces, voffs, horizontal: bool, bu
 
 def antialias_views(color: torch.Tensor, tri_id: torch.Tensor, valid: torch.Tensor,
                     zbuf: torch.Tensor, v_clip: torch.Tensor, faces: torch.Tensor,
-                    budget: Optional[int] = None):
-    """All-views silhouette-compacted edge AA (the JAX package's
-    ``impl='compact'``). color (B, H, W, C); tri_id/valid/zbuf (B, H, W);
-    v_clip (B, V, 4); faces (F, 3). Returns (img, overflow)."""
+                    impl: str = 'compact', budget: Optional[int] = None):
+    """All-views edge AA in one call (the semantics of :func:`antialias` on
+    each view). color (B, H, W, C); tri_id/valid/zbuf (B, H, W); v_clip
+    (B, V, 4); faces (F, 3). Every view's screen coords go into one (B*V,
+    2) table. ``impl`` 'compact' runs the pair math on the silhouette pairs
+    compacted into ``budget`` slots; any other value, as in the JAX
+    package, runs it densely over every pair ('flat'). Returns (img,
+    overflow): the active pairs 'compact' dropped, 0 for 'flat'."""
     B, H, W, _ = color.shape
     V = v_clip.shape[1]
     x, y, _, _ = _screen_coords(v_clip.reshape(B * V, 4), (H, W))
     xy = torch.stack([x, y], dim=-1)
     voffs = torch.arange(B, device=color.device) * V
-    if budget is None:
-        budget = B * (H + W) * 8          # ~16x a typical blob silhouette
     args = (tri_id, valid, zbuf, xy, faces, voffs)
-    dh, oh = _aa_dir_compact(color, *args, True, budget)
-    dv, ov = _aa_dir_compact(color, *args, False, budget)
-    return color + dh + dv, torch.maximum(oh, ov)
+    if impl == 'compact':
+        if budget is None:
+            budget = B * (H + W) * 8          # ~16x a typical blob silhouette
+        dh, oh = _aa_dir_compact(color, *args, True, budget)
+        dv, ov = _aa_dir_compact(color, *args, False, budget)
+        return color + dh + dv, torch.maximum(oh, ov)
+    return (color + _aa_dir_flat(color, *args, True) + _aa_dir_flat(color, *args, False),
+            torch.zeros((), dtype=torch.int64, device=color.device))
+
+
+def antialias(color: torch.Tensor, rast: RasterOut, v_clip: torch.Tensor,
+              faces: torch.Tensor) -> torch.Tensor:
+    """Edge AA of one view (``dr.antialias``, reference render.py:262):
+    color (H, W, C), the view's rasterization and v_clip (V, 4); returns
+    (H, W, C). Adjacent pixel pairs (right and down) with differing
+    triangle ids are blended by the covering triangle's analytic sub-pixel
+    coverage, dense over every pair, which gives gradients with respect to
+    the vertices through coverage. A shared interior edge gives a near-zero
+    delta, both sides shading alike."""
+    H, W = rast.tri_id.shape
+    x, y, _, _ = _screen_coords(v_clip, (H, W))
+    args = (rast.tri_id, rast.valid, rast.zbuf, x, y, faces)
+    return color + _aa_dir(color, *args, True) + _aa_dir(color, *args, False)

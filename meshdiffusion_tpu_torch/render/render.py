@@ -14,8 +14,11 @@ render_mesh:235-409, render_uv:414-432) on the port's rasterizer:
 * ``remat`` wraps each view's per-pixel chain in
   ``torch.utils.checkpoint``, so its intermediates are recomputed in the
   backward pass instead of kept;
-* composite antialiasing is the compacted analytic edge AA
-  (``rasterize.antialias_views``), the coverage-gradient path to vertices.
+* composite antialiasing is the analytic edge AA, the coverage-gradient
+  path to vertices: ``MESHDIFFUSION_AA_IMPL`` picks ``compact`` (the
+  default: ``rasterize.antialias_views`` on the compacted silhouette
+  pairs), ``flat`` (the same call, dense over every pair) or ``vmap``
+  (``rasterize.antialias``, one view at a time), as in the JAX package.
 
 Materials are constant textures (a texture's first texel: no render path
 interpolates texture coordinates, as in the JAX package) or the neural
@@ -32,6 +35,7 @@ texture into UV space.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -42,9 +46,9 @@ from ..utils.gather import gather
 from . import ops, utils
 from .light import EnvironmentLight
 from .mesh import Mesh
-from .rasterize import (BIG, RasterOut, antialias_views, compact_pixels, grow_capacity,
-                        interpolate, rasterize, rasterize_apply, rasterize_apply_compact, rasterize_select,
-                        scatter_pixels)
+from .rasterize import (BIG, RasterOut, antialias, antialias_views, compact_pixels,
+                        grow_capacity, interpolate, rasterize, rasterize_apply,
+                        rasterize_apply_compact, rasterize_select, scatter_pixels)
 from .texture import Texture2D
 
 # a source of N(0, 1) draws of a given shape (the neural material's jitter)
@@ -243,6 +247,11 @@ def render_mesh(mesh: Mesh, mtx_in: torch.Tensor, view_pos: torch.Tensor, lgt,
 
     background = torch.zeros((1, full_res[0], full_res[1], 4), device=dev)
 
+    # the edge AA's implementation, as the JAX package reads it: 'compact'
+    # (the default), 'flat' (dense, every view in one call; so is any other
+    # value) or 'vmap' (dense, one view at a time); only 'compact' can drop
+    # pairs, so only it reports an aa_overflow
+    aa_impl = os.environ.get('MESHDIFFUSION_AA_IMPL', 'compact')
     aa_overflows = []
 
     def composite(key, li, bg, want_aa=False):
@@ -252,9 +261,15 @@ def render_mesh(mesh: Mesh, mtx_in: torch.Tensor, view_pos: torch.Tensor, lgt,
         fg = torch.cat([buf[..., :-1], torch.ones_like(buf[..., -1:])], dim=-1)
         img = bg + alpha * (fg - bg)
         if want_aa and aa:
-            img, aa_over = antialias_views(img.expand((B,) + img.shape[1:]), rast.tri_id,
-                                           rast.valid, rast.zbuf, v_clip, faces, aa_budget)
-            aa_overflows.append(aa_over)
+            img = img.expand((B,) + img.shape[1:])
+            if aa_impl == 'vmap':
+                img = torch.stack([antialias(img[b], RasterOut(
+                    tri_id=rast.tri_id[b], bary=None, zbuf=rast.zbuf[b], valid=rast.valid[b]),
+                    v_clip[b], faces) for b in range(B)])
+            else:
+                img, aa_over = antialias_views(img, rast.tri_id, rast.valid, rast.zbuf, v_clip,
+                                               faces, impl=aa_impl, budget=aa_budget)
+                aa_overflows.append(aa_over)
         return img
 
     out: Dict[str, torch.Tensor] = {}

@@ -2,7 +2,10 @@
 
 :func:`from_jax_params`: JAX/flax parameter tree -> this package's U-Net;
 :func:`fit_state_from_jax`: a JAX fitting state -> this package's;
-:func:`mlp_texture_state_from_jax`: a JAX neural material -> this package's.
+:func:`mlp_texture_state_from_jax`: a JAX neural material -> this package's;
+:func:`ncsn_block_state_from_jax` and :func:`normalization_state_from_jax`:
+the JAX package's NCSN blocks and norms -> ``models/ncsn_blocks.py``'s and
+``models/normalization.py``'s.
 
 :func:`from_jax_params` is the inverse of ``meshdiffusion_tpu/utils/torch_convert.py``
 (``convert_model_state``, which maps the reference torch layout onto the
@@ -154,3 +157,36 @@ def mlp_texture_state_from_jax(params) -> Dict[str, torch.Tensor]:
         if name.startswith('dense_'):
             out[f'{name}.weight'] = torch.from_numpy(np.array(leaf['kernel'], np.float32).T.copy())
     return out
+
+
+def _flat_leaves(tree: dict, prefix: str = ''):
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from _flat_leaves(leaf, f'{prefix}{name}.')
+        else:
+            yield prefix, name, np.array(leaf, np.float32)
+
+
+def ncsn_block_state_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A flax tree of an NCSN block (``CRPBlock``, ``RCUBlock``,
+    ``MSFBlock``, ``RefineBlock``, ``ConvMeanPool``, ``MeanPoolConv``) ->
+    the state_dict of the port's module of the same name: the submodule
+    names carry over, each conv's kernel (kd, kh, kw, I, O) becomes its
+    weight (O, I, kd, kh, kw), its bias stays."""
+    tree = params['params'] if 'params' in params else params
+    out = {}
+    for prefix, name, leaf in _flat_leaves(tree):
+        if name == 'kernel':
+            out[prefix + 'weight'] = torch.from_numpy(_CONV(leaf))
+        else:
+            out[prefix + name] = torch.from_numpy(leaf)
+    return out
+
+
+def normalization_state_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A flax tree of a norm of ``get_normalization`` -> the state_dict of
+    the port's: the instance norms' ``gamma``, ``alpha``, ``beta`` and
+    ``embed`` as they are, GroupNorm's ``scale`` as ``weight``."""
+    tree = params['params'] if 'params' in params else params
+    return {prefix + ('weight' if name == 'scale' else name): torch.from_numpy(leaf)
+            for prefix, name, leaf in _flat_leaves(tree)}

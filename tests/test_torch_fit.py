@@ -397,3 +397,12 @@ def test_fit_step_matches_jax(fit_setup, monkeypatch, pass_idx, its, learn_light
     else:
         np.testing.assert_array_equal(np.asarray(jst.sdf), before)     # topology frozen
     assert F._count(popt) == len(its)
+
+
+def test_fit_step_flat_aa_matches_jax(fit_setup, monkeypatch):
+    """A pass-1 step (iteration 220) with the dense all-views edge AA,
+    MESHDIFFUSION_AA_IMPL=flat, in both packages: the same checks as
+    :func:`test_fit_step_matches_jax`; aa_overflow is 0 on both sides, so
+    the fit driver's aa_budget regrow stays idle."""
+    monkeypatch.setenv('MESHDIFFUSION_AA_IMPL', 'flat')
+    test_fit_step_matches_jax(fit_setup, monkeypatch, 0, (220,), False, False)

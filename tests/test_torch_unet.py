@@ -79,6 +79,94 @@ def test_unet_forward_matches_jax(name):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
+def _forwards(name, params, dtypes):
+    """The tiny U-Net's outputs (float64 numpy) in each compute dtype of
+    ``dtypes``, JAX's (jitted) and the port's, on the same weights and the
+    inputs of :func:`test_unet_forward_matches_jax`."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, R, R, R, 4)).astype(np.float32)
+    labels = np.array([3.0, 500.0], np.float32)
+    mask = (rng.random((1, R, R, R, 1)) > 0.3).astype(np.float32)
+    out = {}
+    for dt in dtypes:
+        jcfg, pcfg = tiny_configs(name)
+        jcfg.tpu.compute_dtype = pcfg.gpu.compute_dtype = dt
+        jmodel = jax_create_model(jcfg)
+        apply = jax.jit(lambda p, *a: jmodel.apply(p, *a, train=False))
+        out['jax', dt] = np.asarray(apply(params, jnp.asarray(x), jnp.asarray(labels),
+                                          jnp.asarray(mask)), np.float64)
+        model = create_model(pcfg, device='cpu')
+        model.load_state_dict(from_jax_params(params, pcfg), strict=True)
+        with torch.no_grad():
+            got = model(torch.from_numpy(x), torch.from_numpy(labels), torch.from_numpy(mask))
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        out['port', dt] = got.double().numpy()
+    return out
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize('name', ['ddpm_res64', 'ddpm_res128'])
+def test_unet_bf16_forward_matches_jax(name):
+    """The card's compute dtype, bf16 (``gpu.compute_dtype``, JAX's
+    ``tpu.compute_dtype``), in both packages on the same weights.
+
+    * Every tensor drawn from normal(0, 0.02), the weights ``chip_smoke.py``
+      holds the card's bf16 forward to its plain version with: the outputs
+      within relative L2 1e-2, that bound.
+    * The weights of :func:`test_unet_forward_matches_jax` (the DDPM init
+      perturbed, unit GroupNorm scales), whose bf16 rounding error is larger
+      (1-2 %) and differs between the packages' rounding points (JAX's
+      default plain blocks round the GroupNorm to bf16 before SiLU and sum
+      three bf16 2D convs a 3^3 conv; the port, as JAX's fused kernel does,
+      rounds once after the fp32 SiLU and conv): the port's bf16 output no
+      farther from the fp32 forward (JAX's, which the port's fp32 forward
+      matches within the fp32 tolerance) than JAX's bf16 output is."""
+    _, params = jax_params(name)
+    g = np.random.default_rng(7)
+    flat = jax.tree.map(lambda p: g.normal(0.0, 0.02, p.shape).astype(np.float32), params)
+    out = _forwards(name, flat, ('bfloat16',))
+    rel = _rel(out['port', 'bfloat16'], out['jax', 'bfloat16'])
+    assert np.abs(out['jax', 'bfloat16']).max() > 0.01
+    out = _forwards(name, params, ('bfloat16', 'float32'))
+    truth = out['jax', 'float32']
+    port_err, jax_err = (_rel(out[k, 'bfloat16'], truth) for k in ('port', 'jax'))
+    print(f'{name} bf16 forward: port vs JAX relative L2 {rel:.3e} (normal(0, 0.02) '
+          f'weights); perturbed DDPM weights: port vs JAX '
+          f'{_rel(out["port", "bfloat16"], out["jax", "bfloat16"]):.3e}, each against the fp32 '
+          f'forward: port {port_err:.3e}, JAX {jax_err:.3e}')
+    assert 0.0 < rel <= 1e-2, rel
+    assert 0.0 < port_err <= jax_err, (port_err, jax_err)
+
+
+def test_remat_blocks_config_off_matches_on():
+    """``gpu.remat_blocks`` False (no checkpoint around the ResnetBlocks in
+    the train forward) against True, fp32 on the same weights: the same loss
+    and gradients, bit for bit (the JAX package's
+    ``test_model.py::test_remat_blocks_parity``)."""
+    _, params = jax_params('ddpm_res64')
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, R, R, R, 4)).astype(np.float32))
+    labels = torch.tensor([3.0, 500.0])
+    mask = torch.ones((1, R, R, R, 1))
+    out = []
+    for remat in (True, False):
+        _, pcfg = tiny_configs('ddpm_res64')
+        pcfg = apply_overrides(pcfg, [('gpu.remat_blocks', str(remat))])
+        model = create_model(pcfg, device='cpu')
+        assert model.remat_blocks is remat
+        model.load_state_dict(from_jax_params(params, pcfg), strict=True)
+        loss = (model(x, labels, mask, train=True) ** 2).sum()
+        loss.backward()
+        out.append((loss.detach(), {k: p.grad for k, p in model.named_parameters()}))
+    assert torch.equal(out[0][0], out[1][0]) and out[0][0] > 0
+    assert len(out[0][1]) > 50
+    for k, g in out[0][1].items():
+        torch.testing.assert_close(g, out[1][1][k], rtol=0, atol=0, msg=k)
+
+
 @pytest.mark.parametrize('name', ['ddpm_res64', 'ddpm_res128'])
 def test_weight_layout_round_trip(name):
     """The port's state_dict is the reference torch layout: the JAX
@@ -114,8 +202,8 @@ def test_full_width_parameter_count(name):
 
 def test_config_tree_matches_jax():
     """Same sections and keys as the JAX config, with ``gpu`` (compute_dtype,
-    tet_root and the mesh's mesh_data_axis, mesh_spatial_axis and
-    allow_device_idle: each a key of JAX's ``tpu``, with its value; and
+    tet_root, remat_blocks and the mesh's mesh_data_axis, mesh_spatial_axis
+    and allow_device_idle: each a key of JAX's ``tpu``, with its value; and
     dist_backend, 'nccl') in place of ``tpu`` and no ``sampling.segment_steps``."""
     def keys(c, prefix=''):
         out = set()
@@ -127,7 +215,7 @@ def test_config_tree_matches_jax():
         jc, pc = jax_get_config(preset), get_config(preset)
         jk = {k for k in keys(jc) if not k.startswith('tpu.')} - {'sampling.segment_steps'}
         gpu = {'gpu.compute_dtype', 'gpu.tet_root', 'gpu.mesh_data_axis', 'gpu.mesh_spatial_axis',
-               'gpu.allow_device_idle'}
+               'gpu.allow_device_idle', 'gpu.remat_blocks'}
         assert keys(pc) - gpu - {'gpu.dist_backend'} == jk
         assert {k for k in keys(pc) if k.startswith('gpu.')} == gpu | {'gpu.dist_backend'}
         for k in gpu:
