@@ -196,10 +196,12 @@ under each. Phases, in order:
     (tests/test_fit_convergence.py) on the tests' 8^3 tet grid, copied here:
     the radius-0.3 sphere, 48^2, batch 1, 120 pass-1 iterations,
     ``learn_light``, a GT pool of 8, capacities regrown as the fit driver
-    does, under each AA implementation, held to JAX's thresholds (cd1 <
-    0.5 cd0, cd1 < 0.025, the last quartile's image loss < 0.10 of the
-    first's, the light moved and >= 0), counters set to 0 before each arm
-    and read after; then the AA ablation's arms (tools/aa_ablation.py: 150
+    does, under each AA implementation, from seeds 1-4 of the card's own
+    generator, held to JAX's thresholds (at every seed cd1 < 0.025, the
+    last quartile's image loss < 0.10 of the first's, the light moved and
+    >= 0; over the seeds mean cd1 < 0.5 mean cd0, since cd0 is the random
+    start's), counters set to 0 before each arm and read after; then the
+    AA ablation's arms (tools/aa_ablation.py: 150
     iterations at 64^2, AA on and off) with chamfer and 4-pose PSNR beside
     the JAX package's recorded numbers; numbers to ``DIR/aa_gate.json``;
 25. a JSON line of each path's launches, one JSON line of kernel results
@@ -2162,6 +2164,7 @@ def parallel_train_run(spec: dict, dev, timeout_s: float) -> dict:
 
 AA_IMPLS = ('compact', 'flat', 'vmap')      # MESHDIFFUSION_AA_IMPL's values
 GATE_ITERS, ABL_ITERS = 120, 150            # the gate's pass-1 iterations; the ablation's
+GATE_SEEDS = (1, 2, 3, 4)                   # the gate's draws: seeds of the device's generator
 # the JAX package's AA ablation (AA_ABLATION.md: 150 iterations at 64^2, JAX on the
 # CPU): (chamfer, 4-pose validation PSNR dB) with AA on and off; a comparison only
 JAX_ABLATION = {'on': (0.01323, 33.31), 'off': (0.01284, 29.82)}
@@ -2227,21 +2230,14 @@ def _gate_reference(tg, work: str, dev):
     return ref, env
 
 
-def _gate_draws(fitter, dev):
-    """The gate's random stream and initial state: a CPU generator seeded 1
-    whose draws are handed to ``dev``, so that a run on the card sees the
-    draws of the same run on the CPU (JAX's threefry draws, which the JAX
-    gate's thresholds were set on, are the same on every device; torch's
-    CUDA generator draws others). Returns (generator, uniform source, the
-    fitter's initial state on ``dev``)."""
-    import dataclasses
+def _gate_draws(fitter, dev, seed: int):
+    """The gate's random stream and initial state, from ``dev``'s own
+    generator seeded ``seed``, as ``fitting/fit.py`` draws them. Returns
+    (generator, uniform source, the fitter's initial state)."""
     import torch
     from meshdiffusion_tpu_torch.geometry.fit_losses import torch_uniform
-    gen = torch.Generator().manual_seed(1)
-    state = fitter.init_state(gen, gen.device)
-    state = state.replace(**{f.name: getattr(state, f.name).to(dev)
-                             for f in dataclasses.fields(state)})
-    return gen, torch_uniform(gen, dev), state
+    gen = torch.Generator(dev).manual_seed(seed)
+    return gen, torch_uniform(gen, dev), fitter.init_state(gen, dev)
 
 
 def _chamfer_to(fitter, state, gt_pts, uniform) -> float:
@@ -2254,10 +2250,11 @@ def _chamfer_to(fitter, state, gt_pts, uniform) -> float:
         return float(chamfer_distance(pts, gt_pts))
 
 
-def fit_gate(tg, work: str, dev, iters: int = GATE_ITERS) -> dict:
-    """The fit-quality gate (tests/test_fit_convergence.py
+def fit_gate(tg, work: str, dev, seed: int, iters: int = GATE_ITERS) -> dict:
+    """One run of the fit-quality gate (tests/test_fit_convergence.py
     ``test_pass1_fit_converges``) on the port, under the current
-    MESHDIFFUSION_AA_IMPL: ``iters`` pass-1 iterations of the radius-0.3
+    MESHDIFFUSION_AA_IMPL, from the draws of ``seed`` (:func:`_gate_draws`;
+    JAX's gate draws from one key): ``iters`` pass-1 iterations of the radius-0.3
     sphere on ``tg`` at 48^2, batch 1, ``learn_light`` (the candidate's
     light a second Adam's leaf), GT views from a pool of 8. A step whose
     counters report an overflow is redone from its snapshot with the
@@ -2280,7 +2277,7 @@ def fit_gate(tg, work: str, dev, iters: int = GATE_ITERS) -> dict:
                       learn_light=True, cam_radius=2.0)
     fitter = DMTetFitter(grid=tg, scale=cfg.mesh_scale, deform_scale=2.0, sdf_regularizer=0.2,
                          total_iter=cfg.iter, buffer_capacity=50)
-    gen, uniform, state = _gate_draws(fitter, dev)
+    gen, uniform, state = _gate_draws(fitter, dev, seed)
     renderer = TargetRenderer(ref_mesh=ref, envlight=env, cam_radius=2.0, train_res=res,
                               num_surface_samples=2000, target_pool=8, generator=gen)
     state = state.replace(sdf=state.sdf.requires_grad_(), deform=state.deform.requires_grad_())
@@ -2337,29 +2334,38 @@ def fit_gate(tg, work: str, dev, iters: int = GATE_ITERS) -> dict:
     cd1 = _chamfer_to(fitter, state, gt_pts, uniform)
     q = len(img_hist) // 4
     lb = light_base.detach()
-    return {'cd0': cd0, 'cd1': cd1, 'img_first_q': float(np.mean(img_hist[:q])),
+    return {'seed': seed, 'cd0': cd0, 'cd1': cd1, 'img_first_q': float(np.mean(img_hist[:q])),
             'img_last_q': float(np.mean(img_hist[-q:])),
             'light_moved': float((lb - light_base0).abs().max()), 'light_min': float(lb.min()),
             'regrows': grown, 'fit_s': fit_s, 'steps_run': iters + regrows,
             'pool_renders': renderer.target_pool}
 
 
-def gate_failures(r: dict) -> list:
+def gate_failures(runs: list) -> list:
     """The JAX gate's thresholds (tests/test_fit_convergence.py:120-135)
-    that ``r`` (:func:`fit_gate`'s numbers) misses."""
+    that ``runs`` (:func:`fit_gate`'s numbers, one a seed) miss. Each run
+    is held to those on the fitted mesh and the fit's course; ``cd1 < 0.5
+    cd0`` is held on the means over the runs: cd0 is the random start's
+    chamfer, which spreads with the draw while cd1 does not (ROADMAP
+    Queue 3)."""
     import math
-    checks = [('cd1 finite', math.isfinite(r['cd1'])),
-              ('light base moved', r['light_moved'] > 0),
-              ('light base >= 0', r['light_min'] >= 0),
-              ('cd1 < 0.5 cd0', r['cd1'] < 0.5 * r['cd0']),
-              ('cd1 < 0.025', r['cd1'] < 0.025),
-              ('img last quartile < 0.10 x first', r['img_last_q'] < 0.10 * r['img_first_q'])]
+    import numpy as np
+    checks = []
+    for r in runs:
+        checks += [(f'seed {r["seed"]}: {name}', ok) for name, ok in (
+            ('cd1 finite', math.isfinite(r['cd1'])),
+            ('light base moved', r['light_moved'] > 0),
+            ('light base >= 0', r['light_min'] >= 0),
+            ('cd1 < 0.025', r['cd1'] < 0.025),
+            ('img last quartile < 0.10 x first', r['img_last_q'] < 0.10 * r['img_first_q']))]
+    checks.append(('mean cd1 < 0.5 mean cd0', np.mean([r['cd1'] for r in runs])
+                   < 0.5 * np.mean([r['cd0'] for r in runs])))
     return [name for name, ok in checks if not ok]
 
 
-def ablation_arm(tg, work: str, dev, aa: bool, iters: int = ABL_ITERS):
+def ablation_arm(tg, work: str, dev, aa: bool, iters: int = ABL_ITERS, seed: int = 1):
     """One arm of the JAX package's AA ablation (tools/aa_ablation.py
-    ``run_arm``) on the port: the gate's sphere, ``iters`` pass-1
+    ``run_arm``) on the port, from the draws of ``seed``: the gate's sphere, ``iters`` pass-1
     iterations at 64^2, batch 1, raster_K 2048, the light fixed, edge AA on
     or off; then the chamfer distance and the PSNR over 4 circular
     validation poses. Returns (chamfer, PSNR dB, steps)."""
@@ -2377,7 +2383,7 @@ def ablation_arm(tg, work: str, dev, aa: bool, iters: int = ABL_ITERS):
                       learn_light=True, cam_radius=2.0, antialias=aa)
     fitter = DMTetFitter(grid=tg, scale=1.0, deform_scale=2.0, sdf_regularizer=0.2,
                          total_iter=cfg.iter, buffer_capacity=50)
-    gen, uniform, state = _gate_draws(fitter, dev)
+    gen, uniform, state = _gate_draws(fitter, dev, seed)
     renderer = TargetRenderer(ref_mesh=ref, envlight=env, cam_radius=2.0, train_res=res,
                               num_surface_samples=2000, generator=gen)
     state = state.replace(sdf=state.sdf.requires_grad_(), deform=state.deform.requires_grad_())
@@ -2540,12 +2546,14 @@ def aa_alternates_run(gt_path: str, dev, record, per_shape) -> dict:
 
 
 def fit_quality_run(dev) -> dict:
-    """Phase 24 (b): the fit-quality gate (:func:`fit_gate`) under each
-    MESHDIFFUSION_AA_IMPL, every launch counter set to 0 just before each
-    arm and read just after (tile_zmin once a render: the pool's 8 GT
-    renders and every step run); then the AA ablation's two arms
+    """Phase 24 (b): the fit-quality gate (:func:`fit_gate` from each of
+    GATE_SEEDS, :func:`gate_failures`) under each MESHDIFFUSION_AA_IMPL,
+    every launch counter set to 0 just before each arm and read just after
+    (tile_zmin once a render: the pool's 8 GT renders and every step run,
+    each seed); then the AA ablation's two arms
     (:func:`ablation_arm`, compact AA on and AA off). Prints every arm's
     numbers, then fails if an arm missed one of JAX's thresholds."""
+    import numpy as np
     from meshdiffusion_tpu_torch import ops
     tg = tiny_tet_grid()
     work = tempfile.mkdtemp(prefix='chip_smoke_gate_')
@@ -2554,21 +2562,26 @@ def fit_quality_run(dev) -> dict:
         for impl in AA_IMPLS:
             ops.reset_launch_counts()
             with aa_impl(impl):
-                r = fit_gate(tg, work, dev)
+                runs = [fit_gate(tg, work, dev, seed) for seed in GATE_SEEDS]
             n = launches[f'fit_gate_{impl}'] = ops.launch_counts()
-            assert n['tile_zmin'] == r['pool_renders'] + r['steps_run'], (impl, n, r)
-            r['failed'] = gate_failures(r)
-            out['gate'][impl] = r
-            print(f'fit gate, AA {impl} (sphere r 0.3 on the 8^3 grid, 48^2, batch 1, '
-                  f'{GATE_ITERS} pass-1 iterations, learn_light, pool 8): cd0 {r["cd0"]:.5f} -> '
-                  f'cd1 {r["cd1"]:.5f} (ratio {r["cd1"] / r["cd0"]:.3f}; JAX gates < 0.5 and '
-                  f'cd1 < 0.025); image loss first quartile {r["img_first_q"]:.5f} -> last '
-                  f'{r["img_last_q"]:.5f} (ratio {r["img_last_q"] / r["img_first_q"]:.4f}, gate '
-                  f'< 0.10); light base moved {r["light_moved"]:.4f}, min {r["light_min"]:.4f}; '
-                  f'{r["steps_run"]} steps run, capacity regrows {r["regrows"]}, '
-                  f'{r["fit_s"]:.2f} s; tile_zmin {n["tile_zmin"]}; '
-                  + ('missed: ' + ', '.join(r['failed']) if r['failed']
-                     else 'every threshold met'))
+            renders = sum(r['pool_renders'] + r['steps_run'] for r in runs)
+            assert n['tile_zmin'] == renders, (impl, n, renders)
+            failed = gate_failures(runs)
+            cd0, cd1 = (float(np.mean([r[k] for r in runs])) for k in ('cd0', 'cd1'))
+            out['gate'][impl] = {'runs': runs, 'mean_cd0': cd0, 'mean_cd1': cd1,
+                                 'failed': failed}
+            for r in runs:
+                print(f'fit gate, AA {impl}, seed {r["seed"]} (sphere r 0.3 on the 8^3 grid, '
+                      f'48^2, batch 1, {GATE_ITERS} pass-1 iterations, learn_light, pool 8): cd0 '
+                      f'{r["cd0"]:.5f} -> cd1 {r["cd1"]:.5f} (gate < 0.025; ratio '
+                      f'{r["cd1"] / r["cd0"]:.3f}); image loss first quartile '
+                      f'{r["img_first_q"]:.5f} -> last {r["img_last_q"]:.5f} (ratio '
+                      f'{r["img_last_q"] / r["img_first_q"]:.4f}, gate < 0.10); light base moved '
+                      f'{r["light_moved"]:.4f}, min {r["light_min"]:.4f}; {r["steps_run"]} steps '
+                      f'run, capacity regrows {r["regrows"]}, {r["fit_s"]:.2f} s')
+            print(f'fit gate, AA {impl}, seeds {list(GATE_SEEDS)}: mean cd0 {cd0:.5f} -> mean cd1 '
+                  f'{cd1:.5f} (ratio {cd1 / cd0:.3f}, gate < 0.5); tile_zmin {n["tile_zmin"]}; '
+                  + ('missed: ' + ', '.join(failed) if failed else 'every threshold met'))
         for arm, aa in (('on', True), ('off', False)):
             ops.reset_launch_counts()
             cd, psnr, iters = ablation_arm(tg, work, dev, aa)
@@ -2578,7 +2591,7 @@ def fit_quality_run(dev) -> dict:
             jcd, jpsnr = JAX_ABLATION[arm]
             out['ablation'][arm] = {'chamfer': cd, 'psnr_db': psnr, 'jax_chamfer': jcd,
                                     'jax_psnr_db': jpsnr}
-            print(f'AA ablation, AA {arm} ({ABL_ITERS} iterations at 64^2, 4 validation poses): '
+            print(f'AA ablation, AA {arm}, seed 1 ({ABL_ITERS} iterations at 64^2, 4 validation poses): '
                   f'chamfer {cd:.5f}, PSNR {psnr:.2f} dB; the JAX package recorded {jcd} / '
                   f'{jpsnr} dB (JAX on the CPU, AA_ABLATION.md; a comparison, not a target); '
                   f'tile_zmin {n["tile_zmin"]}')

@@ -28,13 +28,8 @@ Uniform = Callable[[tuple], torch.Tensor]
 
 
 def torch_uniform(generator: Optional[torch.Generator] = None, device=None) -> Uniform:
-    """A :data:`Uniform` source drawing from ``generator`` (on its own
-    device) and handing the draws over on ``device``: a CPU generator gives
-    the same draws to a run on any device."""
-    if generator is None:
-        return lambda shape: torch.rand(shape, device=device)
-    return lambda shape: torch.rand(shape, generator=generator,
-                                    device=generator.device).to(device)
+    """A :data:`Uniform` source drawing from ``generator``."""
+    return lambda shape: torch.rand(shape, generator=generator, device=device)
 
 
 def face_areas(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:

@@ -134,7 +134,7 @@ class UNet3D(nn.Module):
             use_coords=not is_128, scale_by_sigma=m.scale_by_sigma,
             sigma_min=m.sigma_min, sigma_max=m.sigma_max, num_scales=m.num_scales,
             dtype=getattr(torch, config.gpu.compute_dtype), dropout=m.dropout,
-            remat_blocks=bool(config.gpu.get('remat_blocks', True)))
+            remat_blocks=bool(config.gpu.remat_blocks))
         kw.update(overrides)
         return cls(**kw)
 

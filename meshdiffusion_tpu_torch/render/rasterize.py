@@ -17,8 +17,8 @@ nvdiffrast's rasterize/interpolate/antialias (reference
   are recomputed with autograd from the winning triangle's vertices, and
   silhouette gradients come from the analytic edge-AA pass
   (:func:`antialias_views`, the ``dr.antialias`` equivalent: on the
-  compacted silhouette pairs by default, or dense over every pair, all
-  views at once or one view at a time with :func:`antialias`).
+  compacted silhouette pairs by default, or with a slot for every pair,
+  all views at once or one view at a time with :func:`antialias`).
 
 Conventions: clip-space input after an OpenGL projection
 (``utils.perspective``), y-down pixel grid, screen-linear z/w depth. A view
@@ -33,7 +33,6 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..ops import tile_zmin
 from ..ops.tile_zmin import tile_grid
@@ -410,9 +409,9 @@ def uv_derivatives_analytic(uv_attr: torch.Tensor, rast: RasterOut, v_clip: torc
 
 def _aa_dir(color, tri, valid, z, x, y, faces, horizontal: bool):
     """Edge AA for one view and one neighbour direction (right or down
-    pairs), dense over every pair: :func:`_aa_dir_flat` on a batch of one
-    view. color (H, W, C); tri/valid/z (H, W); x, y (V,) screen coords.
-    Returns the delta (H, W, C)."""
+    pairs), over every pair: :func:`_aa_dir_flat` on a batch of one view.
+    color (H, W, C); tri/valid/z (H, W); x, y (V,) screen coords. Returns
+    the delta (H, W, C)."""
     return _aa_dir_flat(color[None], tri[None], valid[None], z[None], torch.stack([x, y], -1),
                         faces, torch.zeros(1, dtype=torch.int64, device=color.device),
                         horizontal)[0]
@@ -420,75 +419,14 @@ def _aa_dir(color, tri, valid, z, x, y, faces, horizontal: bool):
 
 def _aa_dir_flat(color, tri, valid, z, xy, faces, voffs, horizontal: bool):
     """Edge AA for one neighbour direction over every adjacent pixel pair
-    of every view (the JAX package's ``impl='flat'``): the math of
-    :func:`_aa_dir_compact`, dense. color (B, H, W, C); tri/valid/z (B, H,
-    W); xy (B*V, 2) every view's screen coords in one table; voffs (B,) a
-    view's offset into it. The vertex coords are gathered through the one
-    table, so the backward is one scatter a direction. Returns the delta
-    (B, H, W, C)."""
-    B, H, W, C = color.shape
-    dev = color.device
-    if horizontal:
-        sl_u = (slice(None), slice(None), slice(None, -1))
-        sl_v = (slice(None), slice(None), slice(1, None))
-        pux, puy = _pixel_centres((H, W - 1), dev)
-        pvx, pvy = pux + 1.0, puy
-    else:
-        sl_u = (slice(None), slice(None, -1), slice(None))
-        sl_v = (slice(None), slice(1, None), slice(None))
-        pux, puy = _pixel_centres((H - 1, W), dev)
-        pvx, pvy = pux, puy + 1.0
-
-    with torch.no_grad():
-        tu, tv = tri[sl_u], tri[sl_v]
-        vu, vv = valid[sl_u], valid[sl_v]
-        # which side of the pair covers: the only valid one, or the nearer one
-        cov_is_u = torch.where(vu & vv, z[sl_u] <= z[sl_v], vu)
-        active = (tu != tv) & (vu | vv)
-        tcov = torch.where(cov_is_u, tu, tv)
-        f = faces[tcov.clamp(min=0)] + voffs[:, None, None, None]   # (B, h, w, 3)
-
-    pc = gather(xy, f)                                              # (B, h, w, 3, 2)
-    ax, ay = pc[..., 0, 0], pc[..., 0, 1]
-    bx, by = pc[..., 1, 0], pc[..., 1, 1]
-    cx, cy = pc[..., 2, 0], pc[..., 2, 1]
-    # orient the edge functions so that the triangle's inside is positive
-    area = _edge(ax, ay, bx, by, cx, cy)
-    s = torch.where(area >= 0, 1.0, -1.0)
-
-    pcx, pcy = torch.where(cov_is_u, pux, pvx), torch.where(cov_is_u, puy, pvy)
-    pox, poy = torch.where(cov_is_u, pvx, pux), torch.where(cov_is_u, pvy, puy)
-
-    def edges_at(qx, qy):
-        return (_edge(bx, by, cx, cy, qx, qy) * s,
-                _edge(cx, cy, ax, ay, qx, qy) * s,
-                _edge(ax, ay, bx, by, qx, qy) * s)
-
-    # each edge belongs to one pair direction by its slope (see _aa_dir_compact)
-    exs = (cx - bx, ax - cx, bx - ax)
-    eys = (cy - by, ay - cy, by - ay)
-    t = torch.full(tu.shape, 2.0, device=dev)
-    for ec, eo, ex, ey in zip(edges_at(pcx, pcy), edges_at(pox, poy), exs, eys):
-        owned = ey.abs() >= ex.abs() if horizontal else ex.abs() > ey.abs()
-        crossing = (eo < 0) & (ec >= 0) & owned
-        denom = ec - eo
-        tk = ec / torch.where(denom.abs() > 1e-12, denom, torch.full_like(denom, 1e-12))
-        t = torch.minimum(t, torch.where(crossing, tk, 2.0))
-    act = (active & (t <= 1.0)).to(color.dtype)[..., None]
-    t = t.clamp(0.0, 1.0)[..., None]
-
-    cu_, cv_ = color[sl_u], color[sl_v]
-    cov = cov_is_u[..., None]
-    ccov = torch.where(cov, cu_, cv_)
-    coth = torch.where(cov, cv_, cu_)
-    d_oth = torch.relu(t - 0.5) * (ccov - coth) * act
-    d_cov = torch.relu(0.5 - t) * (coth - ccov) * act
-    du = torch.where(cov, d_cov, d_oth)
-    dv = torch.where(cov, d_oth, d_cov)
-    # du onto the pairs' first pixels, dv onto their second
-    if horizontal:
-        return F.pad(du, (0, 0, 0, 1)) + F.pad(dv, (0, 0, 1, 0))
-    return F.pad(du, (0, 0, 0, 0, 0, 1)) + F.pad(dv, (0, 0, 0, 0, 1, 0))
+    of every view (the JAX package's ``impl='flat'``):
+    :func:`_aa_dir_compact` with a slot for every pair, so nothing is
+    dropped. color (B, H, W, C); tri/valid/z (B, H, W); xy (B*V, 2) every
+    view's screen coords in one table; voffs (B,) a view's offset into it.
+    Returns the delta (B, H, W, C)."""
+    B, H, W, _ = color.shape
+    pairs = B * H * (W - 1) if horizontal else B * (H - 1) * W
+    return _aa_dir_compact(color, tri, valid, z, xy, faces, voffs, horizontal, pairs)[0]
 
 
 def _aa_dir_compact(color, tri, valid, z, xy, faces, voffs, horizontal: bool, budget: int):
@@ -499,8 +437,9 @@ def _aa_dir_compact(color, tri, valid, z, xy, faces, voffs, horizontal: bool, bu
     between the two centres at t; sub-pixel coverage is blended across the
     pair. t is differentiable in the projected vertices: the geometry
     gradient through coverage (nvdiffrast ``dr.antialias``). Active pairs
-    are compacted into ``budget`` slots; returns (delta (B, H, W, C),
-    overflow = active pairs dropped)."""
+    are compacted into ``budget`` slots; a budget of every pair keeps each
+    pair in its own slot instead. Returns (delta (B, H, W, C), overflow =
+    active pairs dropped)."""
     B, H, W, C = color.shape
     if horizontal:
         h, w, stride = H, W - 1, 1
@@ -517,12 +456,21 @@ def _aa_dir_compact(color, tri, valid, z, xy, faces, voffs, horizontal: bool, bu
         vu, vv = valid[sl_u], valid[sl_v]
         cov_is_u = torch.where(vu & vv, z[sl_u] <= z[sl_v], vu)
         active = ((tu != tv) & (vu | vv)).reshape(-1)
-        pos = torch.cumsum(active.int(), 0) - 1
-        slot = torch.where(active & (pos < budget), pos, budget).long()
-        sel = torch.full((budget + 1,), -1, dtype=torch.int64, device=dev)
-        sel = sel.scatter(0, slot, torch.arange(B * h * w, device=dev))[:budget]
-        overflow = (pos[-1] + 1 - budget).clamp(min=0)
-        ok = sel >= 0
+        every_pair = budget >= active.numel()
+        if every_pair:
+            # each pair in its own slot: an idle slot adds its zero to its
+            # own pixel, not to the sentinel row, where the idle slots'
+            # atomic adds would all land on one address
+            budget = active.numel()
+            sel, ok = torch.arange(budget, device=dev), active
+            overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        else:
+            pos = torch.cumsum(active.int(), 0) - 1
+            slot = torch.where(active & (pos < budget), pos, budget).long()
+            sel = torch.full((budget + 1,), -1, dtype=torch.int64, device=dev)
+            sel = sel.scatter(0, slot, torch.arange(B * h * w, device=dev))[:budget]
+            overflow = (pos[-1] + 1 - budget).clamp(min=0)
+            ok = sel >= 0
         selc = sel.clamp(min=0)
         b = torch.div(selc, h * w, rounding_mode='floor')
         r = selc % (h * w)
@@ -579,8 +527,9 @@ def _aa_dir_compact(color, tri, valid, z, xy, faces, voffs, horizontal: bool, bu
     du = torch.where(cov_u[:, None], d_cov, d_oth)
     dv = torch.where(cov_u[:, None], d_oth, d_cov)
     n = B * H * W
-    u_id = torch.where(ok, u_id, n)     # unfilled slots go to the sentinel row
-    v_id = torch.where(ok, v_id, n)
+    if not every_pair:
+        u_id = torch.where(ok, u_id, n)     # unfilled slots go to the sentinel row
+        v_id = torch.where(ok, v_id, n)
     delta = color.new_zeros((n + 1, C)).index_add(0, u_id, du).index_add(0, v_id, dv)
     return delta[:n].reshape(B, H, W, C), overflow
 
@@ -593,8 +542,8 @@ def antialias_views(color: torch.Tensor, tri_id: torch.Tensor, valid: torch.Tens
     (B, V, 4); faces (F, 3). Every view's screen coords go into one (B*V,
     2) table. ``impl`` 'compact' runs the pair math on the silhouette pairs
     compacted into ``budget`` slots; any other value, as in the JAX
-    package, runs it densely over every pair ('flat'). Returns (img,
-    overflow): the active pairs 'compact' dropped, 0 for 'flat'."""
+    package, gives every pair a slot ('flat'). Returns (img, overflow): the
+    active pairs 'compact' dropped, 0 for 'flat'."""
     B, H, W, _ = color.shape
     V = v_clip.shape[1]
     x, y, _, _ = _screen_coords(v_clip.reshape(B * V, 4), (H, W))
@@ -617,7 +566,7 @@ def antialias(color: torch.Tensor, rast: RasterOut, v_clip: torch.Tensor,
     color (H, W, C), the view's rasterization and v_clip (V, 4); returns
     (H, W, C). Adjacent pixel pairs (right and down) with differing
     triangle ids are blended by the covering triangle's analytic sub-pixel
-    coverage, dense over every pair, which gives gradients with respect to
+    coverage, over every pair, which gives gradients with respect to
     the vertices through coverage. A shared interior edge gives a near-zero
     delta, both sides shading alike."""
     H, W = rast.tri_id.shape

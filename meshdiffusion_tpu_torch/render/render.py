@@ -17,7 +17,7 @@ render_mesh:235-409, render_uv:414-432) on the port's rasterizer:
 * composite antialiasing is the analytic edge AA, the coverage-gradient
   path to vertices: ``MESHDIFFUSION_AA_IMPL`` picks ``compact`` (the
   default: ``rasterize.antialias_views`` on the compacted silhouette
-  pairs), ``flat`` (the same call, dense over every pair) or ``vmap``
+  pairs), ``flat`` (the same call, a slot for every pair) or ``vmap``
   (``rasterize.antialias``, one view at a time), as in the JAX package.
 
 Materials are constant textures (a texture's first texel: no render path
@@ -248,8 +248,8 @@ def render_mesh(mesh: Mesh, mtx_in: torch.Tensor, view_pos: torch.Tensor, lgt,
     background = torch.zeros((1, full_res[0], full_res[1], 4), device=dev)
 
     # the edge AA's implementation, as the JAX package reads it: 'compact'
-    # (the default), 'flat' (dense, every view in one call; so is any other
-    # value) or 'vmap' (dense, one view at a time); only 'compact' can drop
+    # (the default), 'flat' (every pair, every view in one call; so is any
+    # other value) or 'vmap' (every pair, one view at a time); only 'compact' can drop
     # pairs, so only it reports an aa_overflow
     aa_impl = os.environ.get('MESHDIFFUSION_AA_IMPL', 'compact')
     aa_overflows = []
