@@ -25,6 +25,9 @@ draws:
 
 The default (:func:`default_noise`) draws from a seeded ``torch.Generator``
 on the sampling device.
+
+Each step of a reverse loop runs inside a ``sampler.step`` span
+(``utils/trace.py``) whose ``i`` is the loop's step index.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..utils import trace
 from .vpsde import VPSDE
 
 # model_fn(x, labels) -> epsilon prediction; score = -eps_hat / std
@@ -225,14 +229,17 @@ def get_pc_sampler(sde: VPSDE, shape: Tuple[int, ...],
 
     def step(model_fn, noise, i, x, mask):
         """Corrector then predictor at step i, each followed by the mask."""
-        if corr_fn is not None:
-            x, x_mean = corr_fn(model_fn, tables, i, x,
-                                lambda j: noise('corrector', shape, i, j).float(), snr, n_steps)
-            x = x * mask
-        if pred_fn is None:
-            x = x * mask
-            return x, x
-        return pred_fn(model_fn, sde, tables, i, x, noise('predictor', shape, i).float(), mask)
+        with trace.span('sampler.step', i=i):
+            if corr_fn is not None:
+                x, x_mean = corr_fn(model_fn, tables, i, x,
+                                    lambda j: noise('corrector', shape, i, j).float(), snr,
+                                    n_steps)
+                x = x * mask
+            if pred_fn is None:
+                x = x * mask
+                return x, x
+            return pred_fn(model_fn, sde, tables, i, x, noise('predictor', shape, i).float(),
+                           mask)
 
     def xzero(model_fn, x, i, mask):
         """Clipped x0 prediction (reference sampling.py:410-420); the table
@@ -333,15 +340,16 @@ def get_ddim_sampler(sde: VPSDE, shape: Tuple[int, ...], denoise: bool = False,
             p, m = partial.float()[..., 0], partial_mask.float()[..., 0]
             x[..., 0] = x[..., 0] * (1 - m) + p * m
         x0_pred = torch.zeros_like(x)
-        for label, c1, c2, r1, r2 in rows:
-            eps_hat = model_fn(x, _labels(x, label))
-            x0_scaled = x - float(c2) * eps_hat
-            score_scaled = x - x0_scaled
-            x0_pred = x0_scaled / float(c1) * mask
-            x = (float(r1) * x + float(-r1 + r2) * score_scaled) * mask
-            if partial is not None:
-                x[..., 0] = x[..., 0] * (1 - m) + p * m
-                x0_pred[..., 0] = x0_pred[..., 0] * (1 - m) + p * m
+        for i, (label, c1, c2, r1, r2) in enumerate(rows):
+            with trace.span('sampler.step', i=i):
+                eps_hat = model_fn(x, _labels(x, label))
+                x0_scaled = x - float(c2) * eps_hat
+                score_scaled = x - x0_scaled
+                x0_pred = x0_scaled / float(c1) * mask
+                x = (float(r1) * x + float(-r1 + r2) * score_scaled) * mask
+                if partial is not None:
+                    x[..., 0] = x[..., 0] * (1 - m) + p * m
+                    x0_pred[..., 0] = x0_pred[..., 0] * (1 - m) + p * m
         return (x0_pred if denoise else x) * mask, N * 2
 
     return sampler

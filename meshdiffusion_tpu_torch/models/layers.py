@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from .. import ops
 from ..parallel import spatial
+from ..utils import trace
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -120,6 +121,7 @@ class Conv3D(nn.Conv3d):
         w = self.weight
         key = (w.data_ptr(), w._version, self.dtype)
         if key != self._dhwio_key:
+            trace.count('rebuild.dhwio')
             self._dhwio = w.detach().permute(2, 3, 4, 1, 0).to(self.dtype).contiguous()
             self._dhwio_key = key
         return self._dhwio
@@ -132,6 +134,7 @@ class Conv3D(nn.Conv3d):
         w = self.weight
         key = (w.data_ptr(), w._version)
         if key != self._packed_key:
+            trace.count('rebuild.pack')
             self._packed = ops.pack_conv_weights(self.dhwio())
             self._packed_key = key
         return self._packed
@@ -173,6 +176,7 @@ class ResnetBlockDDPM(nn.Module):
         if in_ch != out_ch:
             self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
 
+    @trace.span('unet.resblock')
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
         dt = self.dtype
@@ -237,6 +241,7 @@ class AttnBlock(nn.Module):
         self.NIN_2 = NIN(channels, channels, dtype=dtype)
         self.NIN_3 = NIN(channels, channels, init_scale=0.0, dtype=dtype)
 
+    @trace.span('unet.attn')
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, D, H, W, C = x.shape
         if spatial.current() is not None:

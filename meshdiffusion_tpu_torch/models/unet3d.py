@@ -34,6 +34,9 @@ at res64 needs it to fit a micro-batch. ``gpu.remat_blocks`` (the
 ``remat_blocks`` argument; the JAX package's ``tpu.remat_blocks``) False
 keeps every block's activations instead. ``nn.Module.training`` plays no
 part.
+
+A forward is a ``unet.forward`` span, each ResnetBlock's a ``unet.resblock``
+and each attention block's a ``unet.attn`` span (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import ops
 from ..parallel import spatial
+from ..utils import trace
 from . import layers
 from .registry import register_alias, register_model
 
@@ -158,6 +162,7 @@ class UNet3D(nn.Module):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)
 
+    @trace.span('unet.forward')
     def forward(self, x: torch.Tensor, labels: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         """x: (B, R, R, R, C) channels-last. labels: (B,) float timestep

@@ -11,7 +11,9 @@
 | :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches.
+launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches,
+and each call, on either route, is an ``ops.<wrapper>`` span
+(``utils/trace.py``).
 :func:`gn_silu_conv3d_autograd` is the conv kernel under autograd: its
 forward is :func:`gn_silu_conv3d`, its backward the plain version's
 (:func:`gn_silu_conv3d_halo_autograd` and :func:`gn_moments_autograd` the

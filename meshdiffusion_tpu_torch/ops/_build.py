@@ -8,7 +8,9 @@ sources and flags, so a changed source rebuilds and an unchanged one loads
 at once. It is loaded with ``ctypes``; every pointer and the stream are
 passed as ``c_void_p``, sizes as ``c_int``, and every entry point returns
 ``cudaGetLastError()`` after its launches, which :func:`check` turns into an
-exception.
+exception. Loading it, and building it first where it is missing, counts
+as ``rebuild.nvcc`` (``utils/trace.py``); :func:`watch_triton_compiles`
+counts each Triton specialization compiled as ``rebuild.triton``.
 
 There is no prebuilt library and no fallback: without ``nvcc`` the build
 raises. :func:`use_kernel` routes each wrapper call by device: CPU tensors
@@ -26,6 +28,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+from ..utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, 'csrc')
@@ -131,6 +135,7 @@ def lib() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
+            trace.count('rebuild.nvcc')
             handle = ctypes.CDLL(build())
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
@@ -140,6 +145,33 @@ def lib() -> ctypes.CDLL:
             handle.mdt_error_string.restype = ctypes.c_char_p
             _lib = handle
         return _lib
+
+
+_triton_watched = False
+
+
+def watch_triton_compiles() -> None:
+    """Count every specialization that Triton compiles from now on as
+    ``rebuild.triton``, from Triton's post-compile hook
+    (``triton.knobs.runtime.jit_post_compile_hook``, Triton 3.4 and later;
+    an older Triton counts nothing). A hook set before is kept and called
+    after. Called where the Triton kernels are first made, so a launch
+    costs nothing more."""
+    global _triton_watched
+    with _lock:
+        if _triton_watched:
+            return
+        _triton_watched = True
+        import triton
+        rt = getattr(getattr(triton, 'knobs', None), 'runtime', None)
+        if rt is None or not hasattr(rt, 'jit_post_compile_hook'):
+            return
+        prev = rt.jit_post_compile_hook
+
+        def hook(*args, **kwargs):
+            trace.count('rebuild.triton')
+            return prev(*args, **kwargs) if prev is not None else None
+        rt.jit_post_compile_hook = hook
 
 
 H100_SMS = 132     # streaming multiprocessors of an H100 SXM: the plans' default

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils import trace
 from .groupnorm import _gn_stats, groupnorm_silu_reference
 from .roofline import PEAK_BF16_FLOPS, bound_ms
 
@@ -150,6 +151,7 @@ def _plan(B: int, D: int, H: int, W: int, C: int, O: int,
     27 x ceil(C/64) k-steps when the output tiles alone cannot fill the
     card (then about one item an SM, no range empty). Raises on shapes the
     kernel does not take."""
+    trace.count('rebuild.plan')
     if C % 32 or O % 8 or min(B, D, H, W, C, O) < 1:
         raise ValueError(f'the conv kernel needs C % 32 == 0 and O % 8 == 0, got C={C}, O={O}')
     bn = block_n(O)
@@ -205,10 +207,12 @@ def _scratch(device, stream: int, numel: int) -> torch.Tensor:
     gets its own."""
     buf = _partials.get((device, stream))
     if buf is None or buf.numel() < numel:
+        trace.count('rebuild.scratch')
         buf = _partials[(device, stream)] = torch.empty(numel, device=device, dtype=torch.float32)
     return buf
 
 
+@trace.span('ops.gn_silu_conv3d')
 def gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
                    eps: float = 1e-6, dtype=torch.bfloat16,
                    packed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -279,6 +283,7 @@ def _check_packed(packed: Optional[torch.Tensor], kernel: torch.Tensor, C: int, 
     return packed
 
 
+@trace.span('ops.gn_silu_conv3d_halo')
 def gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
                         dtype=torch.bfloat16, packed: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils import trace
 from ._build import use_kernel
 
 # Bound at the first launch by _kernels(); the kernel bodies below read them
@@ -158,6 +159,7 @@ def _kernels() -> SimpleNamespace:
     global triton, tl
     import triton
     import triton.language as tl
+    _build.watch_triton_compiles()
     return SimpleNamespace(apply=triton.jit(_gn_silu_apply_kernel))
 
 
@@ -176,6 +178,7 @@ def _gn_plan(S: int, C: int, num_groups: int, esize: int,
     256 blocks a sample, a multiple of the rows a block reads in parallel).
     Up to 32 KB a channel chunk, R >= S: one block covers every row of its
     channels and merges in the block."""
+    trace.count('rebuild.plan')
     gw = C // num_groups
     cands = [cc for cc in range(8, min(C, 256) + 1, 8) if C % cc == 0 and cc % gw == 0]
     if C % 8 or not cands:
@@ -199,6 +202,7 @@ def _stats_scratch(device, stream: int, numel: int):
     its own."""
     work, ticket = _scratch.get((device, stream), (None, None))
     if work is None or work.numel() < numel:
+        trace.count('rebuild.scratch')
         work = torch.empty(max(numel, 1 << 16), device=device, dtype=torch.float32)
         if ticket is None:
             ticket = torch.zeros(1, device=device, dtype=torch.int32)
@@ -259,6 +263,7 @@ def _gn_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_grou
     return a, b, xb
 
 
+@trace.span('ops.gn_affine')
 def gn_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               num_groups: int = 32, eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(B, C) fp32 ``a, b`` with ``GroupNorm(x) = x*a + b``; x is
@@ -275,6 +280,7 @@ def gn_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 gn_affine.launches = 0
 
 
+@trace.span('ops.gn_moments')
 def gn_moments(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
     """(B, G, 2) fp32 (mean, M2) of each (sample, group) of channels-last x:
     the statistics kernel in its moments mode, one launch, on CUDA; the
@@ -327,6 +333,7 @@ def gn_moments_autograd(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
     return _GnMoments.apply(x, num_groups)
 
 
+@trace.span('ops.groupnorm_silu')
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm(num_groups) + SiLU over channels-last x; output in x's dtype."""

@@ -32,7 +32,8 @@ from typing import Tuple
 
 import torch
 
-from ._build import use_kernel
+from ..utils import trace
+from ._build import use_kernel, watch_triton_compiles
 
 # Bound at the first launch by _kernel(); see ops/groupnorm.py.
 triton = tl = None
@@ -80,9 +81,11 @@ def _kernel():
     global triton, tl
     import triton
     import triton.language as tl
+    watch_triton_compiles()
     return triton.jit(_ancestral_kernel)
 
 
+@trace.span('ops.ancestral_update')
 def ancestral_update(x: torch.Tensor, eps_hat: torch.Tensor, mask: torch.Tensor,
                      noise: torch.Tensor, beta: float, std: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..utils import trace
 from .roofline import PEAK_ALU_OPS, PEAK_FP32_UNFUSED_OPS, pipes_bound_ms
 
 TILE = 32
@@ -228,6 +229,7 @@ def tile_zmin_bound_ms(*args, **kwargs) -> Tuple[float, str]:
                           (fp32 + alu, PEAK_FP32_UNFUSED_OPS))
 
 
+@trace.span('ops.tile_zmin')
 def tile_zmin(coords: torch.Tensor, tile_tris: torch.Tensor, tile_counts: torch.Tensor,
               global_tris: torch.Tensor, global_count: torch.Tensor, res: Tuple[int, int],
               num_layers: int = 1, z_floor: Optional[torch.Tensor] = None):

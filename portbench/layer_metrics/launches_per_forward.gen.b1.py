@@ -1,0 +1,7 @@
+"""launches_per_forward.gen.b1 (count): ``launches_per_forward.gen`` read in the batch-1 cell, whose step time
+is the host-bound ``ms_per_sample_step.b1`` (it spreads too widely from run to
+run for the bound of the batched cells' ``ms_per_sample_step``)."""
+
+from portbench.harness import reader
+
+read = reader('launches_per_forward.gen')

@@ -1,8 +1,7 @@
 """The port's debug helpers against the JAX package's, on the CPU:
 ``check_finite`` (the anomaly tripwire, switched on in code or by
-MESHDIFFUSION_DETECT_ANOMALY=1), ``StepTimer`` / ``_fmt_time`` (the same
-strings under a patched clock) and ``profile_trace`` (a trace file written
-on the CPU; nothing on '')."""
+MESHDIFFUSION_DETECT_ANOMALY=1) and ``profile_trace`` (a trace file written
+on the CPU, holding the program's spans; nothing on '')."""
 
 import glob
 import json
@@ -62,37 +61,42 @@ def test_check_finite_is_identity_when_off(anomaly_off, monkeypatch):
     assert reads == []
 
 
-def test_step_timer_and_fmt_time_match_jax(monkeypatch):
-    """The same strings as JAX's under a patched clock: the mean over the
-    last ``window`` steps in ms and the remaining time in s, min or h."""
-    import time
-    for seconds in (0.0, 12.345, 59.99, 60.5, 3599.0, 3600.5, 86400.0):
-        assert D._fmt_time(seconds) == JD._fmt_time(seconds)
-    durations = [0.25, 1.0, 0.5, 30.0, 2.0, 0.1, 7.0, 0.3, 900.0, 0.02]
-    now = [0.0]
-    monkeypatch.setattr(time, 'time', lambda: now[0])
-
-    def run(timer):
-        lines = []
-        for it, d in enumerate(durations):
-            timer.start()
-            now[0] += d
-            lines.append(timer.stop(it))
-        return lines
-    got = run(D.StepTimer(5000, window=3))
-    assert got == run(JD.StepTimer(5000, window=3))
-    assert got[0] == '250.0 ms/iter, rem=20.8 min' and 'h' in got[8]
-
-
 def test_profile_trace_writes_a_trace(tmp_path):
-    """A trace under log_dir on the CPU, holding the profiled op; nothing
-    written and no profiler started on ''."""
+    """A trace under log_dir on the CPU, holding the profiled op and, in
+    the trace's own time base, the program's span around it as an ``X``
+    event that brackets the op's; nothing written and no profiler started
+    on ''."""
+    from meshdiffusion_tpu_torch.utils import trace
     with D.profile_trace(''):
         assert not torch.autograd._profiler_enabled()
     log_dir = tmp_path / 'prof'
     with D.profile_trace(str(log_dir)):
-        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+        with trace.span('test.mm'):
+            torch.mm(torch.ones(8, 8), torch.ones(8, 8))
     files = glob.glob(os.path.join(log_dir, '*.json'))
     assert len(files) == 1, files
     events = json.load(open(files[0]))['traceEvents']
-    assert any('mm' in e.get('name', '') for e in events)
+    mm = [e for e in events if e.get('name') == 'aten::mm']
+    (sp,) = [e for e in events if e.get('name') == 'test.mm']
+    assert mm and sp['ph'] == 'X' and sp['cat'] == 'program'
+    for e in mm:
+        assert sp['ts'] <= e['ts'] and e['ts'] + e['dur'] <= sp['ts'] + sp['dur']
+
+
+def test_profile_trace_writes_its_trace_when_the_body_raises(tmp_path):
+    """A scope that raises still leaves its trace, with the program's span
+    that the exception closed, and the exception goes on to the caller."""
+    from meshdiffusion_tpu_torch.utils import trace
+    log_dir = tmp_path / 'prof'
+    with pytest.raises(ValueError):
+        with D.profile_trace(str(log_dir)):
+            with trace.span('test.raises'):
+                torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+                raise ValueError
+    assert not torch.autograd._profiler_enabled()
+    files = glob.glob(os.path.join(log_dir, '*.json'))
+    assert len(files) == 1, files
+    events = json.load(open(files[0]))['traceEvents']
+    assert any(e.get('name') == 'aten::mm' for e in events)
+    (sp,) = [e for e in events if e.get('name') == 'test.raises']
+    assert sp['ph'] == 'X'
