@@ -282,6 +282,7 @@ _KERNEL_NAMES = {
     'groupnorm_silu': ('_gn_silu_apply_kernel',),
     'gn_silu_conv3d': ('gn_silu_conv3d_kernel', 'splitk_reduce_kernel'),
     'tile_zmin': ('tile_zmin_kernel',),
+    'nin_residual': ('nin_residual_kernel',),
 }
 
 
@@ -551,6 +552,43 @@ def conv_shape_checks(conv_calls, dev, g, record, per_shape) -> None:
             print(f'K2 gn_affine (gn_stats) x{xs} {str(xdt)[6:]}: max_abs_err {err_s:.3e} (bound '
                   f'1e-5); call {s_ms:.4f} ms, device {_ms(s_dms)} ms; plain {s_pms:.4f} ms; bound '
                   f'{s_bnd:.4f} ms ({s_by}); torch.var_mean {s_lms:.4f} ms, device {s_ldms:.4f} ms')
+
+
+def nin_shape_checks(conv_calls, dev, g, record, per_shape) -> None:
+    """The shortcut kernel against its plain version at every shortcut of
+    ``conv_calls`` (a block's first chain whose width changes: its x shape,
+    dtype and output width): relative L2 within 1e-5; CUDA-event, device and
+    plain times and the bound, recorded and appended to ``per_shape``."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.ops.roofline import PEAK_BF16_FLOPS, bound_ms
+    short = {k: n for k, n in conv_calls.items() if k[0][-1] != k[2]}
+    assert short, 'no shortcut among the captured calls'
+    with torch.inference_mode():
+        for (xs, xdt, N), n in sorted(short.items(), key=lambda kv: str(kv[0])):
+            K = xs[-1]
+            xc = torch.randn(xs, device=dev, generator=g).to(xdt)
+            w = (torch.randn((K, N), device=dev, generator=g) * K ** -0.5).to(torch.bfloat16)
+            b = 0.1 * torch.randn(N, device=dev, generator=g)
+            h = torch.randn(xs[:-1] + (N,), device=dev, generator=g).to(torch.bfloat16)
+            y = ops.nin_residual(xc, w, b, h)
+            r = ops.nin_residual_reference(xc, w, b, h)
+            rel = _rel_l2(y, r)
+            err = float((y - r).abs().max())
+            assert torch.isfinite(y).all() and rel <= 1e-5, (xs, xdt, N, rel)
+            call = lambda: ops.nin_residual(xc, w, b, h)
+            ms = _time_ms(call, 20)
+            pms = _time_ms(lambda: ops.nin_residual_reference(xc, w, b, h), 20)
+            dms = _kernel_ms(call, 'nin_residual')[0]
+            bnd, by = bound_ms(*ops.nin_residual_cost(xs, xdt, N), PEAK_BF16_FLOPS)
+            record('nin_residual', err, ms, pms, bnd, by)
+            per_shape.append({'name': 'nin_residual', 'x': list(xs), 'dtype': str(xdt)[6:], 'N': N,
+                              'calls_per_forward': n, 'rel_l2': rel, 'ms': ms, 'device_ms': dms,
+                              'plain_ms': pms, 'bound_ms': bnd, 'bound_by': by})
+            share = '' if dms is None else f', {100 * bnd / dms:.0f} % reached'
+            print(f'nin_residual x{xs} {str(xdt)[6:]} -> N={N} (x{n} a forward): rel_l2 '
+                  f'{rel:.3e} (bound 1e-5) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
+                  f'device {_ms(dms)} ms; plain {pms:.4f} ms; bound {bnd:.4f} ms ({by}{share})')
 
 
 FIT_ITERS, FIT_POOL = 10, 4     # phase 7: iterations a pass, GT view batches
@@ -866,6 +904,7 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
           f'shapes (batch 1); output head GroupNorm+SiLU at {head["shape"]} {head["dtype"]}')
     first = len(per_shape)
     conv_shape_checks(conv_calls, dev, g, record, per_shape)
+    nin_shape_checks(conv_calls, dev, g, record, per_shape)
     k3 = [r for r in per_shape[first:] if r['name'] == 'gn_silu_conv3d']
     slower = [(r['x'], r['dtype'], r['O']) for r in k3 if r['ms'] >= r['plain_ms']]
     print(f'res128 K3 at batch 1: slower than plain (CUDA events) at {slower or "no shape"}')
@@ -1004,7 +1043,8 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
         rel = _rel_l2(y_k, y_p)
         assert torch.isfinite(y_k).all() and y_k.shape == x1.shape and rel <= 1e-2, rel
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 65, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 64, 'tile_zmin': 0, **NO_SHARDED}, per_fwd
+                           'gn_silu_conv3d': 64, 'tile_zmin': 0, **NO_SHARDED,
+                           'nin_residual': 20}, per_fwd
         print(f'res128 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
               f'(bound 1e-2); launches a forward {per_fwd}')
         del model_p, y_k, y_p
@@ -1066,7 +1106,8 @@ def uncond128_run(entry, rec, work: str, mask, dev) -> dict:
     peak_gen = torch.cuda.max_memory_allocated()
     n = R128_STEPS
     assert launches == {'ancestral_update': n, 'gn_affine': 65 * n, 'groupnorm_silu': n,
-                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0, **NO_SHARDED}, launches
+                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0, **NO_SHARDED,
+                        'nin_residual': 20 * n}, launches
     assert rec.fields['steps'] == n
     sample_s = rec.fields['sample_s']
     sample = np.load(npy)
@@ -1149,7 +1190,7 @@ def viz128_run(entry, rec, work: str, record, dev) -> dict:
     renders = rec.fields['viz_renders']     # 1, and 1 more a capacity regrowth
     assert not any(rec.fields['viz_overflow'].values()), rec.fields['viz_overflow']
     assert launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': 0, 'tile_zmin': renders, **NO_SHARDED} \
+                        'gn_silu_conv3d': 0, 'tile_zmin': renders, **NO_SHARDED, **NO_NIN} \
         and len(calls) == renders, \
         (launches, renders, len(calls))
     v, f = read_obj(objs[0])
@@ -1243,7 +1284,7 @@ def likelihood_run(sample, dev, g) -> dict:
         torch.cuda.synchronize()
         n = ops.launch_counts()
         assert n == {'ancestral_update': 0, 'gn_affine': n_conv, 'groupnorm_silu': 0,
-                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0, **NO_SHARDED}, n
+                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0, **NO_SHARDED, **NO_NIN}, n
         dp, vp = fns['plain'](x, tt, eps)
         rel_d = _rel_l2(dk, dp)
         rel_v = float((vk - vp).abs() / vp.abs())
@@ -1283,7 +1324,7 @@ def likelihood_run(sample, dev, g) -> dict:
     lk_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     assert launches == {'ancestral_update': 0, 'gn_affine': n_conv * nfe, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0, **NO_SHARDED}, \
+                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0, **NO_SHARDED, **NO_NIN}, \
         (launches, nfe)
     e0 = 1e-5
     integral = sde.beta_0 * (1 - e0) + (sde.beta_1 - sde.beta_0) * (1 - e0 ** 2) / 2
@@ -1681,7 +1722,7 @@ def textured_phases(entry, rec, record, per_shape, dev) -> dict:
         sv_launches = ops.launch_counts()
         assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
                                'gn_silu_conv3d': 0, 'tile_zmin': 1 + TEX_SV_ITERS + 1,
-                               **NO_SHARDED}, sv_launches
+                               **NO_SHARDED, **NO_NIN}, sv_launches
         d = torch.load(path)
         assert set(d) == {'sdf', 'deform', 'vis', 'vis_rast'} and d['sdf'].shape == (V,)
         assert 0 < float(d['vis'].sum()) < V and all(
@@ -1699,6 +1740,9 @@ def textured_phases(entry, rec, record, per_shape, dev) -> dict:
 
 # the wrappers that only the spatially sharded U-Net launches: 0 on every one-card path
 NO_SHARDED = {'gn_silu_conv3d_halo': 0, 'gn_moments': 0}
+# the shortcut kernel runs only in forwards that record no gradient: 0 under autograd
+# (training, the likelihood) and in the fits
+NO_NIN = {'nin_residual': 0}
 PAR_MICRO = 2              # phases 21-22: samples a data row a micro-batch
 PAR_STEPS = 3              # phase 22: main --mode train steps 0..PAR_STEPS
 R128_PAR_STEPS = 1         # phase 23: steps 0..R128_PAR_STEPS
@@ -2748,6 +2792,7 @@ def main() -> int:
                        *bound_ms(*ops.groupnorm_silu_cost(xg.shape, dt)))
 
         conv_shape_checks(conv_calls, dev, g, record, per_shape)
+        nin_shape_checks(conv_calls, dev, g, record, per_shape)
     k3 = [r for r in per_shape if r['name'] == 'gn_silu_conv3d']
     results['gn_silu_conv3d']['conv_only_ms'] = sum(r['conv_only_ms'] for r in k3)
     fwd_dev = (None if any(r['device_ms'] is None for r in k3)
@@ -2773,7 +2818,8 @@ def main() -> int:
         assert torch.isfinite(y_k).all() and y_k.shape == x_in.shape
         assert rel <= 1e-2, rel
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 75, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 74, 'tile_zmin': 0, **NO_SHARDED}, per_fwd
+                           'gn_silu_conv3d': 74, 'tile_zmin': 0, **NO_SHARDED,
+                           'nin_residual': 22}, per_fwd
         fwd = {'kernels': [], 'plain': []}
         for which in ('plain', 'kernels', 'kernels', 'plain'):
             m = model_k if which == 'kernels' else model_p
@@ -2819,7 +2865,7 @@ def main() -> int:
               f'{1000 * sample_s / steps:.2f} ms per U-Net step; launches {launches}')
         assert launches == {'ancestral_update': steps, 'gn_affine': 75 * steps,
                             'groupnorm_silu': steps, 'gn_silu_conv3d': 74 * steps,
-                            'tile_zmin': 0, **NO_SHARDED}, launches
+                            'tile_zmin': 0, **NO_SHARDED, 'nin_residual': 22 * steps}, launches
         sample = np.load(npy)
         m = mask[0, ..., 0].cpu().numpy()
         assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
@@ -2911,7 +2957,7 @@ def main() -> int:
         steps_run = sum(p[2] for p in passes)
         expect = FIT_POOL + steps_run         # one launch a render: GT pool + fit steps
         assert fit_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                                'gn_silu_conv3d': 0, 'tile_zmin': expect, **NO_SHARDED}, \
+                                'gn_silu_conv3d': 0, 'tile_zmin': expect, **NO_SHARDED, **NO_NIN}, \
             (fit_launches, expect)
         V = TetGrid.load(64).num_verts
         fitted = os.path.join(keep, os.path.basename(written[0]['tets']))
@@ -2939,7 +2985,7 @@ def main() -> int:
         # one launch a render: the GT target, every step, the visibility render
         assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
                                'gn_silu_conv3d': 0, 'tile_zmin': 1 + SV_ITERS + 1,
-                               **NO_SHARDED}, sv_launches
+                               **NO_SHARDED, **NO_NIN}, sv_launches
         n_it, sv_s, sv_over = rec.fields['singleview_fit']
         assert n_it == SV_ITERS and len(one_layer) == 1, (n_it, len(one_layer))
         zargs, (kt, kz) = one_layer[0]
@@ -3019,7 +3065,8 @@ def main() -> int:
         cond_launches = ops.launch_counts()
         assert cond_launches == {'ancestral_update': COND_STEPS, 'gn_affine': 75 * COND_STEPS,
                                  'groupnorm_silu': COND_STEPS, 'gn_silu_conv3d': 74 * COND_STEPS,
-                                 'tile_zmin': 0, **NO_SHARDED}, cond_launches
+                                 'tile_zmin': 0, **NO_SHARDED,
+                                 'nin_residual': 22 * COND_STEPS}, cond_launches
         cond_s = rec.fields['sample_s']
         sample = np.load(npy)
         m = mask[0, ..., 0].cpu().numpy()
@@ -3049,7 +3096,8 @@ def main() -> int:
         fwd = 99                                 # 100 quad-schedule times, 99 pairs
         assert interp_launches == {'ancestral_update': 0, 'gn_affine': 75 * fwd,
                                    'groupnorm_silu': fwd, 'gn_silu_conv3d': 74 * fwd,
-                                   'tile_zmin': 0, **NO_SHARDED}, interp_launches
+                                   'tile_zmin': 0, **NO_SHARDED,
+                                   'nin_residual': 22 * fwd}, interp_launches
         interp_s = rec.fields['sample_s']
         sample = np.load(npy)
         assert sample.shape == (2, 4, R, R, R) and np.isfinite(sample).all()
@@ -3073,7 +3121,7 @@ def main() -> int:
         n_micro = (TRAIN_STEPS + 1) * TRAIN_ITER
         assert train_launches == {'ancestral_update': 0, 'gn_affine': 74 * n_micro,
                                   'groupnorm_silu': 0, 'gn_silu_conv3d': 74 * n_micro,
-                                  'tile_zmin': 0, **NO_SHARDED}, train_launches
+                                  'tile_zmin': 0, **NO_SHARDED, **NO_NIN}, train_launches
         assert [t['step'] for t in tsteps] == list(range(TRAIN_STEPS + 1)), tsteps
         assert tsteps[0]['unchanged'] is True, 'step 0 moved the weights (lr 0 under warm-up)'
         model = state.model
@@ -3375,6 +3423,9 @@ def main() -> int:
                                 'meshdiffusion_tpu/ops/gn_silu_conv.py:142'),
         'gn_moments': ('cuda', 'meshdiffusion_tpu_torch/csrc/gn_stats.cu',
                        'meshdiffusion_tpu/ops/groupnorm.py:94'),
+        'nin_residual': ('cuda', 'meshdiffusion_tpu_torch/csrc/nin_residual.cu',
+                         'none: the plain NIN shortcut + residual sum of '
+                         'meshdiffusion_tpu/models/layers.py:275-276'),
     }
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
                'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,

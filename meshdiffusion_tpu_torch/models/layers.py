@@ -18,7 +18,10 @@ autograd ``ops.gn_silu_conv3d_autograd``, whose backward differentiates
 the plain version), or with ``kernels=False`` through its plain version,
 which is how the plain comparison on the card is built. In training,
 dropout sits between the second chain's SiLU and its conv; that chain then
-runs decomposed, as in the JAX package.
+runs decomposed, as in the JAX package. A block whose width changes ends
+in ``ops.nin_residual``, its NIN shortcut and residual sum in one kernel on
+a CUDA tensor, when no gradient is recorded; under autograd, on a depth
+slab or with ``kernels=False`` it composes ``NIN_0(x) + h``.
 
 Under ``parallel.spatial.sharded`` each rank holds a depth slab of the
 grid, and the layers do what XLA's partitioner does for the JAX package's
@@ -70,6 +73,23 @@ def ddpm_init_(weight: torch.Tensor, fan_in: int, fan_out: int, scale: float = 1
         weight.uniform_(-bound, bound, generator=generator)
 
 
+class _Derived:
+    """A tensor derived from a weight, kept between calls and rebuilt, counted
+    as ``counter`` (``utils/trace.py``), when the weight changes: its storage,
+    its version, or ``extra``."""
+    __slots__ = ('counter', 'key', 'value')
+
+    def __init__(self, counter: str):
+        self.counter, self.key, self.value = counter, None, None
+
+    def get(self, w: torch.Tensor, build, *extra) -> torch.Tensor:
+        key = (w.data_ptr(), w._version) + extra
+        if key != self.key:
+            trace.count(self.counter)
+            self.value, self.key = build(), key
+        return self.value
+
+
 class NIN(nn.Module):
     """1x1 'network-in-network' layer over the channel axis; returns fp32."""
 
@@ -80,16 +100,21 @@ class NIN(nn.Module):
         self.b = nn.Parameter(torch.zeros(num_units))
         self.init_scale = init_scale
         self.dtype = dtype
+        self._cast = _Derived('rebuild.pack')
 
     def reset_parameters_ddpm(self, generator=None):
         ddpm_init_(self.W, *self.W.shape, self.init_scale, generator)
         nn.init.zeros_(self.b)
 
+    def cast_weight(self) -> torch.Tensor:
+        """``W`` in the compute dtype, contiguous: what ``ops.nin_residual``
+        reads. Kept between calls and rebuilt when the weight changes, as
+        ``Conv3D.packed`` is."""
+        return self._cast.get(self.W, lambda: self.W.detach().to(self.dtype).contiguous(),
+                              self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # compute-dtype operands, fp32 sums and result (JAX:
-        # preferred_element_type=float32)
-        y = torch.matmul(x.to(self.dtype).float(), self.W.to(self.dtype).float())
-        return y + self.b
+        return ops.nin_reference(x, self.W, self.b, self.dtype)
 
 
 class Conv3D(nn.Conv3d):
@@ -102,8 +127,8 @@ class Conv3D(nn.Conv3d):
                          padding=kernel // 2 if padding < 0 else padding)
         self.init_scale = init_scale
         self.dtype = dtype
-        self._dhwio, self._dhwio_key = None, None
-        self._packed, self._packed_key = None, None
+        self._dhwio = _Derived('rebuild.dhwio')
+        self._packed = _Derived('rebuild.pack')
 
     def reset_parameters_ddpm(self, generator=None):
         rf = math.prod(self.kernel_size)
@@ -119,25 +144,15 @@ class Conv3D(nn.Conv3d):
         so the 74 ResnetBlock convs of a forward do not re-cast and
         re-transpose their weights every call."""
         w = self.weight
-        key = (w.data_ptr(), w._version, self.dtype)
-        if key != self._dhwio_key:
-            trace.count('rebuild.dhwio')
-            self._dhwio = w.detach().permute(2, 3, 4, 1, 0).to(self.dtype).contiguous()
-            self._dhwio_key = key
-        return self._dhwio
+        return self._dhwio.get(
+            w, lambda: w.detach().permute(2, 3, 4, 1, 0).to(self.dtype).contiguous(), self.dtype)
 
     def packed(self) -> torch.Tensor:
         """The weight as the conv kernel's B tiles (``ops.pack_conv_weights``:
         per (N block, 64-channel chunk, tap) one contiguous, swizzled bf16
         tile, copied into shared memory by one bulk copy). Kept between calls
         and rebuilt when the weight changes, as :meth:`dhwio` is."""
-        w = self.weight
-        key = (w.data_ptr(), w._version)
-        if key != self._packed_key:
-            trace.count('rebuild.pack')
-            self._packed = ops.pack_conv_weights(self.dhwio())
-            self._packed_key = key
-        return self._packed
+        return self._packed.get(self.weight, lambda: ops.pack_conv_weights(self.dhwio()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt, padding = self.dtype, self.padding
@@ -225,6 +240,10 @@ class ResnetBlockDDPM(nn.Module):
             h = h + t[:, None, None, None, :].to(h.dtype)
         h = chain(h, self.GroupNorm_1, self.Conv_1, self.dropout if train else 0.0)
         if self.in_ch != self.out_ch:
+            if self.kernels and not grad and sh is None:
+                # the shortcut and the residual sum in one kernel on CUDA
+                nin = self.NIN_0
+                return ops.nin_residual(x.contiguous(), nin.cast_weight(), nin.b, h, dt)
             x = self.NIN_0(x)
         return x + h
 

@@ -9,6 +9,7 @@
 | :func:`gn_silu_conv3d_halo` | the same kernel, depth-halo mode | the same, on a depth slab |
 | :func:`gn_moments` | the gn_stats kernel, moments mode | the statistics, on a depth slab |
 | :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
+| :func:`nin_residual` | CUDA C++, sm_90a (wgmma) | none: the plain NIN shortcut + residual sum of ``meshdiffusion_tpu/models/layers.py:275-276`` |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches,
@@ -33,13 +34,15 @@ from .groupnorm import (affine_from_moments, gn_affine, gn_affine_cost,  # noqa:
                         gn_affine_reference, gn_moments, gn_moments_autograd, gn_moments_cost,
                         gn_moments_reference, groupnorm_reference, groupnorm_silu,
                         groupnorm_silu_cost, groupnorm_silu_reference, merge_moments)
+from .nin_residual import (nin_reference, nin_residual, nin_residual_cost,  # noqa: F401
+                           nin_residual_reference)
 from .sampler_step import (ancestral_update, ancestral_update_cost,  # noqa: F401
                            ancestral_update_reference)
 from .tile_zmin import (tile_zmin, tile_zmin_bound_ms, tile_zmin_cost,  # noqa: F401
                         tile_zmin_reference)
 
 KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, tile_zmin,
-                   gn_silu_conv3d_halo, gn_moments)
+                   gn_silu_conv3d_halo, gn_moments, nin_residual)
 
 
 def reset_launch_counts() -> None:

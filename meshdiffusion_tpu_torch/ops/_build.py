@@ -4,8 +4,8 @@
 one process per source, all started together, and links the objects into
 one shared library with a plain C interface. The library goes to
 ``meshdiffusion_tpu_torch/_build/`` under a name keyed on a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one loads
-at once. It is loaded with ``ctypes``; every pointer and the stream are
+sources, the headers they share (``csrc/*.cuh``) and the flags, so a
+changed source rebuilds and an unchanged one loads at once. It is loaded with ``ctypes``; every pointer and the stream are
 passed as ``c_void_p``, sizes as ``c_int``, and every entry point returns
 ``cudaGetLastError()`` after its launches, which :func:`check` turns into an
 exception. Loading it, and building it first where it is missing, counts
@@ -50,6 +50,8 @@ _SIGNATURES = {
     # best_z, N, F, K, Kg, ntx, tpv, H, W, layers, stream
     'tile_zmin': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, x_bf16, w, bias, h, out, M, K, N, stream
+    'nin_residual_bf16': [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -76,7 +78,7 @@ def _sources():
 
 def library_path() -> str:
     h = hashlib.sha256(' '.join(ARCH_FLAGS + FLAGS).encode())
-    for s in _sources():
+    for s in _sources() + sorted(glob.glob(os.path.join(SRC_DIR, '*.cuh'))):
         with open(s, 'rb') as f:
             h.update(os.path.basename(s).encode() + f.read())
     return os.path.join(BUILD_DIR, f'libmdt_kernels_{h.hexdigest()[:16]}.so')

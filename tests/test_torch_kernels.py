@@ -305,3 +305,90 @@ def test_tile_zmin_kernel_matches_plain_on_the_uv_bake(cuda, rng):
     assert (pz[pt >= 0] == 0).all()
     assert torch.equal(kt, pt) and torch.equal(kz, pz)
     assert torch.equal(kt, kt2) and torch.equal(kz, kz2)
+
+
+# every distinct (K, N, x dtype) of the 22 shortcuts of a res64 forward, at the
+# grid size r where it occurs
+_NIN_RES64 = [(16, 128, 256, torch.bfloat16), (8, 256, 512, torch.bfloat16),
+              (8, 1024, 512, torch.float32), (8, 768, 512, torch.float32),
+              (16, 768, 256, torch.float32), (16, 512, 256, torch.float32),
+              (16, 384, 256, torch.float32), (32, 384, 128, torch.bfloat16),
+              (64, 256, 128, torch.bfloat16), (64, 256, 128, torch.float32)]
+
+
+def _nin_inputs(cuda, lead, K, N, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(lead + (K,), device=cuda, generator=g).to(dtype)
+    w = (torch.randn(K, N, device=cuda, generator=g) * K ** -0.5).to(torch.bfloat16)
+    b = 0.1 * torch.randn(N, device=cuda, generator=g)
+    h = torch.randn(lead + (N,), device=cuda, generator=g).to(torch.bfloat16)
+    return x, w, b, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('r,K,N,dtype', _NIN_RES64 + [(None, 384, 256, torch.float32)])
+@pytest.mark.parametrize('B', [1, 4])
+def test_nin_residual_kernel_matches_plain(cuda, B, r, K, N, dtype):
+    """The shortcut + residual kernel against the plain composition at the
+    res64 forward's shapes (M = B r^3 voxels; r None: a ragged M, 1000 B + 37,
+    no multiple of a tile): relative L2 at most 1e-5 (the same bf16 products,
+    summed over k in another order), one launch a call, bit-equal reruns."""
+    lead = (B, r, r, r) if r else (B * 1000 + 37,)
+    x, w, b, h = _nin_inputs(cuda, lead, K, N, dtype)
+    with torch.inference_mode():
+        n0 = ops.nin_residual.launches
+        y = ops.nin_residual(x, w, b, h)
+        assert ops.nin_residual.launches == n0 + 1
+        y2 = ops.nin_residual(x, w, b, h)
+        ref = ops.nin_residual_reference(x, w, b, h)
+    assert y.dtype == torch.float32 and y.shape == lead + (N,)
+    assert torch.equal(y, y2)
+    err = (y.double() - ref.double()).norm() / ref.double().norm()
+    assert err <= 1e-5, err.item()
+
+
+@pytest.mark.cuda
+def test_nin_residual_raises_on_what_it_does_not_take(cuda):
+    x, w, b, h = _nin_inputs(cuda, (2, 4, 4, 4), 256, 128, torch.float32)
+    with pytest.raises(RuntimeError):          # under autograd
+        ops.nin_residual(x.clone().requires_grad_(True), w, b, h)
+    with torch.inference_mode():
+        with pytest.raises(ValueError):        # non-contiguous x
+            ops.nin_residual(x.transpose(1, 2), w, b, h)
+        with pytest.raises(ValueError):        # non-float x
+            ops.nin_residual(x.to(torch.int32), w, b, h)
+        with pytest.raises(ValueError):        # mismatched shapes
+            ops.nin_residual(x, w[:128], b, h)
+        with pytest.raises(ValueError):
+            ops.nin_residual(x, w, b, h[..., :64])
+
+
+@pytest.mark.cuda
+def test_res64_forward_runs_every_shortcut_in_the_kernel(cuda):
+    """A warm res64 forward at batch 1 launches the shortcut kernel 22 times
+    (every block whose width changes) and rebuilds nothing: each NIN's bf16
+    weight is kept from the first forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.utils import trace
+    cfg = get_config('res64')
+    R = cfg.data.image_size
+    model = create_model(cfg, device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1, R, R, R, 4), device=cuda, generator=g)
+    lab, mask = torch.tensor([500.0], device=cuda), torch.ones((1, R, R, R, 1), device=cuda)
+    with torch.inference_mode():
+        model(x, lab, mask)
+        torch.cuda.synchronize()
+        trace.clear()
+        n0 = ops.nin_residual.launches
+        with profile(activities=[ProfilerActivity.CUDA]):
+            y = model(x, lab, mask)
+            torch.cuda.synchronize()
+    assert ops.nin_residual.launches == n0 + 22
+    assert not [i.name for i in trace.instants() if i.name.startswith('rebuild.')]
+    assert sum(s.name == 'ops.nin_residual' for s in trace.spans()) == 22
+    assert torch.isfinite(y).all()
+    trace.clear()

@@ -126,8 +126,57 @@ def test_wrappers_route_by_device(rng):
     x, sc, bi, k, cb = map(_t, _gsc_inputs(rng, 1, 2, 4, 4, 32, 8))
     ops.gn_silu_conv3d(x, sc, bi, k, cb)
     ops.groupnorm_silu(x, sc, bi)
+    w, h = torch.ones(32, 8), torch.ones(1, 2, 4, 4, 8)
+    ops.nin_residual(x, w, cb, h)
     assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
     with pytest.raises(RuntimeError):
         ops.gn_silu_conv3d(x.to('meta'), sc, bi, k, cb)
     with pytest.raises(RuntimeError):
         ops.groupnorm_silu(x.to('meta'), sc, bi)
+    with pytest.raises(RuntimeError):
+        ops.nin_residual(x.to('meta'), w, cb, h)
+
+
+# ---- the NIN shortcut + residual sum (ops.nin_residual): bit for bit NIN(x) + h ----
+
+@pytest.mark.parametrize('case,K,N,x_dtype', [
+    ('op', 256, 128, torch.float32), ('op', 256, 128, torch.bfloat16),
+    ('op', 384, 128, torch.float32), ('op', 384, 128, torch.bfloat16),
+    ('op', 768, 256, torch.float32), ('op', 768, 256, torch.bfloat16),
+    ('op', 1024, 512, torch.float32), ('op', 1024, 512, torch.bfloat16),
+    ('block', 256, 128, torch.float32), ('block', 128, 256, torch.bfloat16),
+    ('block_under_autograd', 256, 128, torch.float32)])
+def test_nin_residual_plain_is_nin_plus_h(rng, monkeypatch, case, K, N, x_dtype):
+    """On CPU tensors ``ops.nin_residual`` is the composition it replaces,
+    ``NIN_0(x) + h``, bit for bit, at the main path's widths; a res64-width
+    ResnetBlock with a shortcut returns that composition of its own h (the
+    wrapper with no gradient, the composition itself under autograd)."""
+    from meshdiffusion_tpu_torch.models.layers import NIN, ResnetBlockDDPM
+    x = _t(rng.normal(size=(2, 4, 4, 4, K)).astype(np.float32)).to(x_dtype)
+    if case == 'op':
+        nin = NIN(K, N, dtype=torch.bfloat16)
+        nin.reset_parameters_ddpm()
+        with torch.no_grad():
+            nin.b.uniform_(-0.1, 0.1)
+            h = _t(rng.normal(size=(2, 4, 4, 4, N)).astype(np.float32)).to(torch.bfloat16)
+            got = ops.nin_residual(x, nin.cast_weight(), nin.b, h)
+            assert got.dtype == torch.float32 and torch.equal(got, nin(x) + h)
+        return
+    torch.manual_seed(0)
+    block = ResnetBlockDDPM(K, N, temb_dim=64, dtype=torch.bfloat16, dropout=0.0)
+    block.NIN_0.reset_parameters_ddpm()
+    temb = torch.randn(2, 64)
+    seen = []
+
+    def rec(x, W, b, h, dtype, real=ops.nin_residual):
+        seen.append(h)
+        return real(x, W, b, h, dtype)
+    monkeypatch.setattr(ops, 'nin_residual', rec)
+    with torch.set_grad_enabled(case == 'block_under_autograd'):
+        y = block(x, temb)
+    if case == 'block_under_autograd':
+        assert not seen and y.requires_grad
+        return
+    assert len(seen) == 1 and y.dtype == torch.float32 and torch.isfinite(y).all()
+    with torch.no_grad():
+        assert torch.equal(y, block.NIN_0(x) + seen[0])

@@ -9,6 +9,8 @@ point devices, in pure Python on the CPU (no card, no JAX).
 * the statistics kernel's plan at every GroupNorm input of a res64 forward.
 * ``pack_conv_weights`` against the swizzle formula the wgmma descriptor reads.
 * each kernel's ``*_cost`` helper against counts made by hand.
+* the kernel library's C entry points against their ctypes signatures, and
+  its build key over the sources and the headers they share.
 * ``create_model``, ``extract_grid`` and ``extract_batch`` run on the card
   unless told otherwise, and every CPU test says ``device='cpu'``.
 """
@@ -31,7 +33,8 @@ from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
 from meshdiffusion_tpu_torch.ops.gn_silu_conv import (_TILINGS, SMEM_LIMIT, _plan,
                                                       gn_silu_conv3d_bound_ms, pack_conv_weights)
 from meshdiffusion_tpu_torch.ops.groupnorm import _gn_plan
-from meshdiffusion_tpu_torch.ops.roofline import PEAK_ALU_OPS, PEAK_FP32_UNFUSED_OPS, bound_ms
+from meshdiffusion_tpu_torch.ops.roofline import (PEAK_ALU_OPS, PEAK_BF16_FLOPS,
+                                                  PEAK_FP32_UNFUSED_OPS, bound_ms)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -135,7 +138,7 @@ def _head_and_ancestral_shapes():
 
 
 @pytest.mark.parametrize('kernel', ['gn_silu_conv3d', 'gn_affine', 'groupnorm_silu',
-                                    'ancestral_update', 'tile_zmin'])
+                                    'ancestral_update', 'tile_zmin', 'nin_residual'])
 def test_cost_helpers_match_hand_counts(kernel):
     """FLOP and bytes behind each kernel's bound_ms, against counts made by
     hand for a res64 forward (989 TFLOP/s bf16, 67 fp32, 3.35 TB/s), and for
@@ -158,6 +161,17 @@ def test_cost_helpers_match_hand_counts(kernel):
     elif kernel == 'groupnorm_silu':
         flop, nbytes = ops.groupnorm_silu_cost(head, torch.float32)
         assert nbytes == 2 * 64 ** 3 * 128 * 4 + 2 * 128 * 4 and flop == 8 * 64 ** 3 * 128
+    elif kernel == 'nin_residual':
+        # the 22 shortcuts (first chains whose width changes) at batch 4: x at
+        # its dtype, bf16 W and h, fp32 b and output, 2.46 ms (bytes)
+        short = {(xs, dt, O): n for (xs, dt, O), n in calls.items() if xs[-1] != O}
+        assert sum(short.values()) == 22
+        ms = sum(n * bound_ms(*ops.nin_residual_cost((4,) + xs[1:], dt, O), PEAK_BF16_FLOPS)[0]
+                 for (xs, dt, O), n in short.items())
+        assert abs(ms / 2.46 - 1) < 2e-3, ms
+        M = 64 ** 3
+        assert ops.nin_residual_cost((1, 64, 64, 64, 256), torch.float32, 128) == (
+            2 * M * 256 * 128, M * 256 * 4 + 256 * 128 * 2 + 128 * 4 + M * 128 * (2 + 4))
     elif kernel == 'ancestral_update':
         # x, eps, noise and the mask read, x and x_mean written: about 6.6 us
         ms, by = bound_ms(*ops.ancestral_update_cost(xs4, ms4))
@@ -269,3 +283,23 @@ def test_cpu_tests_name_their_device():
                         and isinstance(f.value, ast.Name) and f.value.id in modules):
                     missing.append(f'{os.path.basename(path)}:{node.lineno}')
     assert not missing, missing
+
+
+def test_library_entry_points_and_build_key(monkeypatch, tmp_path):
+    """Every entry point ``ops/_build.py`` binds is an ``extern "C"`` function
+    of a ``csrc/*.cu`` source with as many parameters as its ctypes
+    signature; the library's name changes when a shared header does."""
+    import re
+
+    from meshdiffusion_tpu_torch.ops import _build
+    text = ''.join(open(p).read() for p in _build._sources())
+    for name, argtypes in _build._SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)', text)
+        assert m, name
+        assert len(m.group(1).split(',')) == len(argtypes), name
+    (tmp_path / 'a.cu').write_text('// a')
+    (tmp_path / 'b.cuh').write_text('// b')
+    monkeypatch.setattr(_build, 'SRC_DIR', str(tmp_path))
+    before = _build.library_path()
+    (tmp_path / 'b.cuh').write_text('// b, changed')
+    assert _build.library_path() != before

@@ -138,6 +138,26 @@ def test_rebuild_pack_counts_weight_updates(clean):
     assert sorted(x.name for x in trace.instants()) == ['rebuild.dhwio', 'rebuild.pack']
 
 
+def test_nin_cast_weight_counts_weight_updates(clean):
+    """A NIN's compute-dtype weight (what ``ops.nin_residual`` reads) is
+    kept between calls and rebuilt, counted as ``rebuild.pack``, only when
+    the weight changes in place."""
+    nin = layers.NIN(64, 32, dtype=torch.bfloat16)
+    nin.reset_parameters_ddpm()
+
+    def cast():
+        w = nin.cast_weight()
+        return w, trace.counts().get('rebuild.pack', 0)
+    (w0, n0), (w1, n1) = cast(), cast()
+    assert w1 is w0 and n1 == n0 and w0.dtype == torch.bfloat16 and w0.is_contiguous()
+    with torch.no_grad():
+        nin.W.mul_(2.0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        w2, n2 = cast()
+    assert n2 == n0 + 1 and torch.equal(w2, nin.W.detach().to(torch.bfloat16))
+    assert [x.name for x in trace.instants()] == ['rebuild.pack']
+
+
 def test_rebuild_plan_counts_plan_cache_misses(clean):
     """``rebuild.plan`` counts the conv kernel's and the statistics
     kernel's launch plans made, not those read from their caches."""
@@ -161,7 +181,7 @@ def test_kernel_wrappers_keep_their_names_and_counters():
     and its ``launches`` counter."""
     counts = ops.launch_counts()
     assert set(counts) == {'ancestral_update', 'gn_affine', 'groupnorm_silu', 'gn_silu_conv3d',
-                           'tile_zmin', 'gn_silu_conv3d_halo', 'gn_moments'}
+                           'tile_zmin', 'gn_silu_conv3d_halo', 'gn_moments', 'nin_residual'}
     for fn in ops.KERNEL_WRAPPERS:
         assert callable(fn.__wrapped__) and isinstance(fn.launches, int)
 
