@@ -204,6 +204,14 @@ under each. Phases, in order:
     AA ablation's arms (tools/aa_ablation.py: 150
     iterations at 64^2, AA on and off) with chamfer and 4-pose PSNR beside
     the JAX package's recorded numbers; numbers to ``DIR/aa_gate.json``;
+24b. the DiT-XL/4 preset (``dit3d_xl4_res64``), last, since its large
+    temporaries would leave the allocator's cache fragmented for the ranks
+    of 22-23: its attention kernel against the plain version at batch 4
+    and 1 (4096 tokens, 16 heads of 72), with
+    ``F.scaled_dot_product_attention`` timed beside it as ``library_ms``;
+    a full-width forward's 28 launches and the kernel's device time a
+    forward; ``main --config dit3d_xl4_res64 --mode uncond_gen`` 9 steps,
+    launches counted;
 25. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
@@ -283,6 +291,7 @@ _KERNEL_NAMES = {
     'gn_silu_conv3d': ('gn_silu_conv3d_kernel', 'splitk_reduce_kernel'),
     'tile_zmin': ('tile_zmin_kernel',),
     'nin_residual': ('nin_residual_kernel',),
+    'dit_attention': ('dit_attention_kernel',),
 }
 
 
@@ -589,6 +598,99 @@ def nin_shape_checks(conv_calls, dev, g, record, per_shape) -> None:
             print(f'nin_residual x{xs} {str(xdt)[6:]} -> N={N} (x{n} a forward): rel_l2 '
                   f'{rel:.3e} (bound 1e-5) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
                   f'device {_ms(dms)} ms; plain {pms:.4f} ms; bound {bnd:.4f} ms ({by}{share})')
+
+
+DIT_STEPS = 9        # phase 24b: the DiT's uncond_gen steps (num_scales 10)
+
+
+def dit_run(port_main, dev, g, record, per_shape) -> dict:
+    """Phase 24b: the DiT-XL/4 preset (``dit3d_xl4_res64``). Its attention
+    kernel against the plain version at the cell's batch 4 and at batch 1
+    (4096 tokens, 16 heads of 72): relative L2 within 1e-2 per head,
+    CUDA-event, device and plain times, the bound, and as ``library_ms``
+    ``F.scaled_dot_product_attention`` on the same q, k, v (timed beside
+    it, never called by the port); a full-width forward (seeded weights,
+    bf16), whose attention runs as 28 launches, with the kernel's device
+    time a forward; then ``main --config dit3d_xl4_res64 --mode
+    uncond_gen`` (num_scales 10, beta_max 2.0, batch 1) with every launch
+    counted. Returns {'launches', 'device_ms_per_forward'}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.ops.roofline import PEAK_BF16_FLOPS, bound_ms
+    H, dh, T = 16, 72, 4096
+    with torch.inference_mode():
+        for B in (4, 1):
+            qkv = torch.randn((B, T, 3 * H * dh), device=dev, generator=g).to(torch.bfloat16)
+            y = ops.dit_attention(qkv, H)
+            r = torch.cat([ops.dit_attention_reference(qkv[b:b + 1].float(), H)
+                           for b in range(B)])
+            yh, rh = y.float().reshape(B, -1, H, dh), r.reshape(B, -1, H, dh)
+            rel = float(((yh - rh).norm(dim=(1, 3)) / rh.norm(dim=(1, 3))).max())
+            err = float((yh - rh).abs().max())
+            assert torch.isfinite(y).all() and rel <= 1e-2, (B, rel)
+            del r, yh, rh
+            call = lambda: ops.dit_attention(qkv, H)
+            ms = _time_ms(call, 20)
+            dms = _kernel_ms(call, 'dit_attention')[0]
+            pms = _time_ms(lambda: ops.dit_attention_reference(qkv, H), 3, 1)
+            q, k, v = qkv.reshape(B, -1, 3, H, dh).permute(2, 0, 3, 1, 4)
+            lms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+            bnd, by = bound_ms(*ops.dit_attention_cost(B, qkv.shape[1], H, dh), PEAK_BF16_FLOPS)
+            if B == 4:          # the cell's batch: the kernels line's row
+                record('dit_attention', err, ms, pms, bnd, by, lms)
+            per_shape.append({'name': 'dit_attention', 'qkv': list(qkv.shape), 'heads': H,
+                              'rel_l2': rel, 'ms': ms, 'device_ms': dms, 'plain_ms': pms,
+                              'library_ms': lms, 'bound_ms': bnd, 'bound_by': by})
+            share = '' if dms is None else f', {100 * bnd / dms:.0f} % reached'
+            print(f'dit_attention qkv{tuple(qkv.shape)} {H} heads of {dh}: rel_l2 {rel:.3e} '
+                  f'(bound 1e-2 a head) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
+                  f'device {_ms(dms)} ms; plain {pms:.2f} ms; scaled_dot_product_attention '
+                  f'{lms:.4f} ms; bound {bnd:.4f} ms ({by}{share})')
+            del qkv, y, q, k, v
+
+    cfg = get_config('dit3d_xl4_res64')
+    R = cfg.data.image_size
+    model = create_model(cfg, dev).eval()       # outside inference mode: its weights keep versions
+    with torch.inference_mode():
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.uniform_(-0.03, 0.03, generator=g)
+        x = torch.randn((1, R, R, R, 4), device=dev, generator=g)
+        lab, msk = torch.tensor([500.0], device=dev), torch.ones((1, R, R, R, 1), device=dev)
+        model(x, lab, msk)
+        ops.reset_launch_counts()
+        model(x, lab, msk)
+        torch.cuda.synchronize()
+        per_fwd = ops.launch_counts()
+        assert per_fwd == {**dict.fromkeys(per_fwd, 0), 'dit_attention': 28}, per_fwd
+        fwd_dms = _kernel_ms(lambda: model(x, lab, msk), 'dit_attention', per_call=28, iters=3)[0]
+        print(f'DiT-XL/4 full-width forward, batch 1, bf16: launches {per_fwd}; the attention '
+              f'kernel {_ms(fwd_dms)} ms of device time a forward')
+        del model, x
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_dit_')
+    try:
+        ops.reset_launch_counts()
+        npy = port_main(['--config', 'dit3d_xl4_res64', '--mode', 'uncond_gen', '--device', 'cuda',
+                         f'--config.model.num_scales={DIT_STEPS + 1}',
+                         '--config.model.beta_max=2.0', '--config.eval.batch_size=1',
+                         f'--config.eval.eval_dir={tmp}'])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        assert launches == {**dict.fromkeys(launches, 0), 'ancestral_update': DIT_STEPS,
+                            'dit_attention': 28 * DIT_STEPS}, launches
+        sample = np.load(npy)
+        assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
+        print(f'main --config dit3d_xl4_res64 --mode uncond_gen: {DIT_STEPS} steps; '
+              f'launches {launches}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'device_ms_per_forward': fwd_dms}
 
 
 FIT_ITERS, FIT_POOL = 10, 4     # phase 7: iterations a pass, GT view batches
@@ -1043,7 +1145,7 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
         rel = _rel_l2(y_k, y_p)
         assert torch.isfinite(y_k).all() and y_k.shape == x1.shape and rel <= 1e-2, rel
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 65, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 64, 'tile_zmin': 0, **NO_SHARDED,
+                           'gn_silu_conv3d': 64, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
                            'nin_residual': 20}, per_fwd
         print(f'res128 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
               f'(bound 1e-2); launches a forward {per_fwd}')
@@ -1106,7 +1208,7 @@ def uncond128_run(entry, rec, work: str, mask, dev) -> dict:
     peak_gen = torch.cuda.max_memory_allocated()
     n = R128_STEPS
     assert launches == {'ancestral_update': n, 'gn_affine': 65 * n, 'groupnorm_silu': n,
-                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0, **NO_SHARDED,
+                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
                         'nin_residual': 20 * n}, launches
     assert rec.fields['steps'] == n
     sample_s = rec.fields['sample_s']
@@ -1190,7 +1292,7 @@ def viz128_run(entry, rec, work: str, record, dev) -> dict:
     renders = rec.fields['viz_renders']     # 1, and 1 more a capacity regrowth
     assert not any(rec.fields['viz_overflow'].values()), rec.fields['viz_overflow']
     assert launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': 0, 'tile_zmin': renders, **NO_SHARDED, **NO_NIN} \
+                        'gn_silu_conv3d': 0, 'tile_zmin': renders, **NO_SHARDED, **NO_DIT, **NO_NIN} \
         and len(calls) == renders, \
         (launches, renders, len(calls))
     v, f = read_obj(objs[0])
@@ -1284,7 +1386,7 @@ def likelihood_run(sample, dev, g) -> dict:
         torch.cuda.synchronize()
         n = ops.launch_counts()
         assert n == {'ancestral_update': 0, 'gn_affine': n_conv, 'groupnorm_silu': 0,
-                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0, **NO_SHARDED, **NO_NIN}, n
+                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT, **NO_NIN}, n
         dp, vp = fns['plain'](x, tt, eps)
         rel_d = _rel_l2(dk, dp)
         rel_v = float((vk - vp).abs() / vp.abs())
@@ -1324,7 +1426,7 @@ def likelihood_run(sample, dev, g) -> dict:
     lk_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     assert launches == {'ancestral_update': 0, 'gn_affine': n_conv * nfe, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0, **NO_SHARDED, **NO_NIN}, \
+                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT, **NO_NIN}, \
         (launches, nfe)
     e0 = 1e-5
     integral = sde.beta_0 * (1 - e0) + (sde.beta_1 - sde.beta_0) * (1 - e0 ** 2) / 2
@@ -1722,7 +1824,7 @@ def textured_phases(entry, rec, record, per_shape, dev) -> dict:
         sv_launches = ops.launch_counts()
         assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
                                'gn_silu_conv3d': 0, 'tile_zmin': 1 + TEX_SV_ITERS + 1,
-                               **NO_SHARDED, **NO_NIN}, sv_launches
+                               **NO_SHARDED, **NO_DIT, **NO_NIN}, sv_launches
         d = torch.load(path)
         assert set(d) == {'sdf', 'deform', 'vis', 'vis_rast'} and d['sdf'].shape == (V,)
         assert 0 < float(d['vis'].sum()) < V and all(
@@ -1743,6 +1845,8 @@ NO_SHARDED = {'gn_silu_conv3d_halo': 0, 'gn_moments': 0}
 # the shortcut kernel runs only in forwards that record no gradient: 0 under autograd
 # (training, the likelihood) and in the fits
 NO_NIN = {'nin_residual': 0}
+# the DiT's attention kernel: 0 on every U-Net path
+NO_DIT = {'dit_attention': 0}
 PAR_MICRO = 2              # phases 21-22: samples a data row a micro-batch
 PAR_STEPS = 3              # phase 22: main --mode train steps 0..PAR_STEPS
 R128_PAR_STEPS = 1         # phase 23: steps 0..R128_PAR_STEPS
@@ -2818,7 +2922,7 @@ def main() -> int:
         assert torch.isfinite(y_k).all() and y_k.shape == x_in.shape
         assert rel <= 1e-2, rel
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 75, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 74, 'tile_zmin': 0, **NO_SHARDED,
+                           'gn_silu_conv3d': 74, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
                            'nin_residual': 22}, per_fwd
         fwd = {'kernels': [], 'plain': []}
         for which in ('plain', 'kernels', 'kernels', 'plain'):
@@ -2865,7 +2969,7 @@ def main() -> int:
               f'{1000 * sample_s / steps:.2f} ms per U-Net step; launches {launches}')
         assert launches == {'ancestral_update': steps, 'gn_affine': 75 * steps,
                             'groupnorm_silu': steps, 'gn_silu_conv3d': 74 * steps,
-                            'tile_zmin': 0, **NO_SHARDED, 'nin_residual': 22 * steps}, launches
+                            'tile_zmin': 0, **NO_SHARDED, **NO_DIT, 'nin_residual': 22 * steps}, launches
         sample = np.load(npy)
         m = mask[0, ..., 0].cpu().numpy()
         assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
@@ -2957,7 +3061,7 @@ def main() -> int:
         steps_run = sum(p[2] for p in passes)
         expect = FIT_POOL + steps_run         # one launch a render: GT pool + fit steps
         assert fit_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                                'gn_silu_conv3d': 0, 'tile_zmin': expect, **NO_SHARDED, **NO_NIN}, \
+                                'gn_silu_conv3d': 0, 'tile_zmin': expect, **NO_SHARDED, **NO_DIT, **NO_NIN}, \
             (fit_launches, expect)
         V = TetGrid.load(64).num_verts
         fitted = os.path.join(keep, os.path.basename(written[0]['tets']))
@@ -2985,7 +3089,7 @@ def main() -> int:
         # one launch a render: the GT target, every step, the visibility render
         assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
                                'gn_silu_conv3d': 0, 'tile_zmin': 1 + SV_ITERS + 1,
-                               **NO_SHARDED, **NO_NIN}, sv_launches
+                               **NO_SHARDED, **NO_DIT, **NO_NIN}, sv_launches
         n_it, sv_s, sv_over = rec.fields['singleview_fit']
         assert n_it == SV_ITERS and len(one_layer) == 1, (n_it, len(one_layer))
         zargs, (kt, kz) = one_layer[0]
@@ -3065,7 +3169,7 @@ def main() -> int:
         cond_launches = ops.launch_counts()
         assert cond_launches == {'ancestral_update': COND_STEPS, 'gn_affine': 75 * COND_STEPS,
                                  'groupnorm_silu': COND_STEPS, 'gn_silu_conv3d': 74 * COND_STEPS,
-                                 'tile_zmin': 0, **NO_SHARDED,
+                                 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
                                  'nin_residual': 22 * COND_STEPS}, cond_launches
         cond_s = rec.fields['sample_s']
         sample = np.load(npy)
@@ -3096,7 +3200,7 @@ def main() -> int:
         fwd = 99                                 # 100 quad-schedule times, 99 pairs
         assert interp_launches == {'ancestral_update': 0, 'gn_affine': 75 * fwd,
                                    'groupnorm_silu': fwd, 'gn_silu_conv3d': 74 * fwd,
-                                   'tile_zmin': 0, **NO_SHARDED,
+                                   'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
                                    'nin_residual': 22 * fwd}, interp_launches
         interp_s = rec.fields['sample_s']
         sample = np.load(npy)
@@ -3121,7 +3225,7 @@ def main() -> int:
         n_micro = (TRAIN_STEPS + 1) * TRAIN_ITER
         assert train_launches == {'ancestral_update': 0, 'gn_affine': 74 * n_micro,
                                   'groupnorm_silu': 0, 'gn_silu_conv3d': 74 * n_micro,
-                                  'tile_zmin': 0, **NO_SHARDED, **NO_NIN}, train_launches
+                                  'tile_zmin': 0, **NO_SHARDED, **NO_DIT, **NO_NIN}, train_launches
         assert [t['step'] for t in tsteps] == list(range(TRAIN_STEPS + 1)), tsteps
         assert tsteps[0]['unchanged'] is True, 'step 0 moved the weights (lr 0 under warm-up)'
         model = state.model
@@ -3405,6 +3509,9 @@ def main() -> int:
     with open(os.path.join(out_dir, 'aa_gate.json'), 'w') as f:
         json.dump({'aa_alternates': aa, **gate['json'], 'card': _smi()}, f, indent=1)
 
+    # ---- 24b. the DiT-XL/4 preset: its attention kernel, a forward, uncond_gen ----
+    dit = dit_run(port_main, dev, g, record, per_shape)
+
     # ---- 25. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
@@ -3426,11 +3533,15 @@ def main() -> int:
         'nin_residual': ('cuda', 'meshdiffusion_tpu_torch/csrc/nin_residual.cu',
                          'none: the plain NIN shortcut + residual sum of '
                          'meshdiffusion_tpu/models/layers.py:275-276'),
+        'dit_attention': ('cuda', 'meshdiffusion_tpu_torch/csrc/dit_attention.cu',
+                          'none: the DiT\'s multi-head attention (models/dit3d.py); the JAX '
+                          'package has no transformer'),
     }
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
                'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,
                'train': train_launches, 'uncond_gen_res128': uncond128_launches,
                'extract_viz': viz_launches, 'likelihood': likelihood_launches,
+               'dit_uncond_gen': dit['launches'],
                **tex['launches'], 'train_res64_2x2': par['res64 (2, 2)']['launches'],
                'train_res128_1x2': par['res128 (1, 2)']['launches'],
                **{f'aa_alternates_{impl}': r['launches'] for impl, r in aa.items()},
@@ -3444,6 +3555,9 @@ def main() -> int:
                     tile_zmin=fit_launches['tile_zmin'] // (FIT_POOL + steps_run))
     # the sharded modes: a rank's launches a res64 training micro-batch on the (2, 2) mesh
     per_step.update({n: par['res64 (2, 2)']['launches_rank0_per_micro'][n] for n in NO_SHARDED})
+    # the DiT's attention: a launch a block of a DiT forward
+    per_step['dit_attention'] = 28
+    per_fwd_dev['dit_attention'] = dit['device_ms_per_forward']
     kernels = [{'name': n, 'route': route, 'source': src, 'replaces': rep,
                 'launches': path_launches[n], 'launches_per_forward': per_step[n],
                 'device_ms_per_forward': per_fwd_dev.get(n) or None, **results[n]}

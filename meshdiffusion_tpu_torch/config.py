@@ -121,11 +121,32 @@ def get_res128_config() -> Config:
     return config
 
 
+def get_dit3d_xl4_res64_config() -> Config:
+    """The res64 preset's data, SDE, sampling and eval sections with the 3D
+    diffusion transformer in the U-Net's place (``models/dit3d.py``): DiT-XL/4
+    (facebookresearch/DiT ``DiT_XL_4``: hidden 1152, depth 28, 16 heads,
+    MLP ratio 4, patch 4) over 4^3 patches of the 64^3 grid, 4096 tokens.
+    The U-Net's keys of the model section stay, unread."""
+    config = get_res64_config()
+    m = config.model
+    m.name = 'dit3d_xl4'
+    m.hidden_size = 1152
+    m.depth = 28
+    m.num_heads = 16
+    m.mlp_ratio = 4.0
+    m.patch_size = 4
+    return config
+
+
 _PRESETS = {
     'res64': get_res64_config,
     'res128': get_res128_config,
+    'dit3d_xl4_res64': get_dit3d_xl4_res64_config,
     'default': get_default_config,
 }
+
+
+PRESETS = tuple(_PRESETS)
 
 
 def get_config(name: str = 'res64') -> Config:

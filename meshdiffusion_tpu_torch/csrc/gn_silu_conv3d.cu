@@ -148,15 +148,6 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
                  :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
-// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile:
-// start address >> 4, leading offset 1 (unused by this layout), stride 1024
-// bytes between 8-row groups, layout type 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr)
-{
-    return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
-           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
 
 struct Item {
     int b, d0, h0, w0, nb, split, k0, k1;
@@ -359,7 +350,7 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
                 // one wgmma group a tap; no register is written while it runs
                 // (ptxas would serialize the wgmmas), the other consumer
                 // warpgroup's group keeps the tensor cores busy meanwhile
-                const uint64_t desc = desc_sw128(ring_s + s * STAGE_BYTES);
+                const uint64_t desc = desc_sw128_k_major(ring_s + s * STAGE_BYTES);
                 wgmma_fence();
 #pragma unroll
                 for (int j = 0; j < BK / 16; ++j)

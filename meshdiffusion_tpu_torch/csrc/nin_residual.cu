@@ -59,16 +59,6 @@ constexpr int STAGES = 3;             // the ring: two chunks in flight while on
 constexpr int THREADS = 128;
 constexpr int W_BLOCK = BK * 128;     // one 64-column block of a W chunk, bytes
 
-// wgmma shared-memory descriptor of an N-major, 128-byte-swizzled B tile
-// laid out as W_BLOCK-byte blocks of 64 columns: start address >> 4, leading
-// offset W_BLOCK (the next 64 columns), stride 1024 bytes (the next 8
-// k-rows), layout type 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t desc_n_major(uint32_t saddr)
-{
-    return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(W_BLOCK >> 4) << 16)
-           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
 __device__ __forceinline__ uint32_t bf16x2(float2 v)
 {
     __nv_bfloat162 r = __floats2bfloat162_rn(v.x, v.y);
@@ -163,7 +153,8 @@ nin_residual_kernel(const XT* __restrict__ x, const bf16* __restrict__ w,
         }
         wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < BK / 16; ++j) Wgmma<BN, 1>::run(acc, afr[j], desc_n_major(ws + j * 2048));
+        for (int j = 0; j < BK / 16; ++j)
+            Wgmma<BN, 1>::run(acc, afr[j], desc_sw128_n_major(ws + j * 2048, W_BLOCK));
         wgmma_commit();
         wgmma_wait<0>();
     }

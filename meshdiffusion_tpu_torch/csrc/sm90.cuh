@@ -1,7 +1,8 @@
 // Hopper (sm_90a) device helpers shared by the tensor-core kernels
-// (gn_silu_conv3d.cu, nin_residual.cu): shared-memory addresses, 16-byte
-// asynchronous copies, ldmatrix, and wgmma with A from registers and B from
-// shared memory by descriptor, fp32 sums.
+// (gn_silu_conv3d.cu, nin_residual.cu, dit_attention.cu): shared-memory
+// addresses, 16-byte asynchronous copies, ldmatrix, the descriptors of
+// 128-byte-swizzled tiles, and wgmma (N 64, 72, 128, 256) with A from
+// registers and B from shared memory by descriptor, fp32 sums.
 
 #pragma once
 
@@ -26,6 +27,25 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r)
 {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// wgmma shared-memory descriptors of 128-byte-swizzled bf16 tiles whose
+// 128-byte rows are 1024-byte aligned in groups of 8 (layout type 1,
+// SWIZZLE_128B; start address >> 4, stride 1024 bytes between 8-row groups).
+// K-major (a row holds 64 k of one n; the leading offset is unused): a k16
+// step further along the row is the start address plus 32 bytes.
+__device__ __forceinline__ uint64_t desc_sw128_k_major(uint32_t saddr)
+{
+    return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// N-major (a row holds 64 n of one k): ``block`` bytes between the blocks
+// of 64 columns (the leading offset); a k16 step is 2048 bytes further.
+__device__ __forceinline__ uint64_t desc_sw128_n_major(uint32_t saddr, uint32_t block)
+{
+    return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(block >> 4) << 16)
+           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -106,7 +126,55 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, const uint32_t* a, ui
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
+// d (m64 x n64, fp32) += a (m64 x k16, bf16, registers) * B (k16 x n64, bf16,
+// shared memory by descriptor; TRANS_B 0: K-major, 1: N-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t* a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// d (m64 x n72, fp32) += a (m64 x k16, bf16, registers) * B (k16 x n72, bf16,
+// shared memory by descriptor; TRANS_B 0: K-major, 1: N-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n72k16(float* d, const uint32_t* a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, {%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
 template <int N, int TRANS_B> struct Wgmma;
+template <int TRANS_B> struct Wgmma<64, TRANS_B> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b) { wgmma_m64n64k16<TRANS_B>(d, a, b); }
+};
+template <int TRANS_B> struct Wgmma<72, TRANS_B> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b) { wgmma_m64n72k16<TRANS_B>(d, a, b); }
+};
 template <int TRANS_B> struct Wgmma<128, TRANS_B> {
     static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t b) { wgmma_m64n128k16<TRANS_B>(d, a, b); }
 };

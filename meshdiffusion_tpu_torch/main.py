@@ -19,7 +19,7 @@ Usage:
   python -m meshdiffusion_tpu_torch.main --mode fit_singleview --meta_path mesh.obj \
       --out_dir sv/ [--angle_ind 25] [--fit_config cfg.json] [--device cuda]
 
-``--config`` takes a preset (res64/res128/default) or a Python file that
+``--config`` takes a preset (res64/res128/dit3d_xl4_res64/default) or a Python file that
 defines ``get_config()``; ``--config.a.b=value`` overrides one key. The
 device defaults to ``cuda``; there is no fallback when it is missing.
 
@@ -41,15 +41,15 @@ import sys
 
 import torch
 
-from .config import apply_overrides, get_config
+from .config import PRESETS, apply_overrides, get_config
 from .utils.device import resolve_device
 
 
 def _load_config(spec: str):
-    if spec in ('res64', 'res128', 'default'):
+    if spec in PRESETS:
         return get_config(spec)
     if not os.path.isfile(spec):
-        raise SystemExit(f"--config {spec!r}: not a preset (res64/res128/default) "
+        raise SystemExit(f"--config {spec!r}: not a preset ({'/'.join(PRESETS)}) "
                          "and no such config file")
     modspec = importlib.util.spec_from_file_location('user_config', spec)
     mod = importlib.util.module_from_spec(modspec)

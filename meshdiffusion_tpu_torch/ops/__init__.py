@@ -10,6 +10,7 @@
 | :func:`gn_moments` | the gn_stats kernel, moments mode | the statistics, on a depth slab |
 | :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 | :func:`nin_residual` | CUDA C++, sm_90a (wgmma) | none: the plain NIN shortcut + residual sum of ``meshdiffusion_tpu/models/layers.py:275-276`` |
+| :func:`dit_attention` | CUDA C++, sm_90a (wgmma, online softmax) | none: the DiT's multi-head attention (``models/dit3d.py``); the JAX package has no transformer |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches,
@@ -25,6 +26,8 @@ take for it (the z-test's counts fp32 and ALU operations apart, and
 ``tile_zmin_bound_ms`` takes the busier pipe).
 """
 
+from .dit_attention import (dit_attention, dit_attention_cost,  # noqa: F401
+                            dit_attention_reference)
 from .gn_silu_conv import (conv3d_depth_valid, conv3d_same, gn_silu_conv3d,  # noqa: F401
                            gn_silu_conv3d_autograd, gn_silu_conv3d_cost, gn_silu_conv3d_halo,
                            gn_silu_conv3d_halo_autograd, gn_silu_conv3d_halo_reference,
@@ -42,7 +45,7 @@ from .tile_zmin import (tile_zmin, tile_zmin_bound_ms, tile_zmin_cost,  # noqa: 
                         tile_zmin_reference)
 
 KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, tile_zmin,
-                   gn_silu_conv3d_halo, gn_moments, nin_residual)
+                   gn_silu_conv3d_halo, gn_moments, nin_residual, dit_attention)
 
 
 def reset_launch_counts() -> None:

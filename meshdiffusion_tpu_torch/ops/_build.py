@@ -52,6 +52,8 @@ _SIGNATURES = {
                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, x_bf16, w, bias, h, out, M, K, N, stream
     'nin_residual_bf16': [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # qkv, out, B, T, H, dh, stream
+    'dit_attention_bf16': [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,100 @@
+"""The DiT block's multi-head attention in one pass, forward only.
+
+    out[b, t, h dh + n] = sum_s softmax_s(q_t . k_s / sqrt(dh)) v_s[n]
+
+per sample b and head h, with q, k and v read in place from the qkv
+Linear's output (B, T, 3 D) (DiT's split: (3, H, dh) along the last axis),
+and the heads' outputs side by side in (B, T, D), ready for ``attn.proj``.
+No TPU kernel corresponds: the JAX package has no transformer; the
+U-Net's attention (``meshdiffusion_tpu/models/layers.py::AttnBlock``) is a
+single-head pair of einsums with the scores in memory, which at the DiT's
+4096 tokens, 16 heads and 28 blocks would move ~15 GB a block at batch 4.
+
+What bounds it on the H100: the tensor cores. 4 B H T^2 dh FLOP (two
+products of 2 T^2 dh a head) against 8 B T D bytes (qkv read once, the
+output written once): at T 4096, dh 72, ~2,300 operations a byte against
+the card's ~295 at its ridge. The T x T scores never reach device memory.
+
+Design (CUDA C++, sm_90a, ``csrc/dit_attention.cu``): a block of two
+warpgroups takes 128 queries of one (sample, head), 64 each, and walks the
+keys in tiles of 64 through a 3-stage cp.async ring shared by both. Q stays
+in registers as wgmma A fragments; S = Q K^T is wgmma m64n64k16 over a
+depth of 80 (dh 72 zero-padded to wgmma's k step of 16: five steps), K from
+shared memory by descriptor (K-major, 128-byte swizzle); the online softmax
+(running max and sum in fp32, exp2 with the scale folded in) runs in
+registers; P is rounded to bf16 and fed back from registers as the A
+operand of O += P V, wgmma m64n72k16 with V from shared memory (N-major,
+128-byte swizzle). O is divided by the row sum at the end and stored as
+bf16. Each block's sums are its own: reruns agree bit for bit.
+
+The wrapper runs the plain version (:func:`dit_attention_reference`) on
+CPU tensors; on CUDA tensors it launches the kernel (once a call) or
+raises, also when autograd would record the call. It counts its launches
+in ``dit_attention.launches``. The kernel takes a head dimension of 72
+(DiT-XL's 1152 / 16) alone.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..utils import trace
+from . import _build
+from ._build import use_kernel
+
+HEAD_DIMS = (72,)       # the head dimensions the kernel is built for
+
+
+def dit_attention_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain version: per head, softmax(q k^T dh^-1/2) v in fp32 from
+    qkv's values; the result in qkv's dtype, (B, T, D)."""
+    B, T, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = qkv.float().reshape(B, T, 3, num_heads, D // num_heads).permute(2, 0, 3, 1, 4)
+    w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * (D // num_heads) ** -0.5, dim=-1)
+    return torch.matmul(w, v).transpose(1, 2).reshape(B, T, D).to(qkv.dtype)
+
+
+def dit_attention_cost(B: int, T: int, num_heads: int, head_dim: int) -> Tuple[float, float]:
+    """(FLOP, bytes) of one call: 4 B H T^2 dh products on the bf16 tensor
+    cores (with the real dh, not the padded depth); the bf16 qkv read once
+    and the bf16 output written once, 4 B T D 2 bytes."""
+    D = num_heads * head_dim
+    return 4.0 * B * num_heads * T * T * head_dim, 4.0 * B * T * D * 2
+
+
+@trace.span('ops.dit_attention')
+def dit_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Multi-head attention of a qkv Linear's output (B, T, 3 D) with
+    ``num_heads`` heads; returns (B, T, D). On CUDA tensors qkv is a
+    contiguous, 16-byte aligned bf16 tensor, D / num_heads is in
+    :data:`HEAD_DIMS`, and nothing records a gradient."""
+    if not use_kernel('dit_attention', qkv):
+        return dit_attention_reference(qkv, num_heads)
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f'dit_attention: qkv {tuple(qkv.shape)} is no (B, T, 3 D) '
+                         f'of {num_heads} heads')
+    B, T, D3 = qkv.shape
+    dh = D3 // (3 * num_heads)
+    if dh not in HEAD_DIMS:
+        raise ValueError(f'dit_attention: head dimension {dh}; the kernel takes {HEAD_DIMS}')
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise RuntimeError('dit_attention: the kernel has no backward; under autograd '
+                           'use dit_attention_reference')
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError('dit_attention: takes a contiguous, 16-byte aligned bf16 qkv')
+    if B * T == 0:
+        raise ValueError('dit_attention: takes at least one token')
+    out = torch.empty((B, T, D3 // 3), dtype=torch.bfloat16, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = _build.lib().dit_attention_bf16(
+            qkv.data_ptr(), out.data_ptr(), B, T, num_heads, dh,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, 'dit_attention')
+    dit_attention.launches += 1
+    return out
+
+
+dit_attention.launches = 0

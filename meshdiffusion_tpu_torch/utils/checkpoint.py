@@ -20,6 +20,11 @@ loading drops its keys and its two EMA entries, and saving writes them as
 zeros of the res128 stem's shape so that the list keeps the reference's
 length and order.
 
+A model whose class sets ``own_param_order`` (the 3D DiT, which has no
+reference checkpoint) lists its parameters in its own ``parameters()``
+order instead: the same pickle, the EMA list in the order of the model's
+state_dict.
+
 Files are read with ``torch.load(..., weights_only=True)``: they hold only
 tensors, numbers and lists. The JAX package's orbax checkpoint directories
 cannot be read here.
@@ -33,6 +38,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..models import get_model
 from .convert import _KIND_PARAMS, _nin, module_walk
 
 logger = logging.getLogger(__name__)
@@ -70,7 +76,10 @@ def reference_param_order(config, model_keys) -> List[str]:
     """The reference model's parameter keys in its ``parameters()`` order,
     the dormant res128 ``pos_layer`` included; ``model_keys`` (the
     checkpoint's or this package's keys, unprefixed) say which ResnetBlocks
-    have a NIN shortcut."""
+    have a NIN shortcut. For a model of its own order, ``model_keys`` as
+    they come."""
+    if getattr(get_model(config.model.name), 'own_param_order', False):
+        return list(model_keys)
     keys = list(_POS) + ['mask_layer.weight', 'mask_layer.bias']
     for prefix, _, kind in module_walk(config):
         if prefix in ('pos_layer', 'mask_layer'):

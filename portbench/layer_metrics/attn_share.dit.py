@@ -1,0 +1,28 @@
+"""attn_share.dit (%): the share of the profiled window's device time spent
+in kernels launched inside the program's ``dit.attn`` spans (each block's
+attention half: its LayerNorm and modulation, the qkv Linear, the
+attention kernel, the proj Linear and the gated sum). Each kernel is tied
+to its launch on the host by correlation id (the ``gen_dit`` driver keeps
+them as ``window.launched``); a window without them, or a program without
+the spans, reads None."""
+
+import bisect
+
+from portbench.spans import program
+
+
+def read(ctx):
+    launched = getattr(ctx.window, 'launched', None)
+    got = program(ctx)
+    if not launched or got is None:
+        return None
+    attn = sorted((s.t0, s.t1) for s in got[0] if s.name == 'dit.attn')
+    if not attn:
+        return None
+    starts = [a for a, _ in attn]
+    total = inside = 0
+    for _, t, dur in launched:
+        i = bisect.bisect_right(starts, t) - 1
+        total += dur
+        inside += dur if i >= 0 and t <= attn[i][1] else 0
+    return 100.0 * inside / total if total else None

@@ -392,3 +392,90 @@ def test_res64_forward_runs_every_shortcut_in_the_kernel(cuda):
     assert sum(s.name == 'ops.nin_residual' for s in trace.spans()) == 22
     assert torch.isfinite(y).all()
     trace.clear()
+
+
+def _qkv(cuda, B, T, H, dh=72, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((B, T, 3 * H * dh), device=cuda, generator=g).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,T,H', [(4, 4096, 16), (1, 4096, 16), (2, 1000 + 37, 3)])
+def test_dit_attention_kernel_matches_plain(cuda, B, T, H):
+    """The attention kernel against its plain version (fp32 from the same
+    bf16 q, k, v) at the DiT-XL/4 cell's shapes (batch 4 and 1, 4096 tokens,
+    16 heads of 72) and at a ragged T, no multiple of a tile: relative L2 at
+    most 1e-2 per head (the kernel rounds the probabilities and its output to
+    bf16, ~2^-9 each), one launch a call, bit-equal reruns."""
+    qkv = _qkv(cuda, B, T, H)
+    with torch.inference_mode():
+        n0 = ops.dit_attention.launches
+        y = ops.dit_attention(qkv, H)
+        assert ops.dit_attention.launches == n0 + 1
+        y2 = ops.dit_attention(qkv, H)
+        torch.cuda.synchronize()
+        ref = torch.cat([ops.dit_attention_reference(qkv[b:b + 1].float(), H)
+                         for b in range(B)])
+    assert y.dtype == torch.bfloat16 and y.shape == (B, T, H * 72)
+    assert torch.equal(y, y2)
+    yh = y.float().reshape(B, T, H, 72)
+    rh = ref.reshape(B, T, H, 72)
+    err = ((yh - rh).norm(dim=(1, 3)) / rh.norm(dim=(1, 3))).max()
+    assert err <= 1e-2, err.item()
+
+
+@pytest.mark.cuda
+def test_dit_attention_raises_on_what_it_does_not_take(cuda):
+    qkv = _qkv(cuda, 2, 256, 2)
+    with pytest.raises(RuntimeError):          # under autograd
+        ops.dit_attention(qkv.float().requires_grad_(True).to(torch.bfloat16), 2)
+    with torch.inference_mode():
+        with pytest.raises(ValueError):        # head dimension 64
+            ops.dit_attention(_qkv(cuda, 1, 256, 2, dh=64), 2)
+        with pytest.raises(ValueError):        # fp32
+            ops.dit_attention(qkv.float(), 2)
+        with pytest.raises(ValueError):        # non-contiguous
+            ops.dit_attention(qkv.transpose(0, 1), 2)
+        with pytest.raises(ValueError):        # no (B, T, 3 D) of these heads
+            ops.dit_attention(qkv[..., :-8], 2)
+
+
+@pytest.mark.cuda
+def test_dit_forward_runs_every_attention_in_the_kernel(cuda):
+    """A warm full-width DiT-XL/4 forward at batch 1 launches the attention
+    kernel 28 times (once a block), rebuilds nothing (every Linear's bf16
+    weight is kept from the first forward), and agrees with the forward
+    under autograd, which takes the plain attention, to a relative L2 of
+    2e-2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.utils import trace
+    cfg = get_config('dit3d_xl4_res64')
+    R = cfg.data.image_size
+    model = create_model(cfg, device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.uniform_(-0.03, 0.03, generator=g)
+    x = torch.randn((1, R, R, R, 4), device=cuda, generator=g)
+    lab, mask = torch.tensor([500.0], device=cuda), torch.ones((1, R, R, R, 1), device=cuda)
+    with torch.inference_mode():
+        model(x, lab, mask)
+        torch.cuda.synchronize()
+        trace.clear()
+        n0 = ops.dit_attention.launches
+        with profile(activities=[ProfilerActivity.CUDA]):
+            y = model(x, lab, mask)
+            torch.cuda.synchronize()
+        assert ops.dit_attention.launches == n0 + 28
+        assert not [i.name for i in trace.instants() if i.name.startswith('rebuild.')]
+        names = [s.name for s in trace.spans()]
+        assert names.count('ops.dit_attention') == 28 and names.count('dit.attn') == 28
+    with torch.enable_grad():                  # under autograd: the plain attention
+        y_plain = model(x, lab, mask).detach()
+    assert torch.isfinite(y).all()
+    err = (y - y_plain).norm() / y_plain.norm()
+    assert err <= 2e-2, err.item()
+    trace.clear()

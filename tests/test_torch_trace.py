@@ -181,7 +181,8 @@ def test_kernel_wrappers_keep_their_names_and_counters():
     and its ``launches`` counter."""
     counts = ops.launch_counts()
     assert set(counts) == {'ancestral_update', 'gn_affine', 'groupnorm_silu', 'gn_silu_conv3d',
-                           'tile_zmin', 'gn_silu_conv3d_halo', 'gn_moments', 'nin_residual'}
+                           'tile_zmin', 'gn_silu_conv3d_halo', 'gn_moments', 'nin_residual',
+                           'dit_attention'}
     for fn in ops.KERNEL_WRAPPERS:
         assert callable(fn.__wrapped__) and isinstance(fn.launches, int)
 
