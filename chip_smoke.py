@@ -29,7 +29,9 @@ under each. Phases, in order:
 2. the build: nvcc compiles csrc/*.cu for sm_90a (no prebuilt library);
 3. every kernel against its plain PyTorch version at the main path's shapes
    (K3 and the GroupNorm statistics at every distinct ResnetBlock conv
-   shape, captured from a forward; the per-shape rows also go to
+   shape, captured from a forward, each K3 call on the A operand's route its
+   plan gives, and K3 at gen64-b4's hot shape (4, 64^3, 128) -> 128 on the
+   descriptor route; the per-shape rows also go to
    ``DIR/kernel_shapes.json``, ``DIR`` defaulting to ``chip_smoke_out/``
    beside this file), with errors, bounds and CUDA-event times
    (warm) of kernel and plain; for K3 and the statistics also the device
@@ -41,10 +43,10 @@ under each. Phases, in order:
    on the already-normalized bf16 input stands beside it as a conv-only
    yardstick, ``conv_only_ms``);
 4. the full-width U-Net forward (seeded normal(0, 0.02) weights, bf16) with
-   kernels against without, the launch counts of one forward, and the
-   device time of each kernel in a U-Net step (one forward and one
-   ancestral update) over a few profiled steps, with the card's busy share
-   of a warm step's wall time;
+   kernels against without, the launch counts of one forward (28 of K3's
+   74 on the descriptor route), and the device time of each kernel in a
+   U-Net step (one forward and one ancestral update) over a few profiled
+   steps, with the card's busy share of a warm step's wall time;
 5. the entry points, ``main --mode uncond_gen`` (num_scales 10, beta_max
    2.0) then ``main --mode extract``, with every launch counter set to 0
    just before and read just after the generation run;
@@ -119,7 +121,8 @@ under each. Phases, in order:
     shapes (up to 3.76e9 elements, past 2^31), the ancestral update and the
     output head, each sample held against the plain version of that sample;
     the batch-1 forward kernels against plain; one batch-7 forward with the
-    kernels: its launches (K3 64, statistics 65), time, device time by kernel
+    kernels: its launches (K3 64, 20 of them on the descriptor route,
+    statistics 65), time, device time by kernel
     and peak device memory; the per-shape rows also go to
     ``DIR/kernel_shapes.json`` and the phase's numbers to ``DIR/res128.json``;
 16. ``main --config res128 --mode uncond_gen`` at the preset's batch 7
@@ -497,8 +500,9 @@ def capture_conv_shapes(model_p, x, labels, mask):
 def conv_shape_checks(conv_calls, dev, g, record, per_shape) -> None:
     """K3 and the GroupNorm statistics against their plain versions at every
     shape of ``conv_calls``: K3's relative L2 within 1e-2, a and b within
-    1e-5; CUDA-event, device and plain times, the bound and the library
-    call, recorded and appended to ``per_shape``."""
+    1e-5, its A operand's route (``descriptor_launches``) the plan's;
+    CUDA-event, device and plain times, the bound and the library call,
+    recorded and appended to ``per_shape``."""
     import torch
     from meshdiffusion_tpu_torch import ops
     from meshdiffusion_tpu_torch.ops import _build
@@ -514,7 +518,10 @@ def conv_shape_checks(conv_calls, dev, g, record, per_shape) -> None:
                     / (27 * C) ** 0.5).to(torch.bfloat16)
             packed = ops.pack_conv_weights(kern)
             cb = 0.1 * torch.randn(O, device=dev, generator=g)
+            route = _plan(*xs, O, _build.sm_count(dev.index or 0)).route
+            d0 = ops.gn_silu_conv3d.descriptor_launches
             y = ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
+            assert ops.gn_silu_conv3d.descriptor_launches - d0 == route, (xs, O, route)
             r = ops.gn_silu_conv3d_reference(xc, sc, bi, kern, cb)
             rel = _rel_l2(y, r)
             err = float((y.float() - r.float()).abs().max())
@@ -539,12 +546,14 @@ def conv_shape_checks(conv_calls, dev, g, record, per_shape) -> None:
             record('gn_silu_conv3d', err, ms, pms, bnd, by)
             both = None if dms is None or dstats is None else dms + dstats
             per_shape.append({'name': 'gn_silu_conv3d', 'x': list(xs), 'dtype': str(xdt)[6:], 'O': O,
+                              'route': ('registers', 'descriptor')[route],
                               'calls_per_forward': n, 'ms': ms, 'device_ms': dms,
                               'device_ms_with_stats': both, 'plain_ms': pms,
                               'bound_ms': bnd, 'bound_by': by, 'library_ms': None,
                               'conv_only_ms': lms})
             share = '' if dms is None else f', {100 * bnd / dms:.0f} % reached'
-            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} (x{n} a forward): rel_l2 '
+            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} (x{n} a forward, A by '
+                  f'{("registers", "descriptor")[route]}): rel_l2 '
                   f'{rel:.3e} (bound 1e-2) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
                   f'device {_ms(dms)} ms (+ stats {_ms(dstats)}); plain {pms:.3f} ms; bound '
                   f'{bnd:.4f} ms ({by}{share}); cuDNN conv alone {lms:.4f} ms')
@@ -990,7 +999,8 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
     from meshdiffusion_tpu_torch.diffusion.sampling import StepTables
     from meshdiffusion_tpu_torch.diffusion.vpsde import VPSDE
     from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
-    from meshdiffusion_tpu_torch.ops.gn_silu_conv import gn_silu_conv3d_bound_ms
+    from meshdiffusion_tpu_torch.ops import _build
+    from meshdiffusion_tpu_torch.ops.gn_silu_conv import _plan, gn_silu_conv3d_bound_ms
     from meshdiffusion_tpu_torch.ops.roofline import bound_ms
     cfg = get_config('res128')
     assert cfg.eval.batch_size == B128, cfg.eval.batch_size
@@ -1025,7 +1035,10 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
             packed = ops.pack_conv_weights(kern)
             cb = 0.1 * torch.randn(O, device=dev, generator=g)
             call = lambda: ops.gn_silu_conv3d(xc, sc, bi, kern, cb, packed=packed)
+            route = _plan(*xs, O, _build.sm_count(dev.index or 0)).route
+            d0 = ops.gn_silu_conv3d.descriptor_launches
             y = call()
+            assert ops.gn_silu_conv3d.descriptor_launches - d0 == route, (xs, O, route)
             a, b = ops.gn_affine(xc, sc, bi)
             rels, errs = [], [0.0, 0.0]
 
@@ -1059,6 +1072,7 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
             s_lms, s_ldms = _var_mean_ms(xc)
             record('gn_affine', err_s, s_ms, s_pms, s_bnd, s_by, s_lms, s_ldms)
             row = {'name': 'gn_silu_conv3d', 'x': list(xs), 'dtype': str(xdt)[6:], 'O': O,
+                   'route': ('registers', 'descriptor')[route],
                    'ms': ms, 'device_ms': dms, 'stats_device_ms': dstats,
                    'plain_ms_per_sample_loop': pms, 'bound_ms': bnd, 'bound_by': by,
                    'rel_l2_per_sample': rels, 'stats_max_abs_err': err_s, 'stats_ms': s_ms,
@@ -1067,7 +1081,8 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
                    'var_mean_device_ms': s_ldms, 'elements': int(np.prod(xs))}
             per_shape.append(row)
             out['batch7'].append(row)
-            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} ({row["elements"]:.3e} '
+            print(f'K3 gn_silu_conv3d x{xs} {str(xdt)[6:]} -> O={O} (A by {row["route"]}; '
+                  f'{row["elements"]:.3e} '
                   f'elements): each sample against plain, rel_l2 max {max(rels):.3e} (bound '
                   f'1e-2), statistics max_abs_err {err_s:.3e} (bound 1e-5); call {ms:.3f} ms, '
                   f'device {_ms(dms)} ms (+ stats {_ms(dstats)}), bound {bnd:.3f} ms ({by}, '
@@ -1141,14 +1156,17 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
         y_k = model_k(x1, lab1, mask)
         torch.cuda.synchronize()
         per_fwd = ops.launch_counts()
+        desc_fwd = ops.gn_silu_conv3d.descriptor_launches
         y_p = model_p(x1, lab1, mask)
         rel = _rel_l2(y_k, y_p)
         assert torch.isfinite(y_k).all() and y_k.shape == x1.shape and rel <= 1e-2, rel
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 65, 'groupnorm_silu': 1,
                            'gn_silu_conv3d': 64, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
                            'nin_residual': 20}, per_fwd
+        assert desc_fwd == 20, desc_fwd          # the O = 128 convs at 128^3 and 64^3
         print(f'res128 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
-              f'(bound 1e-2); launches a forward {per_fwd}')
+              f'(bound 1e-2); launches a forward {per_fwd}, {desc_fwd} of K3\'s on the '
+              f'descriptor route')
         del model_p, y_k, y_p
         torch.cuda.empty_cache()
 
@@ -2907,6 +2925,13 @@ def main() -> int:
           f'weighted by calls a forward: device {_ms(fwd_dev)} ms against a bound of {fwd_bnd:.3f} ms')
     slower = [(r['x'], r['dtype'], r['O']) for r in k3 if r['ms'] >= r['plain_ms']]
     assert not slower, f'K3 slower than its plain version at {slower}'
+    # the hot shape of gen64-b4 (tiling 0, the descriptor route), outside the sums above
+    b4 = []
+    with torch.inference_mode():
+        conv_shape_checks({((4, R, R, R, 128), torch.bfloat16, 128): 0}, dev, g,
+                          lambda *args: None, b4)
+    assert b4[0]['route'] == 'descriptor', b4
+    per_shape.extend(b4)
 
     # ---- 4. the full-width forward, kernels on against off ----
     with torch.inference_mode():
@@ -2917,6 +2942,7 @@ def main() -> int:
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1000.0
         per_fwd = ops.launch_counts()
+        desc_fwd = ops.gn_silu_conv3d.descriptor_launches
         y_p = model_p(x_in, labels, mask)
         rel = _rel_l2(y_k, y_p)
         assert torch.isfinite(y_k).all() and y_k.shape == x_in.shape
@@ -2924,6 +2950,7 @@ def main() -> int:
         assert per_fwd == {'ancestral_update': 0, 'gn_affine': 75, 'groupnorm_silu': 1,
                            'gn_silu_conv3d': 74, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
                            'nin_residual': 22}, per_fwd
+        assert desc_fwd == 28, desc_fwd          # the O = 128 convs at 64^3 and 32^3
         fwd = {'kernels': [], 'plain': []}
         for which in ('plain', 'kernels', 'kernels', 'plain'):
             m = model_k if which == 'kernels' else model_p
@@ -2939,7 +2966,8 @@ def main() -> int:
     print(f'res64 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
           f'(bound 1e-2); kernels {ms_k:.2f} ms plain {ms_p:.2f} ms per forward '
           f'({fwd})')
-    print(f'launches in one forward: {per_fwd}; the first forward {first_ms:.1f} ms (it builds '
+    print(f'launches in one forward: {per_fwd}, {desc_fwd} of K3\'s on the descriptor route; '
+          f'the first forward {first_ms:.1f} ms (it builds '
           f'every conv\'s weight layouts); a warm U-Net step (forward + ancestral update, '
           f'10 in a row) {step_ms:.2f} ms')
     print(f'device time a U-Net step (torch.profiler over {n_prof} steps): all kernels {busy:.3f} ms, '

@@ -21,30 +21,56 @@
 // (989 TFLOP/s bf16); at 4^3 the 14-28 MB of weights do (3.35 TB/s).
 //
 // Design (one block an SM, persistent over work items; warp-specialised):
-// * three warpgroups. Two consumer warpgroups issue wgmma.mma_async
-//   m64nNk16 (N = 128 or 256) with fp32 sums in registers. Their A operand
-//   comes from registers, loaded with ldmatrix from a normalized input brick in
-//   shared memory: a tap is then only a row offset into the brick, which is
-//   why A cannot come from shared memory by descriptor (the rows one tap reads
-//   are not the 8-row-aligned core matrices a descriptor needs). B comes from
-//   shared memory by descriptor (K-major, 128-byte swizzle).
-// * the producer warpgroup: its warp 0 streams the weights, one B tile per
+// * two consumer warpgroups issue wgmma.mma_async m64nNk16 (N = 128 or 256)
+//   with fp32 sums in registers; B comes from shared memory by descriptor
+//   (K-major, 128-byte swizzle). A is the normalized input brick in shared
+//   memory, and a tap is only an offset into it. Two routes take A (the plan,
+//   ops/gn_silu_conv.py _plan, picks one from the shape):
+//   - descriptor route (tiling 0 with a 4 x 8 x 8 tile: every O = 128 conv of
+//     both presets, 92 % of K3's FLOP). The brick is voxel-major: each
+//     8-channel cell of every voxel in one run, 16 bytes a voxel, no swizzle.
+//     Then 8 output voxels along w are one contiguous 8 x 16-byte core
+//     matrix at any tap, an m64 tile is one depth plane (8 h-rows of 8, the
+//     rows BW voxels apart: the descriptor's SBO), the next 8 channels lie
+//     cell_vox voxels on (its LBO), and a tap or a k16 step is a start
+//     address offset. A comes by descriptor (wgmma SS): no ldmatrix, no A
+//     registers, so each consumer keeps the next tap's group in flight
+//     behind the current one (wgmma.wait_group 1) and frees a weight stage
+//     (and at a chunk's end its brick) one tap later.
+//   - register route (every other shape: tilings 1 and 2, a tile narrower
+//     than 8 in H or W). Brick rows of 128 bytes, 64 channels a voxel, their
+//     16-byte cells XOR-swizzled by the voxel, read into registers by
+//     ldmatrix: there a tap's rows are not the 8-row groups at one stride a
+//     descriptor needs. A tap's four k16 steps are one wgmma group, issued
+//     after all its A fragments are in registers and retired
+//     (wgmma.wait_group 0) before the next tap's ldmatrix: ptxas serializes
+//     wgmmas whose input registers are written while a group is in flight.
+//     The two consumers overlap instead: one's ldmatrix and waits run under
+//     the other's products.
+// * the producers' first warp streams the weights, one B tile per
 //   (tap, 64-channel chunk, N block), through a 4-stage ring with one
 //   cp.async.bulk a tile (no tensor map: the tiles are pre-laid contiguous in
 //   the swizzled image the descriptor expects, ops/gn_silu_conv.py
 //   pack_conv_weights), completing on a full mbarrier; the consumers free a
 //   stage through an empty mbarrier once the wgmma group that read it has
 //   retired. There is no block-wide barrier in the main loop.
-// * its warps 1-3 build the next chunk's halo'd brick (TD+2) x (TH+2) x (TW+2)
-//   x 64 channels into a double-buffered brick (full/empty mbarriers) while
-//   the consumers run the current chunk's 27 taps: every 16-byte cell of it
-//   is copied in by cp.async at once (zero-filled outside the volume), then
-//   normalized in place, silu(x*a+b) in fp32 stored as bf16. With its loads
-//   one at a time a thread, the brick and not the tensor cores set the pace.
-//   Brick rows are 128 bytes with their 16-byte cells XOR-swizzled by the
-//   voxel index, so ldmatrix of 8 consecutive voxels is free of bank
-//   conflicts.
-// * setmaxnreg moves registers from the producer (72) to the consumers (216).
+// * the other producer warps build the next chunk's halo'd brick (TD+2) x
+//   (TH+2) x (TW+2) x 64 channels into a double-buffered brick (full/empty
+//   mbarriers) while the consumers run the current chunk's 27 taps: every
+//   16-byte cell of it is copied in by cp.async at once (zero-filled outside
+//   the volume), then normalized in place, silu(x*a+b) in fp32 stored as
+//   bf16; eight neighbouring threads take the eight cells of one voxel. With
+//   its loads one at a time a thread, the brick and not the tensor cores set
+//   the pace. Both layouts keep the builder's stores and the consumers' reads
+//   free of bank conflicts: the register route by its swizzle (ldmatrix of 8
+//   consecutive voxels), the descriptor route by an odd cell_vox (a voxel's 8
+//   cells in 8 different bank quads). The descriptor route's builder fences
+//   its stores to the async proxy (wgmma reads the brick through it).
+// * the register route has one producer warpgroup (its warps 1-3 build the
+//   brick; 384 threads), the descriptor route two (warps 1-7; 512 threads):
+//   with three warps the brick took longer than the SS products. setmaxnreg
+//   moves registers from the producers (72) to the consumers (216, and 184
+//   on the descriptor route, which holds no A fragments).
 // * three tilings (ops/gn_silu_conv.py _plan): 256 voxels x 128 channels
 //   (4x8x8 bricks of 6x10x10, each input element normalized ~2.3x), 128 x 256
 //   (4x4x8), and at 4^3 64 x 256 with the two consumers splitting N, so no
@@ -53,11 +79,6 @@
 //   contiguous slab of packed weights); the fp32 partials go to a scratch
 //   buffer the wrapper keeps, and a second kernel sums them in split order
 //   (deterministic, no atomics), adds the bias and rounds to bf16.
-// * a tap's four k16 steps are one wgmma group, issued after all its A
-//   fragments are in registers and retired (wgmma.wait_group 0) before the
-//   next tap's ldmatrix: ptxas serializes wgmmas whose input registers are
-//   written while a group is in flight. The two consumer warpgroups overlap
-//   instead: one's ldmatrix and waits run under the other's products.
 //
 // * depth-halo mode (lo, hi planes, each 0 or 1): for a rank that holds one
 //   depth slab of the grid. The input holds D + lo + hi planes, the slab's
@@ -68,9 +89,22 @@
 //   slab meets the grid's ends, and the halo planes are normalised with the
 //   same (whole-grid) a and b as the rest. lo = hi = 0 is the SAME conv.
 //
-// What holds it now, at 64^3 about half of the tensor-core peak: the brick,
-// the weight ring's turnaround and the per-tap synchronization each take
-// about as long as the products and overlap them only in part.
+// What holds it now (H100 80GB HBM3, 700 W, CUDA events, K3 alone):
+// * descriptor route: (4, 64^3, 128) -> 128 in 1.45 ms, 65 % of its 0.938 ms
+//   bound, and (7, 128^3, 128) -> 128 in 21.4 ms, 61 % of 13.13, against the
+//   register route's 1.98 and 25.7 ms at the same shapes (bit-equal results).
+//   ptxas: 128 registers at launch, no spills, no wgmma serialization. With
+//   three brick warps the brick bounded it (the consumers waited for it 43 %
+//   of their time, 2.24 ms; without the normalization 1.41 ms), hence the
+//   second producer warpgroup; with seven it runs as fast as with no
+//   normalization at all, so what holds it is the consumers' own loop: the
+//   SS products read A and B from shared memory (6 KB a 64-clock wgmma), and
+//   the epilogue does not overlap the next item's products.
+// * register route: 168 registers at launch (tiling 2 spills 16 bytes).
+//   Ablations of it at (4, 64^3, 128): the per-tap wait_group 0 holds 5-8 %
+//   of its time (1.86 ms with wait_group 1, wrong results, against 2.03);
+//   ldmatrix itself gives nothing back (A from stale registers: 2.41 ms).
+//   Tilings 1 and 2 (O = 256, 512: 8 % of the U-Nets' K3 FLOP) stay on it.
 //
 // Requirements (checked by the Python wrapper, which also picks the tiling,
 // the split and the grid): C % 32 == 0 (a 32-channel tail chunk is zero
@@ -92,11 +126,21 @@ constexpr int BK = 64;                // channels a chunk: one 128-byte swizzle 
 constexpr int TAPS = 27;
 constexpr int STAGES = 4;             // weight ring
 constexpr int CONSUMERS = 2;          // consumer warpgroups
-constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int BRICK_THREADS = 96;     // producer warps 1-3
+constexpr int BRICK_THREADS = 96;     // the register route's producer warps 1-3
 constexpr int ROW_BYTES = BK * 2;     // one brick voxel, one B tile row
-constexpr int PRODUCER_REGS = 72;     // 128 * 72 + 256 * 216 = 384 * 168
-constexpr int CONSUMER_REGS = 216;
+
+// The block's roles by route: the register route has one producer warpgroup
+// (384 threads, 168 registers each at launch: 128 * 72 + 256 * 216 = 384 *
+// 168), the descriptor route two, so seven warps build the brick (512
+// threads, 128 registers each: 256 * 72 + 256 * 184 = 512 * 128).
+template <bool DESC>
+struct Roles {
+    static constexpr int PRODUCER_WGS = DESC ? 2 : 1;
+    static constexpr int THREADS = 128 * (CONSUMERS + PRODUCER_WGS);
+    static constexpr int BRICK_THREADS = 128 * PRODUCER_WGS - 32;    // every producer warp but the first
+    static constexpr int PRODUCER_REGS = 72;
+    static constexpr int CONSUMER_REGS = DESC ? 184 : 216;
+};
 
 struct Params {
     int B, D, H, W, C, O;             // D: output planes
@@ -169,11 +213,23 @@ __device__ __forceinline__ Item decode(const Params& p, int item)
     return it;
 }
 
+// The byte offset of 16-byte cell q8 (channels 8 q8 .. 8 q8 + 7) of brick
+// voxel v. Register route: a 128-byte row a voxel, its cells XOR-swizzled by
+// the voxel. Descriptor route: the cells voxel-major, cell q8 of every voxel
+// in a run of cell_vox 16-byte slots (cell_vox odd: the 8 cells of one voxel
+// fall in 8 different bank quads).
+template <bool DESC>
+__device__ __forceinline__ uint32_t cell_offset(int v, int q8, int cell_vox)
+{
+    return DESC ? (uint32_t)(q8 * cell_vox + v) << 4 : (uint32_t)(v * ROW_BYTES + ((q8 ^ (v & 7)) << 4));
+}
+
 // MW m64 tiles of NW columns a consumer warpgroup; the two consumers split
 // M (SPLIT_N false: a block is 2*MW*64 voxels x NW channels) or N (a block
-// is MW*64 voxels x 2*NW channels).
-template <int MW, int NW, bool SPLIT_N>
-__global__ void __launch_bounds__(THREADS, 1)
+// is MW*64 voxels x 2*NW channels). DESC: the consumers read A from the
+// voxel-major brick by descriptor (8 x 8 in H and W, one m64 a depth plane).
+template <int MW, int NW, bool SPLIT_N, bool DESC>
+__global__ void __launch_bounds__(Roles<DESC>::THREADS, 1)
 gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
                       const float* __restrict__ gb, const bf16* __restrict__ wp,
                       const float* __restrict__ bias, bf16* __restrict__ out,
@@ -186,8 +242,10 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
     const int BW = p.TW + 2, BH = p.TH + 2;
     const int brick_vox = (p.TD + 2) * BH * BW;
+    const int cell_vox = DESC ? brick_vox | 1 : brick_vox;    // a brick is cell_vox * 128 bytes
+    const int brick_bytes = cell_vox * ROW_BYTES;
     unsigned char* bricks = ring + STAGES * STAGE_BYTES;
-    uint64_t* wfull = reinterpret_cast<uint64_t*>(bricks + 2 * brick_vox * ROW_BYTES);
+    uint64_t* wfull = reinterpret_cast<uint64_t*>(bricks + 2 * brick_bytes);
     uint64_t* wempty = wfull + STAGES;
     uint64_t* bfull = wempty + STAGES;
     uint64_t* bempty = bfull + 2;
@@ -198,7 +256,7 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
             mbar_init(wempty + s, CONSUMERS * 4);
         }
         for (int i = 0; i < 2; ++i) {
-            mbar_init(bfull + i, BRICK_THREADS);
+            mbar_init(bfull + i, Roles<DESC>::BRICK_THREADS);
             mbar_init(bempty + i, CONSUMERS * 4);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -206,9 +264,9 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
     __syncthreads();
 
     const int wg = threadIdx.x / 128;
-    if (wg == CONSUMERS) {
-        // ------------------------------ producer ------------------------------
-        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (wg >= CONSUMERS) {
+        // ------------------------------ producers -----------------------------
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(Roles<DESC>::PRODUCER_REGS));
         const int pt = threadIdx.x - CONSUMERS * 128;
         if (pt == 0) {
             // the weight ring: one bulk copy a (tap, chunk) k-step
@@ -231,7 +289,7 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
             // chunks it copied, so no barrier is needed between the two
             const int bt = pt - 32;
             const int q8 = bt & 7;                    // this thread's 8-channel group
-            constexpr int VSTEP = BRICK_THREADS / 8;  // voxels a pass
+            constexpr int VSTEP = Roles<DESC>::BRICK_THREADS / 8;   // voxels a pass
             uint32_t n = 0;                           // chunks built
             for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
                 const Item it = decode(p, item);
@@ -240,7 +298,7 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
                     mbar_wait(bempty + buf, ((n >> 1) & 1) ^ 1);
                     const int c = ck * BK + q8 * 8;
                     const bool live = c < p.C;        // a zero-padded tail chunk
-                    unsigned char* brick = bricks + buf * brick_vox * ROW_BYTES;
+                    unsigned char* brick = bricks + buf * brick_bytes;
                     const uint32_t brick_s = smem_u32(brick);
                     uint64_t inside = 0;              // bit i: this thread's i-th voxel is in the volume
                     {
@@ -252,7 +310,7 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
                                             && hh < p.H && ww >= 0 && ww < p.W;
                             const bf16* src = in ? x + ((((size_t)it.b * p.Din + dd + p.lo) * p.H + hh)
                                                         * p.W + ww) * p.C + c : x;
-                            cp_async16(brick_s + v * ROW_BYTES + ((q8 ^ (v & 7)) << 4), src, in ? 16 : 0);
+                            cp_async16(brick_s + cell_offset<DESC>(v, q8, cell_vox), src, in ? 16 : 0);
                             inside |= (uint64_t)in << i;
                             for (bw += VSTEP; bw >= BW;) {
                                 bw -= BW;
@@ -274,7 +332,7 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
                     asm volatile("cp.async.wait_all;\n" ::: "memory");
                     for (int v = bt >> 3, i = 0; v < brick_vox; v += VSTEP, ++i) {
                         if (!((inside >> i) & 1)) continue;      // stays zero
-                        uint4* cell = reinterpret_cast<uint4*>(brick + v * ROW_BYTES + ((q8 ^ (v & 7)) << 4));
+                        uint4* cell = reinterpret_cast<uint4*>(brick + cell_offset<DESC>(v, q8, cell_vox));
                         uint4 raw = *cell;
                         bf16* e = reinterpret_cast<bf16*>(&raw);
 #pragma unroll
@@ -284,33 +342,24 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
                         }
                         *cell = raw;
                     }
+                    // the consumers' wgmma reads the brick through the async proxy
+                    if (DESC) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
                     mbar_arrive(bfull + buf);
                 }
             }
         }
     } else {
         // ------------------------------ consumers -----------------------------
-        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(Roles<DESC>::CONSUMER_REGS));
         const int lane = threadIdx.x & 31, warp4 = (threadIdx.x >> 5) & 3;
         const int row0 = SPLIT_N ? 0 : wg * MW * 64;
         const int col0 = SPLIT_N ? wg * NW : 0;
         const int tile_vox = p.TD * p.TH * p.TW;
-        const int hi = lane >> 4;
         const uint32_t ring_s = smem_u32(ring) + col0 * ROW_BYTES;
         const uint32_t bricks_s = smem_u32(bricks);
         uint32_t q = 0, n = 0;               // k-steps consumed, chunks consumed
         for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
             const Item it = decode(p, item);
-            // the brick voxel of this lane's ldmatrix row in each m64 tile, tap (0,0,0)
-            int vb[MW];
-#pragma unroll
-            for (int f = 0; f < MW; ++f) {
-                int r = row0 + f * 64 + warp4 * 16 + (lane & 15);
-                if (r >= tile_vox) r = 0;     // rows past the tile: computed, never stored
-                const int td = r / (p.TH * p.TW), rem = r - td * p.TH * p.TW;
-                const int th = rem / p.TW, tw = rem - th * p.TW;
-                vb[f] = (td * BH + th) * BW + tw;
-            }
             float acc[MW][NW / 2];
 #pragma unroll
             for (int f = 0; f < MW; ++f)
@@ -319,47 +368,106 @@ gn_silu_conv3d_kernel(const bf16* __restrict__ x, const float* __restrict__ ga,
 #pragma unroll
             for (int f = 0; f < MW; ++f) fence_regs<NW / 2>(acc[f]);
 
-            uint32_t afr[BK / 16][MW][4];
             int cur_ck = -1, buf = 0;
             uint32_t brick_s = 0;
-            for (int kk = it.k0; kk < it.k1; ++kk, ++q) {
-                const int ck = kk / TAPS, tap = kk - ck * TAPS;
-                if (ck != cur_ck) {
-                    cur_ck = ck;
-                    buf = n & 1;
-                    mbar_wait(bfull + buf, (n >> 1) & 1);
-                    brick_s = bricks_s + buf * brick_vox * ROW_BYTES;
-                }
-                // this tap's A fragments: a row offset into the brick
-                const int toff = ((tap / 9) * BH + (tap / 3) % 3) * BW + tap % 3;
-#pragma unroll
-                for (int j = 0; j < BK / 16; ++j)
-#pragma unroll
-                    for (int f = 0; f < MW; ++f) {
-                        const int v = vb[f] + toff;
-                        ldsm_x4(brick_s + v * ROW_BYTES + (((2 * j + hi) ^ (v & 7)) << 4), afr[j][f]);
-                    }
-                if (tap == TAPS - 1 || kk == it.k1 - 1) {   // the brick is no longer read
+            if constexpr (DESC) {
+                // A by descriptor: m64 tile f is depth plane row0 / 64 + f of
+                // the output tile, its 8 h-rows of 8 voxels 8 core matrices
+                // BW voxels apart (SBO), the next 8 channels cell_vox voxels
+                // on (LBO); a tap or a k16 step is a start-address offset
+                const uint32_t lbo = cell_vox * 16, sbo = BW * 16;
+                const int plane = (row0 / 64) * BH * BW;
+                int held_s = -1, held_buf = -1;   // the previous tap's stage, and its brick if it ended a chunk
+                auto release_held = [&]() {       // once the group that read them has retired
+                    if (held_s < 0) return;
                     __syncwarp();
-                    if (lane == 0) mbar_arrive(bempty + buf);
-                    ++n;
+                    if (lane == 0) {
+                        mbar_arrive(wempty + held_s);
+                        if (held_buf >= 0) mbar_arrive(bempty + held_buf);
+                    }
+                };
+                for (int kk = it.k0; kk < it.k1; ++kk, ++q) {
+                    const int ck = kk / TAPS, tap = kk - ck * TAPS;
+                    if (ck != cur_ck) {
+                        cur_ck = ck;
+                        buf = n & 1;
+                        mbar_wait(bfull + buf, (n >> 1) & 1);
+                        brick_s = bricks_s + buf * brick_bytes;
+                    }
+                    const bool chunk_end = tap == TAPS - 1 || kk == it.k1 - 1;
+                    n += chunk_end;
+                    const int toff = ((tap / 9) * BH + (tap / 3) % 3) * BW + tap % 3;
+                    const uint64_t adesc = desc_none_k_major(brick_s + (plane + toff) * 16, lbo, sbo);
+                    const int s = q % STAGES;
+                    mbar_wait(wfull + s, (q / STAGES) & 1);
+                    const uint64_t bdesc = desc_sw128_k_major(ring_s + s * STAGE_BYTES);
+                    // one wgmma group a tap, the previous tap's still in flight
+                    wgmma_fence();
+#pragma unroll
+                    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+                        for (int f = 0; f < MW; ++f)
+                            WgmmaSS<NW, 0>::run(acc[f], adesc + f * BH * BW + j * 2 * cell_vox, bdesc + 2 * j);
+                    wgmma_commit();
+                    wgmma_wait<1>();              // the previous tap's group has retired
+                    release_held();
+                    held_s = s;
+                    held_buf = chunk_end ? buf : -1;
                 }
-                const int s = q % STAGES;
-                mbar_wait(wfull + s, (q / STAGES) & 1);
-                __syncwarp();
-                // one wgmma group a tap; no register is written while it runs
-                // (ptxas would serialize the wgmmas), the other consumer
-                // warpgroup's group keeps the tensor cores busy meanwhile
-                const uint64_t desc = desc_sw128_k_major(ring_s + s * STAGE_BYTES);
-                wgmma_fence();
-#pragma unroll
-                for (int j = 0; j < BK / 16; ++j)
-#pragma unroll
-                    for (int f = 0; f < MW; ++f) Wgmma<NW, 0>::run(acc[f], afr[j][f], desc + 2 * j);
-                wgmma_commit();
                 wgmma_wait<0>();
-                __syncwarp();
-                if (lane == 0) mbar_arrive(wempty + s);
+                release_held();
+            } else {
+                // the brick voxel of this lane's ldmatrix row in each m64 tile, tap (0,0,0)
+                const int hi = lane >> 4;
+                int vb[MW];
+#pragma unroll
+                for (int f = 0; f < MW; ++f) {
+                    int r = row0 + f * 64 + warp4 * 16 + (lane & 15);
+                    if (r >= tile_vox) r = 0;     // rows past the tile: computed, never stored
+                    const int td = r / (p.TH * p.TW), rem = r - td * p.TH * p.TW;
+                    const int th = rem / p.TW, tw = rem - th * p.TW;
+                    vb[f] = (td * BH + th) * BW + tw;
+                }
+                uint32_t afr[BK / 16][MW][4];
+                for (int kk = it.k0; kk < it.k1; ++kk, ++q) {
+                    const int ck = kk / TAPS, tap = kk - ck * TAPS;
+                    if (ck != cur_ck) {
+                        cur_ck = ck;
+                        buf = n & 1;
+                        mbar_wait(bfull + buf, (n >> 1) & 1);
+                        brick_s = bricks_s + buf * brick_bytes;
+                    }
+                    // this tap's A fragments: a row offset into the brick
+                    const int toff = ((tap / 9) * BH + (tap / 3) % 3) * BW + tap % 3;
+#pragma unroll
+                    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+                        for (int f = 0; f < MW; ++f) {
+                            const int v = vb[f] + toff;
+                            ldsm_x4(brick_s + v * ROW_BYTES + (((2 * j + hi) ^ (v & 7)) << 4), afr[j][f]);
+                        }
+                    if (tap == TAPS - 1 || kk == it.k1 - 1) {   // the brick is no longer read
+                        __syncwarp();
+                        if (lane == 0) mbar_arrive(bempty + buf);
+                        ++n;
+                    }
+                    const int s = q % STAGES;
+                    mbar_wait(wfull + s, (q / STAGES) & 1);
+                    __syncwarp();
+                    // one wgmma group a tap; no register is written while it runs
+                    // (ptxas would serialize the wgmmas), the other consumer
+                    // warpgroup's group keeps the tensor cores busy meanwhile
+                    const uint64_t desc = desc_sw128_k_major(ring_s + s * STAGE_BYTES);
+                    wgmma_fence();
+#pragma unroll
+                    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+                        for (int f = 0; f < MW; ++f) Wgmma<NW, 0>::run(acc[f], afr[j][f], desc + 2 * j);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    __syncwarp();
+                    if (lane == 0) mbar_arrive(wempty + s);
+                }
             }
 #pragma unroll
             for (int f = 0; f < MW; ++f) fence_regs<NW / 2>(acc[f]);
@@ -426,15 +534,16 @@ __global__ void splitk_reduce_kernel(const float4* __restrict__ partial,
     o[1] = __floats2bfloat162_rn(s.z + __ldg(bias + n + 2), s.w + __ldg(bias + n + 3));
 }
 
-template <int MW, int NW, bool SPLIT_N>
+template <int MW, int NW, bool SPLIT_N, bool DESC>
 cudaError_t launch(const void* x, const void* a, const void* b, const void* w, const void* bias,
                    void* out, float* part, const Params& p, int grid, cudaStream_t s)
 {
     constexpr int BN = SPLIT_N ? CONSUMERS * NW : NW;
     const int brick_vox = (p.TD + 2) * (p.TH + 2) * (p.TW + 2);
-    const size_t smem = 1024 + (size_t)STAGES * BN * ROW_BYTES + 2 * (size_t)brick_vox * ROW_BYTES
+    const int cell_vox = DESC ? brick_vox | 1 : brick_vox;
+    const size_t smem = 1024 + (size_t)STAGES * BN * ROW_BYTES + 2 * (size_t)cell_vox * ROW_BYTES
                         + (2 * STAGES + 4) * sizeof(uint64_t);
-    auto kernel = gn_silu_conv3d_kernel<MW, NW, SPLIT_N>;
+    auto kernel = gn_silu_conv3d_kernel<MW, NW, SPLIT_N, DESC>;
     static size_t smem_allowed = 0;   // per instantiation; raised on demand
     if (smem > smem_allowed) {
         cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -442,7 +551,7 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* w, c
         if (err != cudaSuccess) return err;
         smem_allowed = smem;
     }
-    kernel<<<grid, THREADS, smem, s>>>(
+    kernel<<<grid, Roles<DESC>::THREADS, smem, s>>>(
         static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
         static_cast<const bf16*>(w), static_cast<const float*>(bias), static_cast<bf16*>(out),
         part, p);
@@ -456,17 +565,21 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* w, c
 // weights (NB, CK, 27, BN, 64) bf16 in the swizzled image; bias (O,) fp32;
 // out (B, D, H, W, O) bf16; partial (splits, M, O) fp32 scratch when
 // splits > 1. tiling: 0 = 256 voxels x 128 channels, 1 = 128 x 256,
-// 2 = 64 x 256; (TD, TH, TW) the output tile; grid the persistent block count;
-// lo, hi the depth halo (0 0: the SAME conv over D planes).
+// 2 = 64 x 256; route: 0 = A from registers, 1 = A by descriptor (tiling 0
+// with a 4 x 8 x 8 tile only); (TD, TH, TW) the output tile; grid the
+// persistent block count; lo, hi the depth halo (0 0: the SAME conv over D
+// planes).
 extern "C" int gn_silu_conv3d_bf16(const void* x, const void* a,
                                    const void* b, const void* w, const void* bias,
                                    void* out, void* partial, int B, int D, int H, int W,
-                                   int C, int O, int tiling, int TD, int TH, int TW,
+                                   int C, int O, int tiling, int route, int TD, int TH, int TW,
                                    int splits, int grid, int lo, int hi, void* stream)
 {
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const int BN = tiling == 0 ? 128 : 256;
     if (lo < 0 || lo > 1 || hi < 0 || hi > 1) return (int)cudaErrorInvalidValue;
+    if (route != 0 && (route != 1 || tiling != 0 || TD != 4 || TH != 8 || TW != 8))
+        return (int)cudaErrorInvalidValue;
     Params p;
     p.B = B; p.D = D; p.H = H; p.W = W; p.C = C; p.O = O;
     p.Din = D + lo + hi; p.lo = lo; p.hi = hi;
@@ -484,9 +597,10 @@ extern "C" int gn_silu_conv3d_bf16(const void* x, const void* a,
     float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
     cudaError_t err;
     switch (tiling) {
-    case 0: err = launch<2, 128, false>(x, a, b, w, bias, out, part, p, grid, s); break;
-    case 1: err = launch<1, 256, false>(x, a, b, w, bias, out, part, p, grid, s); break;
-    case 2: err = launch<1, 128, true>(x, a, b, w, bias, out, part, p, grid, s); break;
+    case 0: err = route ? launch<2, 128, false, true>(x, a, b, w, bias, out, part, p, grid, s)
+                        : launch<2, 128, false, false>(x, a, b, w, bias, out, part, p, grid, s); break;
+    case 1: err = launch<1, 256, false, false>(x, a, b, w, bias, out, part, p, grid, s); break;
+    case 2: err = launch<1, 128, true, false>(x, a, b, w, bias, out, part, p, grid, s); break;
     default: return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess || splits == 1) return (int)err;

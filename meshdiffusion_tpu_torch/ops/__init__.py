@@ -13,9 +13,10 @@
 | :func:`dit_attention` | CUDA C++, sm_90a (wgmma, online softmax) | none: the DiT's multi-head attention (``models/dit3d.py``); the JAX package has no transformer |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches,
-and each call, on either route, is an ``ops.<wrapper>`` span
-(``utils/trace.py``).
+launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches
+(``gn_silu_conv3d.descriptor_launches`` and ``gn_silu_conv3d_halo``'s the
+launches of those whose A operand took the descriptor route), and each call,
+on either route, is an ``ops.<wrapper>`` span (``utils/trace.py``).
 :func:`gn_silu_conv3d_autograd` is the conv kernel under autograd: its
 forward is :func:`gn_silu_conv3d`, its backward the plain version's
 (:func:`gn_silu_conv3d_halo_autograd` and :func:`gn_moments_autograd` the
@@ -51,6 +52,7 @@ KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    gn_silu_conv3d.descriptor_launches = gn_silu_conv3d_halo.descriptor_launches = 0
 
 
 def launch_counts() -> dict:

@@ -40,10 +40,10 @@ FLAGS = ['-O3', '-std=c++17', '-Xcompiler', '-fPIC', '-lineinfo']
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (restype is int: a cudaError_t)
 _SIGNATURES = {
-    # x, a, b, w, bias, out, partial, B, D, H, W, C, O, tiling, TD, TH, TW, splits, grid,
-    # lo, hi, stream
+    # x, a, b, w, bias, out, partial, B, D, H, W, C, O, tiling, route, TD, TH, TW, splits,
+    # grid, lo, hi, stream
     'gn_silu_conv3d_bf16': [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dtype, scale, bias, a, b, work, ticket, xb, moments, B, S, C, G, CC, R, eps, stream
     'gn_stats': [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # coords, tile_tris, tile_counts, global_tris, global_count, z_floor, order, best_tri,

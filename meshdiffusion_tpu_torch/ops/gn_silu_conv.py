@@ -11,12 +11,27 @@ channel) affine; the CUDA kernel ``csrc/gn_silu_conv3d.cu``
 brick built while the current one's products run) then computes
 ``silu(x*a + b)`` once per input element and the conv as an implicit GEMM
 with fp32 sums. The notes in that file say what bounds it and what its
-design does; :func:`_plan` picks its tiling, split and grid, and
-:func:`pack_conv_weights` lays the weights out as its B tiles.
+design does; :func:`_plan` picks its tiling, split, grid and the route of
+its A operand, and :func:`pack_conv_weights` lays the weights out as its B
+tiles.
+
+Two routes of one algorithm, differing only in where the A operand (the
+normalized input brick) is read from. Where the output tile is 4 x 8 x 8
+(tiling 0: every O = 128 conv of the res64 and res128 U-Nets, 28 of a res64
+forward's 74 calls and 20 of res128's 64, 92 % of K3's FLOP), the brick is
+laid out voxel-major, 16 bytes a voxel a cell of 8 channels, so that eight
+output voxels along w are one contiguous core matrix at any tap and an m64
+tile one depth plane: wgmma reads A by descriptor and each consumer keeps
+two taps in flight. Every other shape keeps the register route: a
+row-swizzled brick read into registers by ``ldmatrix``, one tap in flight.
+On an H100 (700 W) the descriptor route runs (4, 64^3, 128) -> 128 in 1.45
+ms, 65 % of its bound, against the register route's 1.98 ms (47 %); both
+give the same bits.
 
 On a CPU tensor :func:`gn_silu_conv3d` runs the plain version
 (:func:`gn_silu_conv3d_reference`); on a CUDA tensor it launches the
-kernel or raises. It counts its launches in ``gn_silu_conv3d.launches``.
+kernel or raises. It counts its launches in ``gn_silu_conv3d.launches``,
+and those on the descriptor route in ``gn_silu_conv3d.descriptor_launches``.
 The kernel computes in bfloat16 only, and only forward; called directly
 under autograd it raises. :func:`gn_silu_conv3d_autograd` is the
 differentiable op, the counterpart of the JAX package's ``custom_vjp``
@@ -30,8 +45,9 @@ the whole grid's ``a, b`` (from the statistics' moments mode, merged over
 the ranks) in the place of the statistics pass, and a slab of D + lo + hi
 planes (its neighbours' boundary planes around it), and writes the slab's
 D planes, zero-padded only at the grid's ends. It counts its launches in
-``gn_silu_conv3d_halo.launches``; :func:`gn_silu_conv3d_halo_autograd` is
-its differentiable op, built as the one above.
+``gn_silu_conv3d_halo.launches`` (and ``.descriptor_launches``);
+:func:`gn_silu_conv3d_halo_autograd` is its differentiable op, built as the
+one above.
 """
 
 from __future__ import annotations
@@ -120,15 +136,20 @@ def block_n(out_ch: int) -> int:
     return 256 if out_ch % 256 == 0 else 128
 
 
-def smem_bytes(bn: int, td: int, th: int, tw: int) -> int:
+def smem_bytes(bn: int, td: int, th: int, tw: int, route: int = 0) -> int:
     """Dynamic shared memory of a block: 1024-byte alignment slack, the
-    weight ring, two bricks, the mbarriers (the kernel's own sum)."""
-    return 1024 + _STAGES * bn * 128 + 2 * (td + 2) * (th + 2) * (tw + 2) * 128 + (2 * _STAGES + 4) * 8
+    weight ring, two bricks, the mbarriers (the kernel's own sum). The
+    descriptor route's brick holds an odd number of voxels a cell."""
+    vox = (td + 2) * (th + 2) * (tw + 2)
+    if route == 1:
+        vox |= 1
+    return 1024 + _STAGES * bn * 128 + 2 * vox * 128 + (2 * _STAGES + 4) * 8
 
 
 @dataclass(frozen=True)
 class ConvPlan:
     tiling: int          # 0: 256 voxels x 128 channels, 1: 128 x 256, 2: 64 x 256 (N split)
+    route: int           # A operand: 0 ldmatrix into registers, 1 by descriptor from the brick
     TD: int              # output tile
     TH: int
     TW: int
@@ -147,10 +168,12 @@ def _plan(B: int, D: int, H: int, W: int, C: int, O: int,
           sms: int = _build.H100_SMS) -> ConvPlan:
     """The kernel's launch plan for x (B, D, H, W, C) -> O channels: the
     tiling (by O and the volume), the output tile (D shrunk until two
-    bricks and the weight ring fit in shared memory), and the split of the
-    27 x ceil(C/64) k-steps when the output tiles alone cannot fill the
-    card (then about one item an SM, no range empty). Raises on shapes the
-    kernel does not take."""
+    bricks and the weight ring fit in shared memory), the route of the A
+    operand (by descriptor where the tile is 4 x 8 x 8 of tiling 0, so an
+    m64 tile is one depth plane of 8 h-rows of 8 voxels; from registers
+    elsewhere), and the split of the 27 x ceil(C/64) k-steps when the
+    output tiles alone cannot fill the card (then about one item an SM, no
+    range empty). Raises on shapes the kernel does not take."""
     trace.count('rebuild.plan')
     if C % 32 or O % 8 or min(B, D, H, W, C, O) < 1:
         raise ValueError(f'the conv kernel needs C % 32 == 0 and O % 8 == 0, got C={C}, O={O}')
@@ -162,7 +185,8 @@ def _plan(B: int, D: int, H: int, W: int, C: int, O: int,
     brick = lambda td: (td + 2) * (TH + 2) * (TW + 2)
     while TD > 1 and (smem_bytes(bn, TD, TH, TW) > SMEM_LIMIT or brick(TD) > _MAX_BRICK):
         TD -= 1
-    smem = smem_bytes(bn, TD, TH, TW)
+    route = int(tiling == 0 and (TD, TH, TW) == (4, 8, 8))
+    smem = smem_bytes(bn, TD, TH, TW, route)
     if smem > SMEM_LIMIT or brick(TD) > _MAX_BRICK:
         raise ValueError(f'no output tile of ({D}, {H}, {W}) fits in shared memory')
     tiles = B * -(-D // TD) * -(-H // TH) * -(-W // TW)
@@ -172,7 +196,8 @@ def _plan(B: int, D: int, H: int, W: int, C: int, O: int,
     splits = -(-KS // -(-KS // want))
     per = -(-KS // splits)
     items = base * splits
-    return ConvPlan(tiling, TD, TH, TW, tiles, NB, KS, splits, per, items, min(items, sms), smem)
+    return ConvPlan(tiling, route, TD, TH, TW, tiles, NB, KS, splits, per, items, min(items, sms),
+                    smem)
 
 
 def packed_numel(C: int, O: int) -> int:
@@ -249,10 +274,12 @@ def gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
         out = _launch(x if xb is None else xb, a, b, packed, conv_bias, plan, D, O, (0, 0),
                       stream, 'gn_silu_conv3d')
     gn_silu_conv3d.launches += 1
+    gn_silu_conv3d.descriptor_launches += plan.route
     return out
 
 
 gn_silu_conv3d.launches = 0
+gn_silu_conv3d.descriptor_launches = 0     # of those, launches on the descriptor route
 
 
 def _launch(xb, a, b, packed, conv_bias, plan: ConvPlan, D: int, O: int,
@@ -267,8 +294,8 @@ def _launch(xb, a, b, packed, conv_bias, plan: ConvPlan, D: int, O: int,
     err = _build.lib().gn_silu_conv3d_bf16(
         xb.data_ptr(), a.data_ptr(), b.data_ptr(), packed.data_ptr(), cb.data_ptr(),
         out.data_ptr(), partial.data_ptr() if partial is not None else None,
-        B, D, H, W, C, O, plan.tiling, plan.TD, plan.TH, plan.TW, plan.splits, plan.grid,
-        halo[0], halo[1], stream)
+        B, D, H, W, C, O, plan.tiling, plan.route, plan.TD, plan.TH, plan.TW, plan.splits,
+        plan.grid, halo[0], halo[1], stream)
     _build.check(err, what)
     return out
 
@@ -322,10 +349,12 @@ def gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
         out = _launch(xb, a, b, packed, conv_bias, plan, D, O, (lo, hi),
                       torch.cuda.current_stream().cuda_stream, 'gn_silu_conv3d_halo')
     gn_silu_conv3d_halo.launches += 1
+    gn_silu_conv3d_halo.descriptor_launches += plan.route
     return out
 
 
 gn_silu_conv3d_halo.launches = 0
+gn_silu_conv3d_halo.descriptor_launches = 0
 
 
 class _GnSiluConv3d(torch.autograd.Function):

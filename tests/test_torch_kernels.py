@@ -100,28 +100,46 @@ def test_gn_affine_one_launch_deterministic(cuda, rng, shape, dtype, in_block):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape,dtype', [
-    ((2, 5, 6, 7, 64, 32), torch.float32),
-    ((2, 5, 6, 7, 64, 32), torch.bfloat16),
-    ((1, 9, 10, 12, 128, 128), torch.bfloat16),      # ragged edges of the 4x8x8 tile
-    ((1, 9, 10, 12, 128, 128), torch.float32),
-    ((1, 8, 8, 8, 384, 128), torch.float32),         # the up path's odd width
-    ((1, 6, 7, 5, 96, 64), torch.bfloat16),          # a zero-padded 32-channel tail chunk
-    ((1, 16, 16, 16, 256, 256), torch.bfloat16),     # 128 x 256 tiling, split
-    ((1, 8, 8, 8, 1024, 512), torch.float32),
-    ((1, 4, 4, 4, 1024, 512), torch.bfloat16),       # 64 x 256 tiling, N split, many splits
-    ((1, 4, 4, 4, 1024, 512), torch.float32),
-    ((2, 4, 4, 4, 512, 512), torch.bfloat16),
+@pytest.mark.parametrize('shape,dtype,halo,route', [
+    ((2, 5, 6, 7, 64, 32), torch.float32, None, 0),
+    ((2, 5, 6, 7, 64, 32), torch.bfloat16, None, 0),
+    ((1, 9, 10, 12, 128, 128), torch.bfloat16, None, 1),   # ragged edges of the 4x8x8 tile
+    ((1, 9, 10, 12, 128, 128), torch.float32, None, 1),
+    ((1, 8, 8, 8, 384, 128), torch.float32, None, 1),      # the up path's odd width
+    ((1, 6, 7, 5, 96, 64), torch.bfloat16, None, 0),       # a zero-padded 32-channel tail chunk
+    ((1, 16, 16, 16, 256, 256), torch.bfloat16, None, 0),  # 128 x 256 tiling, split
+    ((1, 8, 8, 8, 1024, 512), torch.float32, None, 0),
+    ((1, 4, 4, 4, 1024, 512), torch.bfloat16, None, 0),    # 64 x 256 tiling, N split, many splits
+    ((1, 4, 4, 4, 1024, 512), torch.float32, None, 0),
+    ((2, 4, 4, 4, 512, 512), torch.bfloat16, None, 0),
+    ((1, 16, 16, 16, 128, 128), torch.bfloat16, None, 1),  # descriptor route, split
+    ((2, 12, 16, 16, 256, 128), torch.float32, None, 1),   # the up path's fp32 concat width
+    ((1, 8, 8, 8, 384, 128), torch.bfloat16, None, 1),
+    ((2, 8, 16, 8, 128, 128), torch.bfloat16, (1, 0), 1),  # depth halo, descriptor route
+    ((1, 8, 8, 6, 128, 128), torch.bfloat16, None, 0),     # W < 8: the register route
 ])
-def test_gn_silu_conv3d_kernel_matches_plain(cuda, rng, shape, dtype):
+def test_gn_silu_conv3d_kernel_matches_plain(cuda, rng, shape, dtype, halo, route):
     """Relative L2 error against the plain bf16 composition at most 1e-2,
     finite, and bit-equal from one run to the next (split-K sums in split
-    order)."""
-    x, sc, bi, k, cb = (_t(a).to(cuda) for a in _gsc_inputs(rng, *shape))
+    order); the launches took the A operand's route the plan gives the
+    shape (``descriptor_launches``). ``halo``: the depth-halo mode, x with
+    lo + hi more planes around the output's D."""
+    if halo is None:
+        x, sc, bi, k, cb = (_t(a).to(cuda) for a in _gsc_inputs(rng, *shape))
+        op, args = ops.gn_silu_conv3d, (x.to(dtype), sc, bi, k, cb)
+        ref = ops.gn_silu_conv3d_reference
+    else:
+        B, D, H, W, C, O = shape
+        x, sc, bi, k, cb = (_t(a).to(cuda) for a in _gsc_inputs(rng, B, D + sum(halo), H, W, C, O))
+        a, b = ops.gn_affine_reference(x, sc, bi)
+        op, args = ops.gn_silu_conv3d_halo, (x.to(dtype), a, b, k, cb, halo)
+        ref = ops.gn_silu_conv3d_halo_reference
+    n0, d0 = op.launches, op.descriptor_launches
     with torch.inference_mode():
-        y = ops.gn_silu_conv3d(x.to(dtype), sc, bi, k, cb)
-        y2 = ops.gn_silu_conv3d(x.to(dtype), sc, bi, k, cb, packed=ops.pack_conv_weights(k))
-        r = ops.gn_silu_conv3d_reference(x.to(dtype), sc, bi, k, cb)
+        y = op(*args)
+        y2 = op(*args, packed=ops.pack_conv_weights(k))
+        r = ref(*args)
+    assert (op.launches - n0, op.descriptor_launches - d0) == (2, 2 * route)
     assert torch.isfinite(y).all()
     assert (y.float() - r.float()).norm() / r.float().norm() < 1e-2
     assert torch.equal(y, y2)

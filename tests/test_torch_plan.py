@@ -5,7 +5,9 @@ point devices, in pure Python on the CPU (no card, no JAX).
   U-Nets (taken from a forward on the meta device), batch 1 and 4: every
   output voxel in exactly one tile, every work item one (tile, N block,
   split), the splits a partition of the k-steps with none empty, shared
-  memory within the H100's 232,448 bytes.
+  memory within the H100's 232,448 bytes; the A operand's route at every K3
+  input of the benchmark's res64 and res128 forwards (the descriptor route
+  at O = 128, the register route at O >= 256) and by shape.
 * the statistics kernel's plan at every GroupNorm input of a res64 forward.
 * ``pack_conv_weights`` against the swizzle formula the wgmma descriptor reads.
 * each kernel's ``*_cost`` helper against counts made by hand.
@@ -89,6 +91,38 @@ def test_conv_plan_covers_every_voxel_once(name, batch):
         ks = [k for s in range(p.splits) for k in range(s * p.per, min(p.KS, (s + 1) * p.per))]
         assert ks == list(range(p.KS)) and (p.splits - 1) * p.per < p.KS, (xs, p)
         assert 1 <= p.grid <= 132 and p.grid <= p.items
+
+
+@pytest.mark.parametrize('cell,batch,routed', [('gen64-b4', 4, 28), ('gen128-b7', 7, 20)])
+def test_conv_plan_route_at_every_k3_input_of_a_forward(cell, batch, routed):
+    """Every O = 128 call of a res64 or res128 forward (``counts/unet.py``'s
+    walk at the cell's batch) plans the descriptor route (a 4 x 8 x 8 tile of
+    tiling 0, within the shared memory a block may use), every O >= 256 call
+    the register route: 28 of 74 launches at res64, 20 of 64 at res128."""
+    from portbench.counts import unet as unet_counts
+    from portbench.harness import Cell
+    from portbench.reference import unet as ref_unet
+    k3 = unet_counts.walk(ref_unet.arch(Cell.load(cell).config), batch)['k3']
+    routes = []
+    for (B, D, H, W, C), _, O in k3:
+        p = _plan(B, D, H, W, C, O)
+        assert p.route == (O == 128), ((B, D, H, W, C), O, p)
+        if p.route:
+            assert p.tiling == 0 and (p.TD, p.TH, p.TW) == (4, 8, 8) and p.smem <= SMEM_LIMIT, p
+        routes.append(p.route)
+    assert (sum(routes), len(routes)) == (routed, {'gen64-b4': 74, 'gen128-b7': 64}[cell])
+
+
+@pytest.mark.parametrize('shape,route', [((1, 9, 10, 12, 128, 128), 1), ((1, 8, 8, 8, 384, 128), 1),
+                                         ((1, 8, 8, 4, 128, 128), 0), ((1, 2, 8, 8, 128, 128), 0),
+                                         ((1, 8, 8, 8, 128, 256), 0), ((1, 4, 4, 4, 512, 512), 0)])
+def test_conv_plan_route_by_shape(shape, route):
+    """The descriptor route only where the tile is 8 x 8 in (H, W) and 4
+    planes deep at O = 128; a narrower or shallower tile, or O = 256 and
+    512 (tilings 1 and 2), keep the register route."""
+    p = _plan(*shape)
+    assert p.route == route, p
+    assert p.smem <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize('shape', [(1, 8, 8, 8, 48, 64), (1, 8, 8, 8, 100, 64),
