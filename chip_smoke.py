@@ -107,7 +107,7 @@ under each. Phases, in order:
     (device ms by family, the card's busy share), the first step's weight
     repacking, peak memory at micro-batch 2 and TRAIN_MICRO, and at
     micro-batch 2 with dropout 0 (both chains through K3) the loss and
-    every gradient with kernels against ``kernels=False``;
+    every gradient with kernels against the plain versions (``ops.plain()``);
 13. the data tools on phase 7's fitted dict: ``data.convert tets-to-3dgrid``
     on the card (its grid's ``grid_to_tet`` gives back the dict's sdf sign and
     clipped deform exactly), ``get-tet-mask`` bit-equal to the 64 grid's
@@ -140,7 +140,7 @@ under each. Phases, in order:
 18. the likelihood on the res64 model at full width, batch 1, on phase 13's
     grid: the drift and the Hutchinson divergence at t = 1e-3, 0.5, 1 with
     kernels (K3 forward under autograd, 74 launches an evaluation) against
-    ``kernels=False``; then ``likelihood_fn`` (rtol = atol = 1e-3) from start to
+    the plain versions (``ops.plain()``); then ``likelihood_fn`` (rtol = atol = 1e-3) from start to
     end on the seeded init, whose epsilon is ~0, held to the closed-form
     bits/dim: nfe, bits/dim, seconds;
 19. ``main --mode fit_dmtets`` on a textured GT (the torus united with the
@@ -226,6 +226,7 @@ Exits non-zero without a result when CUDA is unavailable or the package is
 not beside this file.
 """
 
+import contextlib
 import gc
 import json
 import logging
@@ -365,6 +366,22 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def _launches(**counts) -> dict:
+    """The launch counts expected of every kernel wrapper: ``counts`` for
+    the wrappers named, 0 for every other wrapper of ``ops.KERNEL_WRAPPERS``."""
+    from meshdiffusion_tpu_torch import ops
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    assert set(counts) <= set(want), counts
+    return {**want, **counts}
+
+
+def _plain(fn, *args):
+    """``fn(*args)`` with every kernel wrapper on its plain version."""
+    from meshdiffusion_tpu_torch import ops
+    with ops.plain():
+        return fn(*args)
+
+
 class _Records(logging.Handler):
     """Keeps the fields the port's drivers log: timings (sample_s,
     postprocess_s, ...), each fit pass's (pass, iterations, steps run,
@@ -474,10 +491,12 @@ def _var_mean_ms(xg):
     return _time_ms(call, 20), sum(_device_ms(call).values())
 
 
-def capture_conv_shapes(model_p, x, labels, mask):
-    """The K3 / K2 input shapes of one plain forward, with how often each
-    runs: ({(x shape, dtype, O): calls}, the output head's {shape, dtype})."""
+def capture_conv_shapes(model, x, labels, mask):
+    """The K3 / K2 input shapes of one plain forward (``ops.plain()``), with
+    how often each runs: ({(x shape, dtype, O): calls}, the output head's
+    {shape, dtype})."""
     import torch
+    from meshdiffusion_tpu_torch import ops
     from meshdiffusion_tpu_torch.models.layers import ResnetBlockDDPM
     conv_calls, head = {}, {}
 
@@ -487,11 +506,11 @@ def capture_conv_shapes(model_p, x, labels, mask):
             conv_calls[key] = conv_calls.get(key, 0) + 1
 
     hooks = [m.register_forward_pre_hook(_conv_hook)
-             for m in model_p.modules() if isinstance(m, ResnetBlockDDPM)]
-    hooks.append(model_p.all_modules[-1].register_forward_pre_hook(
+             for m in model.modules() if isinstance(m, ResnetBlockDDPM)]
+    hooks.append(model.all_modules[-1].register_forward_pre_hook(
         lambda mod, args: head.update(shape=tuple(args[0].shape), dtype=args[0].dtype)))
-    with torch.inference_mode():
-        model_p(x, labels, mask)
+    with torch.inference_mode(), ops.plain():
+        model(x, labels, mask)
     for h in hooks:
         h.remove()
     return conv_calls, head
@@ -675,7 +694,7 @@ def dit_run(port_main, dev, g, record, per_shape) -> dict:
         model(x, lab, msk)
         torch.cuda.synchronize()
         per_fwd = ops.launch_counts()
-        assert per_fwd == {**dict.fromkeys(per_fwd, 0), 'dit_attention': 28}, per_fwd
+        assert per_fwd == _launches(dit_attention=28), per_fwd
         fwd_dms = _kernel_ms(lambda: model(x, lab, msk), 'dit_attention', per_call=28, iters=3)[0]
         print(f'DiT-XL/4 full-width forward, batch 1, bf16: launches {per_fwd}; the attention '
               f'kernel {_ms(fwd_dms)} ms of device time a forward')
@@ -690,8 +709,8 @@ def dit_run(port_main, dev, g, record, per_shape) -> dict:
                          f'--config.eval.eval_dir={tmp}'])
         torch.cuda.synchronize()
         launches = ops.launch_counts()
-        assert launches == {**dict.fromkeys(launches, 0), 'ancestral_update': DIT_STEPS,
-                            'dit_attention': 28 * DIT_STEPS}, launches
+        assert launches == _launches(ancestral_update=DIT_STEPS,
+                                     dit_attention=28 * DIT_STEPS), launches
         sample = np.load(npy)
         assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
         print(f'main --config dit3d_xl4_res64 --mode uncond_gen: {DIT_STEPS} steps; '
@@ -950,19 +969,16 @@ def grid128_run() -> dict:
     return out
 
 
-def _seeded_pair(cfg, dev, g):
-    """The full-width model with seeded normal(0, 0.02) weights (kernels)
-    and the same weights with ``kernels=False``, both in eval mode."""
+def _seeded(cfg, dev, g):
+    """The full-width model with seeded normal(0, 0.02) weights, in eval
+    mode; its plain comparisons run it within ``ops.plain()``."""
     import torch
-    from meshdiffusion_tpu_torch.models import create_model, get_model
-    model_k = create_model(cfg, dev)
+    from meshdiffusion_tpu_torch.models import create_model
+    model = create_model(cfg, dev)
     with torch.no_grad():
-        for p in model_k.parameters():
+        for p in model.parameters():
             p.normal_(0.0, 0.02, generator=g)
-    with torch.device(dev):
-        model_p = get_model(cfg.model.name).from_config(cfg, kernels=False)
-    model_p.load_state_dict(model_k.state_dict())
-    return model_k.eval(), model_p.eval()
+    return model.eval()
 
 
 def _plain_per_sample_ms(ref, check, batch: int) -> float:
@@ -1006,10 +1022,10 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
     assert cfg.eval.batch_size == B128, cfg.eval.batch_size
     R = R128
     mask = torch.as_tensor(TetGrid.load(R).grid_mask(), device=dev)[None, ..., None]
-    model_k, model_p = _seeded_pair(cfg, dev, g)
+    model_k = _seeded(cfg, dev, g)
     x1 = torch.randn((1, R, R, R, 4), device=dev, generator=g)
     lab1 = torch.full((1,), 500.0, device=dev)
-    conv_calls, head = capture_conv_shapes(model_p, x1, lab1, mask)
+    conv_calls, head = capture_conv_shapes(model_k, x1, lab1, mask)
     n_conv = sum(conv_calls.values())
     assert n_conv == 64, n_conv
     print(f'res128 path: {n_conv} gn_silu_conv3d calls a forward at {len(conv_calls)} distinct '
@@ -1157,17 +1173,17 @@ def res128_kernels_run(dev, g, record, per_shape) -> dict:
         torch.cuda.synchronize()
         per_fwd = ops.launch_counts()
         desc_fwd = ops.gn_silu_conv3d.descriptor_launches
-        y_p = model_p(x1, lab1, mask)
+        with ops.plain():
+            y_p = model_k(x1, lab1, mask)
         rel = _rel_l2(y_k, y_p)
         assert torch.isfinite(y_k).all() and y_k.shape == x1.shape and rel <= 1e-2, rel
-        assert per_fwd == {'ancestral_update': 0, 'gn_affine': 65, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 64, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
-                           'nin_residual': 20}, per_fwd
+        assert per_fwd == _launches(gn_affine=65, groupnorm_silu=1, gn_silu_conv3d=64,
+                                    nin_residual=20), per_fwd
         assert desc_fwd == 20, desc_fwd          # the O = 128 convs at 128^3 and 64^3
         print(f'res128 full-width forward, batch 1, bf16: rel_l2 kernels vs plain {rel:.3e} '
               f'(bound 1e-2); launches a forward {per_fwd}, {desc_fwd} of K3\'s on the '
               f'descriptor route')
-        del model_p, y_k, y_p
+        del y_k, y_p
         torch.cuda.empty_cache()
 
         # one full-width forward at batch 7, kernels only
@@ -1225,9 +1241,8 @@ def uncond128_run(entry, rec, work: str, mask, dev) -> dict:
     launches = ops.launch_counts()
     peak_gen = torch.cuda.max_memory_allocated()
     n = R128_STEPS
-    assert launches == {'ancestral_update': n, 'gn_affine': 65 * n, 'groupnorm_silu': n,
-                        'gn_silu_conv3d': 64 * n, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
-                        'nin_residual': 20 * n}, launches
+    assert launches == _launches(ancestral_update=n, gn_affine=65 * n, groupnorm_silu=n,
+                                 gn_silu_conv3d=64 * n, nin_residual=20 * n), launches
     assert rec.fields['steps'] == n
     sample_s = rec.fields['sample_s']
     sample = np.load(npy)
@@ -1309,9 +1324,7 @@ def viz128_run(entry, rec, work: str, record, dev) -> dict:
     launches = ops.launch_counts()
     renders = rec.fields['viz_renders']     # 1, and 1 more a capacity regrowth
     assert not any(rec.fields['viz_overflow'].values()), rec.fields['viz_overflow']
-    assert launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': 0, 'tile_zmin': renders, **NO_SHARDED, **NO_DIT, **NO_NIN} \
-        and len(calls) == renders, \
+    assert launches == _launches(tile_zmin=renders) and len(calls) == renders, \
         (launches, renders, len(calls))
     v, f = read_obj(objs[0])
     assert len(f) > 1000 and np.isfinite(v).all(), len(f)
@@ -1367,7 +1380,7 @@ def _eps_vjp(model_fn, x, t, eps, N):
 def likelihood_run(sample, dev, g) -> dict:
     """Phase 18: the likelihood on the res64 model at full width, batch 1,
     on phase 13's grid. The drift and the Hutchinson divergence at
-    LIKELIHOOD_T with kernels against ``kernels=False`` (seeded normal(0,
+    LIKELIHOOD_T with kernels against the plain versions (seeded normal(0,
     0.02) weights); then ``likelihood_fn`` (rtol = atol = 1e-3) from
     start to end on the seeded init the generators sample from without a
     checkpoint, whose last convs are zero-scaled: its epsilon is ~1e-5, so
@@ -1388,14 +1401,12 @@ def likelihood_run(sample, dev, g) -> dict:
     R = cfg.data.image_size
     mask = torch.as_tensor(TetGrid.load(R).grid_mask(), device=dev)[None, ..., None]
     sde = VPSDE(beta_min=cfg.model.beta_min, beta_max=cfg.model.beta_max, N=cfg.model.num_scales)
-    model_k, model_p = _seeded_pair(cfg, dev, g)
-    for m in (model_k, model_p):
-        m.requires_grad_(False)
+    model_k = _seeded(cfg, dev, g).requires_grad_(False)
     n_conv = 2 * sum(isinstance(m, ResnetBlockDDPM) for m in model_k.modules())   # 74 at res64
     x = torch.as_tensor(sample[None], device=dev)
     eps = hutchinson_noise('Rademacher', dev, 0)('hutchinson', x.shape)
-    fns = {w: get_drift_and_div_fn(sde, lambda z, lab, m=m: m(z, lab, mask))
-           for w, m in (('kernels', model_k), ('plain', model_p))}
+    fn = get_drift_and_div_fn(sde, lambda z, lab: model_k(z, lab, mask))
+    fns = {'kernels': fn, 'plain': lambda *a: _plain(fn, *a)}
     rows = []
     for t in LIKELIHOOD_T:
         tt = torch.full((1,), t, device=dev)
@@ -1403,8 +1414,7 @@ def likelihood_run(sample, dev, g) -> dict:
         dk, vk = fns['kernels'](x, tt, eps)
         torch.cuda.synchronize()
         n = ops.launch_counts()
-        assert n == {'ancestral_update': 0, 'gn_affine': n_conv, 'groupnorm_silu': 0,
-                     'gn_silu_conv3d': n_conv, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT, **NO_NIN}, n
+        assert n == _launches(gn_affine=n_conv, gn_silu_conv3d=n_conv), n
         dp, vp = fns['plain'](x, tt, eps)
         rel_d = _rel_l2(dk, dp)
         rel_v = float((vk - vp).abs() / vp.abs())
@@ -1412,8 +1422,8 @@ def likelihood_run(sample, dev, g) -> dict:
         # held by relative L2 as phase 12 holds gradients. (Its sum with eps, ~50-100
         # out of 1e6 terms of either sign, is ill-conditioned, and in the fp32 total the
         # linear part -beta n / 2, 1e7 at t = 1, leaves it a few ulps.)
-        gk, gp = (_eps_vjp(lambda z, lab, m=m: m(z, lab, mask), x, tt, eps, sde.N)
-                  for m in (model_k, model_p))
+        gk = _eps_vjp(lambda z, lab: model_k(z, lab, mask), x, tt, eps, sde.N)
+        gp = _plain(_eps_vjp, lambda z, lab: model_k(z, lab, mask), x, tt, eps, sde.N)
         rel_net = _rel_l2(gk, gp)
         net_k, net_p = (float((gv.double() * eps.double()).sum()) for gv in (gk, gp))
         assert torch.isfinite(dk).all() and torch.isfinite(vk).all(), t
@@ -1430,7 +1440,7 @@ def likelihood_run(sample, dev, g) -> dict:
               f'sums); an evaluation (forward '
               f'and its vector-Jacobian product) {ms_k:.2f} ms with kernels, {ms_p:.2f} ms '
               f'plain; launches {n}')
-    del model_k, model_p, fns
+    del model_k, fn, fns
     torch.cuda.empty_cache()
 
     model = create_model(cfg, dev, torch.Generator(device=dev).manual_seed(cfg.seed)).eval()
@@ -1443,8 +1453,7 @@ def likelihood_run(sample, dev, g) -> dict:
     bpd, z, nfe = lk(0, data)
     lk_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    assert launches == {'ancestral_update': 0, 'gn_affine': n_conv * nfe, 'groupnorm_silu': 0,
-                        'gn_silu_conv3d': n_conv * nfe, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT, **NO_NIN}, \
+    assert launches == _launches(gn_affine=n_conv * nfe, gn_silu_conv3d=n_conv * nfe), \
         (launches, nfe)
     e0 = 1e-5
     integral = sde.beta_0 * (1 - e0) + (sde.beta_1 - sde.beta_0) * (1 - e0 ** 2) / 2
@@ -1840,9 +1849,7 @@ def textured_phases(entry, rec, record, per_shape, dev) -> dict:
                       '--device', str(dev)])
         sv_s = time.perf_counter() - t0
         sv_launches = ops.launch_counts()
-        assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + TEX_SV_ITERS + 1,
-                               **NO_SHARDED, **NO_DIT, **NO_NIN}, sv_launches
+        assert sv_launches == _launches(tile_zmin=1 + TEX_SV_ITERS + 1), sv_launches
         d = torch.load(path)
         assert set(d) == {'sdf', 'deform', 'vis', 'vis_rast'} and d['sdf'].shape == (V,)
         assert 0 < float(d['vis'].sum()) < V and all(
@@ -1858,13 +1865,8 @@ def textured_phases(entry, rec, record, per_shape, dev) -> dict:
 
 # ---- phases 21-23: the sharded kernels' modes, data- and spatial-parallel training ----
 
-# the wrappers that only the spatially sharded U-Net launches: 0 on every one-card path
-NO_SHARDED = {'gn_silu_conv3d_halo': 0, 'gn_moments': 0}
-# the shortcut kernel runs only in forwards that record no gradient: 0 under autograd
-# (training, the likelihood) and in the fits
-NO_NIN = {'nin_residual': 0}
-# the DiT's attention kernel: 0 on every U-Net path
-NO_DIT = {'dit_attention': 0}
+# the wrappers that only the spatially sharded U-Net launches
+SHARDED = ('gn_silu_conv3d_halo', 'gn_moments')
 PAR_MICRO = 2              # phases 21-22: samples a data row a micro-batch
 PAR_STEPS = 3              # phase 22: main --mode train steps 0..PAR_STEPS
 R128_PAR_STEPS = 1         # phase 23: steps 0..R128_PAR_STEPS
@@ -2845,21 +2847,17 @@ def main() -> int:
 
     # the full-width model: seeded normal(0, 0.02) weights for every tensor
     # (the DDPM init zeroes each block's last conv, which would hide errors)
-    model_k = create_model(cfg, dev)
-    with torch.no_grad():
-        for p in model_k.parameters():
-            p.normal_(0.0, 0.02, generator=g)
-    with torch.device(dev):
-        model_p = get_model(cfg.model.name).from_config(cfg, kernels=False)
-    model_p.load_state_dict(model_k.state_dict())
-    model_k.eval()
-    model_p.eval()
+    model_k = _seeded(cfg, dev, g)
 
     # capture the main path's K3 / K2 input shapes (and how often each runs)
-    # from one plain forward
+    # from one plain forward, on the meta device: model_k's first forward
+    # (phase 4) still builds its weight layouts
     x_in = torch.randn((1, R, R, R, 4), device=dev, generator=g)
     labels = torch.full((1,), 500.0, device=dev)
-    conv_calls, head = capture_conv_shapes(model_p, x_in, labels, mask)
+    with torch.device('meta'):
+        conv_calls, head = capture_conv_shapes(
+            get_model(cfg.model.name).from_config(cfg).eval(), torch.empty(x_in.shape),
+            torch.empty(labels.shape), torch.empty(mask.shape, dtype=mask.dtype))
     conv_shapes = set(conv_calls)
     print(f'main path: {sum(conv_calls.values())} gn_silu_conv3d calls a forward at '
           f'{len(conv_shapes)} distinct shapes; output head GroupNorm+SiLU at {head["shape"]} '
@@ -2943,18 +2941,18 @@ def main() -> int:
         first_ms = (time.perf_counter() - t0) * 1000.0
         per_fwd = ops.launch_counts()
         desc_fwd = ops.gn_silu_conv3d.descriptor_launches
-        y_p = model_p(x_in, labels, mask)
+        with ops.plain():
+            y_p = model_k(x_in, labels, mask)
         rel = _rel_l2(y_k, y_p)
         assert torch.isfinite(y_k).all() and y_k.shape == x_in.shape
         assert rel <= 1e-2, rel
-        assert per_fwd == {'ancestral_update': 0, 'gn_affine': 75, 'groupnorm_silu': 1,
-                           'gn_silu_conv3d': 74, 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
-                           'nin_residual': 22}, per_fwd
+        assert per_fwd == _launches(gn_affine=75, groupnorm_silu=1, gn_silu_conv3d=74,
+                                    nin_residual=22), per_fwd
         assert desc_fwd == 28, desc_fwd          # the O = 128 convs at 64^3 and 32^3
         fwd = {'kernels': [], 'plain': []}
         for which in ('plain', 'kernels', 'kernels', 'plain'):
-            m = model_k if which == 'kernels' else model_p
-            fwd[which].append(_time_ms(lambda: m(x_in, labels, mask), 3, 1))
+            with ops.plain() if which == 'plain' else contextlib.nullcontext():
+                fwd[which].append(_time_ms(lambda: model_k(x_in, labels, mask), 3, 1))
         nz = torch.randn(x_in.shape, device=dev, generator=g)
         step = lambda: ops.ancestral_update(x_in, model_k(x_in, labels, mask), mask, nz, 0.01, 0.5)
         step_ms = _time_ms(step, 10, 2)
@@ -2976,7 +2974,7 @@ def main() -> int:
           + ', '.join(f'{n} {t:.3f} ms' for n, t in per_fwd_dev.items() if t))
     for k, t in sorted(prof.items(), key=lambda kv: -kv[1])[:12]:
         print(f'  {t:8.3f} ms  {k[:100]}')
-    del model_k, model_p
+    del model_k
     torch.cuda.empty_cache()
 
     # ---- 5. the entry points: uncond_gen then extract ----
@@ -2995,9 +2993,9 @@ def main() -> int:
         sample_s = rec.fields['sample_s']
         print(f'uncond_gen: {rec.fields["steps"]} steps in {sample_s:.3f} s, '
               f'{1000 * sample_s / steps:.2f} ms per U-Net step; launches {launches}')
-        assert launches == {'ancestral_update': steps, 'gn_affine': 75 * steps,
-                            'groupnorm_silu': steps, 'gn_silu_conv3d': 74 * steps,
-                            'tile_zmin': 0, **NO_SHARDED, **NO_DIT, 'nin_residual': 22 * steps}, launches
+        assert launches == _launches(ancestral_update=steps, gn_affine=75 * steps,
+                                     groupnorm_silu=steps, gn_silu_conv3d=74 * steps,
+                                     nin_residual=22 * steps), launches
         sample = np.load(npy)
         m = mask[0, ..., 0].cpu().numpy()
         assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
@@ -3088,9 +3086,7 @@ def main() -> int:
         assert len(written) == 1 and len(passes) == 2, (written, passes)
         steps_run = sum(p[2] for p in passes)
         expect = FIT_POOL + steps_run         # one launch a render: GT pool + fit steps
-        assert fit_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                                'gn_silu_conv3d': 0, 'tile_zmin': expect, **NO_SHARDED, **NO_DIT, **NO_NIN}, \
-            (fit_launches, expect)
+        assert fit_launches == _launches(tile_zmin=expect), (fit_launches, expect)
         V = TetGrid.load(64).num_verts
         fitted = os.path.join(keep, os.path.basename(written[0]['tets']))
         shutil.copy(written[0]['tets'], fitted)        # phase 13 converts it
@@ -3115,9 +3111,7 @@ def main() -> int:
         dmtet, peak, one_layer = singleview_run(port_main, gt, os.path.join(tmp, 'sv'))
         sv_launches = ops.launch_counts()
         # one launch a render: the GT target, every step, the visibility render
-        assert sv_launches == {'ancestral_update': 0, 'gn_affine': 0, 'groupnorm_silu': 0,
-                               'gn_silu_conv3d': 0, 'tile_zmin': 1 + SV_ITERS + 1,
-                               **NO_SHARDED, **NO_DIT, **NO_NIN}, sv_launches
+        assert sv_launches == _launches(tile_zmin=1 + SV_ITERS + 1), sv_launches
         n_it, sv_s, sv_over = rec.fields['singleview_fit']
         assert n_it == SV_ITERS and len(one_layer) == 1, (n_it, len(one_layer))
         zargs, (kt, kz) = one_layer[0]
@@ -3195,10 +3189,9 @@ def main() -> int:
                          f'--config.eval.eval_dir={os.path.join(tmp, "cond")}'])
         torch.cuda.synchronize()
         cond_launches = ops.launch_counts()
-        assert cond_launches == {'ancestral_update': COND_STEPS, 'gn_affine': 75 * COND_STEPS,
-                                 'groupnorm_silu': COND_STEPS, 'gn_silu_conv3d': 74 * COND_STEPS,
-                                 'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
-                                 'nin_residual': 22 * COND_STEPS}, cond_launches
+        assert cond_launches == _launches(
+            ancestral_update=COND_STEPS, gn_affine=75 * COND_STEPS, groupnorm_silu=COND_STEPS,
+            gn_silu_conv3d=74 * COND_STEPS, nin_residual=22 * COND_STEPS), cond_launches
         cond_s = rec.fields['sample_s']
         sample = np.load(npy)
         m = mask[0, ..., 0].cpu().numpy()
@@ -3226,10 +3219,9 @@ def main() -> int:
         torch.cuda.synchronize()
         interp_launches = ops.launch_counts()
         fwd = 99                                 # 100 quad-schedule times, 99 pairs
-        assert interp_launches == {'ancestral_update': 0, 'gn_affine': 75 * fwd,
-                                   'groupnorm_silu': fwd, 'gn_silu_conv3d': 74 * fwd,
-                                   'tile_zmin': 0, **NO_SHARDED, **NO_DIT,
-                                   'nin_residual': 22 * fwd}, interp_launches
+        assert interp_launches == _launches(gn_affine=75 * fwd, groupnorm_silu=fwd,
+                                            gn_silu_conv3d=74 * fwd, nin_residual=22 * fwd), \
+            interp_launches
         interp_s = rec.fields['sample_s']
         sample = np.load(npy)
         assert sample.shape == (2, 4, R, R, R) and np.isfinite(sample).all()
@@ -3251,9 +3243,8 @@ def main() -> int:
                                                    os.path.join(tmp, 'run'))
         train_launches = ops.launch_counts()
         n_micro = (TRAIN_STEPS + 1) * TRAIN_ITER
-        assert train_launches == {'ancestral_update': 0, 'gn_affine': 74 * n_micro,
-                                  'groupnorm_silu': 0, 'gn_silu_conv3d': 74 * n_micro,
-                                  'tile_zmin': 0, **NO_SHARDED, **NO_DIT, **NO_NIN}, train_launches
+        assert train_launches == _launches(gn_affine=74 * n_micro, gn_silu_conv3d=74 * n_micro), \
+            train_launches
         assert [t['step'] for t in tsteps] == list(range(TRAIN_STEPS + 1)), tsteps
         assert tsteps[0]['unchanged'] is True, 'step 0 moved the weights (lr 0 under warm-up)'
         model = state.model
@@ -3346,14 +3337,11 @@ def main() -> int:
               f'{peak[TRAIN_MICRO] / 2 ** 30:.2f} GiB; {slope / 2 ** 30:.3f} GiB a sample, so '
               f'48 x 1 would need {(peak[2] + 46 * slope) / 2 ** 30:.1f} GiB')
 
-        # kernels against kernels=False on the train path: micro-batch 2, dropout 0
-        # (both chains through K3), seeded normal(0, 0.02) weights
+        # kernels against the plain versions on the train path: micro-batch 2,
+        # dropout 0 (both chains through K3), seeded normal(0, 0.02) weights
         with torch.no_grad():
             for p in model.parameters():
                 p.normal_(0.0, 0.02, generator=g)
-        with torch.device(dev):
-            model_p = get_model(cfg.model.name).from_config(cfg, kernels=False, dropout=0.0)
-        model_p.load_state_dict(model.state_dict())
         for m in model.modules():
             if isinstance(m, ResnetBlockDDPM):
                 m.dropout = 0.0
@@ -3362,15 +3350,16 @@ def main() -> int:
         labels2 = torch.tensor([100, 700], device=dev)
         noise2 = torch.randn(batch[:2].shape, device=dev, generator=g)
         got = []
-        for m in (model, model_p):
-            m.zero_grad(set_to_none=True)
+        for scope in (contextlib.nullcontext, ops.plain):
+            model.zero_grad(set_to_none=True)
             ops.reset_launch_counts()
-            loss = losses.ddpm_loss(m, batch[:2], labels2, noise2, sqrt_ac, sqrt_1m_ac, mask,
-                                    train=True)
-            loss.backward()
+            with scope():         # the backward too: it reruns the checkpointed blocks
+                loss = losses.ddpm_loss(model, batch[:2], labels2, noise2, sqrt_ac, sqrt_1m_ac,
+                                        mask, train=True)
+                loss.backward()
             torch.cuda.synchronize()
             got.append((float(loss.detach()), ops.launch_counts()['gn_silu_conv3d'],
-                        {k: p.grad for k, p in m.named_parameters() if p.grad is not None}))
+                        {k: p.grad for k, p in model.named_parameters() if p.grad is not None}))
         (lk, nk, gk), (lp, npl, gp) = got
         assert nk == 4 * 37 and npl == 0, (nk, npl)
         assert gk.keys() == gp.keys()
@@ -3380,7 +3369,7 @@ def main() -> int:
         per = {k: _rel_l2(gk[k], gp[k]) for k in gk if float(gp[k].norm()) > 0}
         worst = max(per, key=per.get)
         assert np.isfinite(lk) and loss_rel <= 1e-4 and flat <= 2e-2, (lk, lp, loss_rel, flat)
-        print(f'train: kernels against kernels=False, micro-batch 2, dropout 0 ({nk} K3 launches: '
+        print(f'train: kernels against plain, micro-batch 2, dropout 0 ({nk} K3 launches: '
               f'both chains, forward and remat recompute): loss {lk:.6f} against {lp:.6f} '
               f'(relative error {loss_rel:.2e}, bound 1e-4); the flattened gradient relative L2 '
               f'{flat:.3e} (bound 2e-2); the worst tensor {worst} {per[worst]:.3e}')
@@ -3397,7 +3386,7 @@ def main() -> int:
                      'card': _smi()}
         with open(os.path.join(out_dir, 'train.json'), 'w') as f:
             json.dump(train_out, f, indent=1)
-        del state, model, model_p, got, gk, gp, batch
+        del state, model, got, gk, gp, batch
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3445,7 +3434,7 @@ def main() -> int:
     # slabs) and 23 (res128, 1 sample, 2 slabs), res128's captured on the meta device
     cfg128 = get_config('res128')
     with torch.device('meta'):
-        model128 = get_model(cfg128.model.name).from_config(cfg128, kernels=False).eval()
+        model128 = get_model(cfg128.model.name).from_config(cfg128).eval()
         conv_calls128, _ = capture_conv_shapes(
             model128, torch.empty((1, R128, R128, R128, 4)), torch.full((1,), 500.0),
             torch.empty((1, R128, R128, R128, 1)))
@@ -3582,7 +3571,7 @@ def main() -> int:
     per_step = dict(per_fwd, ancestral_update=launches['ancestral_update'] // steps,
                     tile_zmin=fit_launches['tile_zmin'] // (FIT_POOL + steps_run))
     # the sharded modes: a rank's launches a res64 training micro-batch on the (2, 2) mesh
-    per_step.update({n: par['res64 (2, 2)']['launches_rank0_per_micro'][n] for n in NO_SHARDED})
+    per_step.update({n: par['res64 (2, 2)']['launches_rank0_per_micro'][n] for n in SHARDED})
     # the DiT's attention: a launch a block of a DiT forward
     per_step['dit_attention'] = 28
     per_fwd_dev['dit_attention'] = dit['device_ms_per_forward']

@@ -9,14 +9,16 @@ The JAX package takes the divergence estimate eps^T (df/dx) eps forward-mode
 (``jax.jvp``); here it is reverse-mode (one vector-Jacobian product,
 ``torch.autograd.grad``), the same quantity summed in another order. Under
 autograd the U-Net's GroupNorm -> SiLU -> conv chains run the conv kernel
-forward and the plain version's backward (``ops.gn_silu_conv3d_autograd``).
+forward and the plain version's backward, and its other ops their plain
+versions (the route rule of ``ops/_build.py``).
 The Hutchinson noise is injectable: ``likelihood_fn(noise, data)`` takes a
 seed or a noise source ``noise(name, shape)``, as the samplers do.
 
 The network's parameters are constants of the ODE, as JAX's ``jvp`` with
 respect to x alone has them: ``model_fn``'s parameters must not require
-grad (``model.requires_grad_(False)``). The conv kernel's autograd Function
-fixes at its forward which gradients its backward computes, so a trainable
+grad (``model.requires_grad_(False)``). The conv's autograd Function
+(``ops._build.PlainBackward``) fixes at its forward which gradients its
+backward computes, so a trainable
 model would cost a weight-gradient conv at every site of every
 evaluation; the first evaluation refuses such a model.
 """

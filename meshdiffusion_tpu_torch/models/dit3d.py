@@ -32,11 +32,10 @@ the gates are fp32; every Linear's operands and the attention's are the
 compute dtype (bf16 on the card) with fp32 sums, their results in the
 compute dtype. Each Linear keeps its weight and bias in the compute dtype
 between calls (rebuilt when the weight changes, counted as
-``rebuild.pack``). With no gradient recorded, the attention is
-``ops.dit_attention`` (the hand-written kernel on CUDA tensors, one launch a
-block); ``forward(..., train=True)`` and any forward under autograd take
-its plain version. The model has no dropout, so
-``train`` changes nothing else.
+``rebuild.pack``). The attention is ``ops.dit_attention``, one call a block,
+which takes its route by the rule of ``ops/_build.py`` (the hand-written
+kernel on CUDA tensors; under autograd its plain version). The model has
+no dropout, so ``train`` changes nothing.
 
 A forward is a ``dit.forward`` span; each block a ``dit.block`` span
 (attribute ``index``) holding a ``dit.attn`` and a ``dit.mlp`` span
@@ -177,9 +176,8 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, dtype)
         self.proj = Linear(dim, dim, dtype)
 
-    def forward(self, h: torch.Tensor, plain: bool) -> torch.Tensor:
-        attn = ops.dit_attention_reference if plain else ops.dit_attention
-        return self.proj(attn(self.qkv(h), self.num_heads))
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.proj(ops.dit_attention(self.qkv(h), self.num_heads))
 
 
 class Mlp(nn.Module):
@@ -200,11 +198,11 @@ class DiTBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(dim, 6 * dim, dtype))
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor, plain: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift1, scale1, gate1, shift2, scale2, gate2 = \
             self.adaLN_modulation(c).float().chunk(6, dim=-1)
         with trace.span('dit.attn'):
-            y = self.attn(modulate(_layer_norm(x), shift1, scale1), plain)
+            y = self.attn(modulate(_layer_norm(x), shift1, scale1))
             x = torch.addcmul(x, gate1[:, None], y)
         with trace.span('dit.mlp'):
             y = self.mlp(modulate(_layer_norm(x), shift2, scale2))
@@ -298,7 +296,6 @@ class DiT3D(nn.Module):
                              f'{self.image_size}, {self.image_size}, {self.channels})')
         if spatial.current() is not None:
             raise ValueError('DiT3D runs on one card: it has no depth-sharded forward')
-        plain = train or torch.is_grad_enabled()
         h = x if self.centered else 2 * x - 1.0
         if mask is None:
             mask = torch.zeros((1,) + tuple(x.shape[1:4]) + (1,), device=x.device)
@@ -307,7 +304,7 @@ class DiT3D(nn.Module):
         c = self.t_embedder(labels)
         for i, block in enumerate(self.blocks):
             with trace.span('dit.block', index=i):
-                tok = block(tok, c, plain)
+                tok = block(tok, c)
         out = self.final_layer(tok, c).float()
         return unpatchify(out, self.patch_size, self.channels)
 

@@ -13,24 +13,21 @@ stay channels-last as in JAX, and the dtype flow is the JAX package's:
   leave a block with a NIN shortcut are fp32.
 
 Each ResnetBlock runs its two GroupNorm -> SiLU -> conv3^3 chains through
-``ops.gn_silu_conv3d`` (the hand-written kernel on a CUDA tensor; under
-autograd ``ops.gn_silu_conv3d_autograd``, whose backward differentiates
-the plain version), or with ``kernels=False`` through its plain version,
-which is how the plain comparison on the card is built. In training,
-dropout sits between the second chain's SiLU and its conv; that chain then
-runs decomposed, as in the JAX package. A block whose width changes ends
-in ``ops.nin_residual``, its NIN shortcut and residual sum in one kernel on
-a CUDA tensor, when no gradient is recorded; under autograd, on a depth
-slab or with ``kernels=False`` it composes ``NIN_0(x) + h``.
+``ops.gn_silu_conv3d``, and a block whose width changes ends in
+``ops.nin_residual``, its NIN shortcut and residual sum in one op; each op
+takes its route (plain, kernel, or kernel forward with plain backward) by
+the rule of ``ops/_build.py``. In training, dropout sits between the second
+chain's SiLU and its conv; that chain then runs decomposed, as in the JAX
+package.
 
 Under ``parallel.spatial.sharded`` each rank holds a depth slab of the
 grid, and the layers do what XLA's partitioner does for the JAX package's
 sharded grid: every SAME conv reads its neighbours' boundary planes
 (zeros only at the grid's ends), every GroupNorm normalises with the whole
 grid's statistics, attention gathers its keys and values over the slabs.
-The chains then run the conv kernel's depth-halo mode
+The chains then run the conv's depth-halo mode
 (``ops.gn_silu_conv3d_halo``) on the whole grid's ``a, b``, which the
-statistics kernel's moments mode feeds.
+statistics' moments mode feeds, and the shortcut composes ``NIN_0(x) + h``.
 """
 
 from __future__ import annotations
@@ -177,11 +174,11 @@ class ResnetBlockDDPM(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  temb_dim: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 kernels: bool = True, dropout: float = 0.1):
+                 dropout: float = 0.1):
         super().__init__()
         out_ch = out_ch or in_ch
         self.in_ch, self.out_ch = in_ch, out_ch
-        self.dtype, self.kernels, self.dropout = dtype, kernels, dropout
+        self.dtype, self.dropout = dtype, dropout
         self.GroupNorm_0 = nn.GroupNorm(32, in_ch, eps=1e-6)
         self.Conv_0 = Conv3D(in_ch, out_ch, 3, dtype=dtype)
         if temb_dim is not None:
@@ -202,50 +199,41 @@ class ResnetBlockDDPM(nn.Module):
             # under autograd the live weight: dhwio() is a detached copy
             kernel = conv.weight.permute(2, 3, 4, 1, 0) if grad else conv.dhwio()
             if sh is not None:
-                return sharded_chain(x, gn, conv, kernel, drop)
+                # this rank's depth slab: the whole grid's statistics, then the
+                # conv over the slab with its neighbours' boundary planes
+                a, b = spatial.gn_affine(x, gn.weight, gn.bias, 32, 1e-6)
+                if not drop:
+                    return ops.gn_silu_conv3d_halo(spatial.halo(x.contiguous(), 1, 1), a, b,
+                                                   kernel, conv.bias, sh.halo_sizes(1), dt,
+                                                   packed=conv.packed())
+                h = F.silu(x.float() * a[:, None, None, None] + b[:, None, None, None])
+                h = F.dropout(h.to(x.dtype), drop, training=True).to(dt)
+                return (ops.conv3d_depth_valid(spatial.pad_depth(h, 1, 1), kernel.to(dt))
+                        + conv.bias.to(dt))
             if drop:
                 # dropout between SiLU and the conv: the decomposed chain of
                 # the JAX package's _fused_body, the conv outside any kernel
                 h = F.dropout(ops.groupnorm_silu_reference(x, gn.weight, gn.bias, 32, 1e-6),
                               drop, training=True)
                 return ops.conv3d_same(h.to(dt), kernel.to(dt)) + conv.bias.to(dt)
-            if not self.kernels:
-                return ops.gn_silu_conv3d_reference(x, gn.weight, gn.bias, kernel, conv.bias,
-                                                    32, 1e-6, dt)
-            # the wrapper routes by device: the kernel on CUDA, which reads a
-            # contiguous x (under autograd a conv's output, the stem's or a
-            # downsample's, can come back in another layout)
-            op = ops.gn_silu_conv3d_autograd if grad else ops.gn_silu_conv3d
-            return op(x.contiguous(), gn.weight, gn.bias, kernel, conv.bias, 32, 1e-6, dt,
-                      packed=conv.packed())
-
-        def sharded_chain(x, gn, conv, kernel, drop):
-            # this rank's depth slab: the whole grid's statistics, then the conv
-            # over the slab with its neighbours' boundary planes
-            a, b = spatial.gn_affine(x, gn.weight, gn.bias, 32, 1e-6)
-            if drop:
-                h = F.silu(x.float() * a[:, None, None, None] + b[:, None, None, None])
-                h = F.dropout(h.to(x.dtype), drop, training=True).to(dt)
-                return (ops.conv3d_depth_valid(spatial.pad_depth(h, 1, 1), kernel.to(dt))
-                        + conv.bias.to(dt))
-            x_h, halo = spatial.halo(x.contiguous(), 1, 1), sh.halo_sizes(1)
-            if not self.kernels:
-                return ops.gn_silu_conv3d_halo_reference(x_h, a, b, kernel, conv.bias, halo, dt)
-            op = ops.gn_silu_conv3d_halo_autograd if grad else ops.gn_silu_conv3d_halo
-            return op(x_h, a, b, kernel, conv.bias, halo, dt, packed=conv.packed())
+            # the conv kernel reads a contiguous x (under autograd a conv's
+            # output, the stem's or a downsample's, can come back in another layout)
+            return ops.gn_silu_conv3d(x.contiguous(), gn.weight, gn.bias, kernel, conv.bias,
+                                      32, 1e-6, dt, packed=conv.packed())
 
         h = chain(x, self.GroupNorm_0, self.Conv_0)
         if temb is not None:
             t = _linear_in(F.silu(temb), self.Dense_0, dt)
             h = h + t[:, None, None, None, :].to(h.dtype)
         h = chain(h, self.GroupNorm_1, self.Conv_1, self.dropout if train else 0.0)
-        if self.in_ch != self.out_ch:
-            if self.kernels and not grad and sh is None:
-                # the shortcut and the residual sum in one kernel on CUDA
-                nin = self.NIN_0
-                return ops.nin_residual(x.contiguous(), nin.cast_weight(), nin.b, h, dt)
-            x = self.NIN_0(x)
-        return x + h
+        if self.in_ch == self.out_ch:
+            return x + h
+        nin = self.NIN_0
+        if sh is not None:
+            return nin(x) + h
+        # the live weight where autograd records it: cast_weight() is a detached copy
+        W = nin.W if grad and nin.W.requires_grad else nin.cast_weight()
+        return ops.nin_residual(x.contiguous(), W, nin.b, h, dt)
 
 
 class AttnBlock(nn.Module):

@@ -21,14 +21,15 @@ convs read their neighbours' planes (2 at res128's 5^3), and the output
 head normalises with the whole grid's statistics. The deepest level's
 depth, R / 2^(L-1), must split evenly over the slabs.
 
-``kernels`` routes the ResnetBlocks' GN->SiLU->conv chains and the output
-head's GroupNorm+SiLU through the hand-written kernels (on CUDA tensors);
-only a plain comparison turns it off.
+The output head's GroupNorm+SiLU is ``ops.groupnorm_silu``, which, as the
+ResnetBlocks' ops, takes its route by the rule of ``ops/_build.py`` (under
+autograd its plain version: the Triton apply has no backward);
+``ops.plain()`` makes every op of a forward take its plain version, which
+is how the plain comparisons on the card are built.
 
 ``forward(..., train=True)`` is the training forward, as the JAX package's
-``train`` argument: dropout in every ResnetBlock, the output head's
-GroupNorm+SiLU in its plain version (the Triton apply has no backward), and
-each ResnetBlock under ``torch.utils.checkpoint`` (its internals recomputed
+``train`` argument: dropout in every ResnetBlock and each ResnetBlock
+under ``torch.utils.checkpoint`` (its internals recomputed
 in the backward, the dropout mask too, from the saved RNG state): training
 at res64 needs it to fit a micro-batch. ``gpu.remat_blocks`` (the
 ``remat_blocks`` argument; the JAX package's ``tpu.remat_blocks``) False
@@ -66,8 +67,8 @@ class UNet3D(nn.Module):
                  conditional: bool = True, centered: bool = True, stem_kernel: int = 3,
                  use_coords: bool = True, scale_by_sigma: bool = False,
                  sigma_min: float = 0.01, sigma_max: float = 378.0, num_scales: int = 1000,
-                 dtype: torch.dtype = torch.float32, kernels: bool = True,
-                 dropout: float = 0.1, remat_blocks: bool = True):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 remat_blocks: bool = True):
         super().__init__()
         self.image_size, self.channels, self.nf = image_size, channels, nf
         self.ch_mult = tuple(ch_mult)
@@ -76,7 +77,7 @@ class UNet3D(nn.Module):
         self.conditional, self.centered = conditional, centered
         self.use_coords, self.scale_by_sigma = use_coords, scale_by_sigma
         self.sigma_min, self.sigma_max, self.num_scales = sigma_min, sigma_max, num_scales
-        self.dtype, self.kernels = dtype, kernels
+        self.dtype = dtype
         self.remat_blocks = remat_blocks
         dt, k = dtype, stem_kernel
         L = len(self.ch_mult)
@@ -84,8 +85,7 @@ class UNet3D(nn.Module):
         temb_dim = 4 * nf if conditional else None
 
         def resblock(cin, cout):
-            return layers.ResnetBlockDDPM(cin, cout, temb_dim, dtype=dt, kernels=kernels,
-                                          dropout=dropout)
+            return layers.ResnetBlockDDPM(cin, cout, temb_dim, dtype=dt, dropout=dropout)
 
         if use_coords:
             self.pos_layer = layers.Conv3D(3, nf, k, dtype=dt)
@@ -229,14 +229,10 @@ class UNet3D(nn.Module):
         assert not hs
 
         norm = next(mods)
-        # the GroupNorm + SiLU kernel is forward-only: under autograd (training,
-        # the likelihood's divergence) the head runs its plain version
-        head = (ops.groupnorm_silu if self.kernels and not (train or torch.is_grad_enabled())
-                else ops.groupnorm_silu_reference)
         if sh is not None:
             h = spatial.groupnorm(h, norm, silu=True)
         else:
-            h = head(h.contiguous(), norm.weight, norm.bias, 32, 1e-6)
+            h = ops.groupnorm_silu(h.contiguous(), norm.weight, norm.bias, 32, 1e-6)
         h = next(mods)(h).float()
 
         if self.scale_by_sigma:

@@ -12,30 +12,29 @@
 | :func:`nin_residual` | CUDA C++, sm_90a (wgmma) | none: the plain NIN shortcut + residual sum of ``meshdiffusion_tpu/models/layers.py:275-276`` |
 | :func:`dit_attention` | CUDA C++, sm_90a (wgmma, online softmax) | none: the DiT's multi-head attention (``models/dit3d.py``); the JAX package has no transformer |
 
-A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises. ``<wrapper>.launches`` counts kernel launches
+Every wrapper takes its route (its plain version, its kernel, or its
+kernel forward with the plain version's backward) by the one rule written
+in ``ops/_build.py``, where :func:`._build.kernel_wrapper` declares it;
+within :func:`plain` every wrapper runs its plain version.
+``<wrapper>.launches`` counts kernel launches
 (``gn_silu_conv3d.descriptor_launches`` and ``gn_silu_conv3d_halo``'s the
 launches of those whose A operand took the descriptor route), and each call,
-on either route, is an ``ops.<wrapper>`` span (``utils/trace.py``).
-:func:`gn_silu_conv3d_autograd` is the conv kernel under autograd: its
-forward is :func:`gn_silu_conv3d`, its backward the plain version's
-(:func:`gn_silu_conv3d_halo_autograd` and :func:`gn_moments_autograd` the
-same for the two modes that the spatially sharded U-Net runs).
+on any route, is an ``ops.<wrapper>`` span (``utils/trace.py``).
 Each kernel module also has a ``*_cost`` helper, the (FLOP, bytes) of a
 call, from which ``roofline.bound_ms`` gives the least time an H100 could
 take for it (the z-test's counts fp32 and ALU operations apart, and
 ``tile_zmin_bound_ms`` takes the busier pipe).
 """
 
+from ._build import KERNEL_WRAPPERS, plain  # noqa: F401
 from .dit_attention import (dit_attention, dit_attention_cost,  # noqa: F401
                             dit_attention_reference)
 from .gn_silu_conv import (conv3d_depth_valid, conv3d_same, gn_silu_conv3d,  # noqa: F401
-                           gn_silu_conv3d_autograd, gn_silu_conv3d_cost, gn_silu_conv3d_halo,
-                           gn_silu_conv3d_halo_autograd, gn_silu_conv3d_halo_reference,
-                           gn_silu_conv3d_reference,
+                           gn_silu_conv3d_cost, gn_silu_conv3d_halo,
+                           gn_silu_conv3d_halo_reference, gn_silu_conv3d_reference,
                            pack_conv_weights)
 from .groupnorm import (affine_from_moments, gn_affine, gn_affine_cost,  # noqa: F401
-                        gn_affine_reference, gn_moments, gn_moments_autograd, gn_moments_cost,
+                        gn_affine_reference, gn_moments, gn_moments_cost,
                         gn_moments_reference, groupnorm_reference, groupnorm_silu,
                         groupnorm_silu_cost, groupnorm_silu_reference, merge_moments)
 from .nin_residual import (nin_reference, nin_residual, nin_residual_cost,  # noqa: F401
@@ -44,9 +43,6 @@ from .sampler_step import (ancestral_update, ancestral_update_cost,  # noqa: F40
                            ancestral_update_reference)
 from .tile_zmin import (tile_zmin, tile_zmin_bound_ms, tile_zmin_cost,  # noqa: F401
                         tile_zmin_reference)
-
-KERNEL_WRAPPERS = (ancestral_update, gn_affine, groupnorm_silu, gn_silu_conv3d, tile_zmin,
-                   gn_silu_conv3d_halo, gn_moments, nin_residual, dit_attention)
 
 
 def reset_launch_counts() -> None:

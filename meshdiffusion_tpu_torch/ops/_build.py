@@ -13,21 +13,43 @@ as ``rebuild.nvcc`` (``utils/trace.py``); :func:`watch_triton_compiles`
 counts each Triton specialization compiled as ``rebuild.triton``.
 
 There is no prebuilt library and no fallback: without ``nvcc`` the build
-raises. :func:`use_kernel` routes each wrapper call by device: CPU tensors
-to the plain version, CUDA tensors to the kernel.
+raises.
+
+The route rule. Every kernel wrapper of ``ops`` is declared by
+:func:`kernel_wrapper`, which alone decides how a call runs: its plain
+version (``*_reference``, which takes the wrapper's own arguments), its
+kernel, or its kernel forward with the plain version's backward. In order:
+
+1. Gradient. Where autograd would record the call (grad mode on and some
+   tensor argument requires grad), the wrapper's declared backward
+   decides: :class:`PlainBackward` (the conv kernel in both its modes) runs
+   the call as routed below and differentiates the plain version,
+   recomputed, in the backward; ``gn_moments`` keeps its own exact
+   backward; a wrapper that declares none runs its plain version.
+2. Device (:func:`use_kernel`): CPU tensors to the plain version, CUDA
+   tensors to the kernel, anything else raises. Within :func:`plain` every
+   call takes the plain version: the plain comparisons on the card.
+
+Each call, on any route, is an ``ops.<wrapper>`` span (``utils/trace.py``);
+each wrapper counts its kernel launches in ``.launches``, and
+:data:`KERNEL_WRAPPERS` lists every wrapper declared.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 from ..utils import trace
 
@@ -185,7 +207,6 @@ H100_SMS = 132     # streaming multiprocessors of an H100 SXM: the plans' defaul
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``: what the kernels'
     launch plans size their grids by."""
-    import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -196,10 +217,29 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f'{what}: CUDA error {err}: {msg}')
 
 
+KERNEL_WRAPPERS = []      # every wrapper kernel_wrapper declared, in the order imported
+_plain = 0                # open plain() scopes
+
+
+@contextlib.contextmanager
+def plain():
+    """Within it, every kernel wrapper runs its plain version, whatever the
+    device. Process-wide, not thread-local: autograd's backward runs on
+    threads of its own and reruns the checkpointed blocks there."""
+    global _plain
+    _plain += 1
+    try:
+        yield
+    finally:
+        _plain -= 1
+
+
 def use_kernel(what: str, *tensors) -> bool:
-    """Route a wrapper call by device: False when every tensor lies on the
-    CPU (the caller runs its plain version), True when every tensor lies on
-    a CUDA device (the caller launches its kernel). Anything else raises."""
+    """Route a wrapper call by device: False within :func:`plain` or when
+    every tensor lies on the CPU (the plain version), True when every
+    tensor lies on a CUDA device (the kernel). Anything else raises."""
+    if _plain:
+        return False
     kinds = {t.device.type for t in tensors}
     if kinds == {'cpu'}:
         return False
@@ -207,3 +247,96 @@ def use_kernel(what: str, *tensors) -> bool:
         return True
     raise RuntimeError(f'{what}: tensors on {sorted(kinds)}; expected all on the CPU '
                        f'(plain version) or all on one CUDA device (kernel)')
+
+
+class PlainBackward(torch.autograd.Function):
+    """The kernel forward, the plain version's gradients (the JAX package's
+    ``custom_vjp`` of the conv, ``meshdiffusion_tpu/ops/gn_silu_conv.py``):
+    ``apply(forward, reference, *args)`` returns ``forward(*args)``, and
+    the backward recomputes ``reference(*args)`` from the saved inputs and
+    differentiates it, so the GroupNorm statistics' gradients are exact.
+    Only the gradients asked for are computed: the likelihood's divergence
+    needs x's alone, and then no weight gradient is."""
+
+    @staticmethod
+    def forward(ctx, forward, reference, *args):
+        ctx.reference = reference
+        ctx.tensor_at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        ctx.others = [None if isinstance(a, torch.Tensor) else a for a in args]
+        ctx.save_for_backward(*(args[i] for i in ctx.tensor_at))
+        return forward(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        args = list(ctx.others)
+        for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
+            args[i] = t.detach().requires_grad_(need[i])
+        with torch.enable_grad():
+            y = ctx.reference(*args)
+        wrt = [args[i] for i in ctx.tensor_at if need[i]]
+        grads = iter(torch.autograd.grad(y, wrt, g, allow_unused=True))
+        return (None, None, *(next(grads) if n else None for n in need))
+
+
+def kernel_wrapper(reference, backward=None):
+    """Declare the decorated function, a kernel's launch on CUDA tensors, a
+    kernel wrapper that follows the route rule (module docstring):
+    ``reference`` is its plain version, with the same parameters;
+    ``backward`` an autograd Function whose ``apply(forward, reference,
+    *args)`` gives the call's value and its gradients, ``forward`` the call
+    routed by device (:class:`PlainBackward`, or an exact backward of the
+    wrapper's own), or None: under autograd the plain version. A call routes
+    by the arguments of the parameters annotated as tensors (None left
+    out). The wrapper is an ``ops.<name>`` span, starts with ``.launches``
+    at 0 (the kernel's body counts its launches) and joins
+    :data:`KERNEL_WRAPPERS`."""
+    def declare(kernel):
+        name, span = kernel.__name__, 'ops.' + kernel.__name__
+        sig = inspect.signature(kernel)
+        params = list(sig.parameters)
+        if list(inspect.signature(reference).parameters) != params:
+            raise TypeError(f'{name}: its plain version takes other parameters')
+        tensors = [n for n, p in sig.parameters.items() if 'Tensor' in str(p.annotation)]
+        lead = 0                  # the leading parameters that are tensors
+        while lead < len(tensors) and params[lead] == tensors[lead]:
+            lead += 1
+        later = [(params.index(n), n) for n in tensors[lead:]]
+
+        def bound(args, kwargs):
+            b = sig.bind(*args, **kwargs)
+            b.apply_defaults()
+            return b
+
+        # bound once: every wrapper call reads them
+        recording, is_grad_enabled = trace._enabled, torch.is_grad_enabled
+
+        @functools.wraps(kernel)
+        def wrapper(*args, **kwargs):
+            rec = trace._open(span, None) if recording() else None
+            try:
+                if len(args) >= lead:
+                    ts = args[:lead]
+                    for i, n in later:
+                        t = args[i] if i < len(args) else kwargs.get(n)
+                        if t is not None:
+                            ts += (t,)
+                else:             # a leading tensor given by keyword
+                    a = bound(args, kwargs).arguments
+                    ts = tuple(a[n] for n in tensors if a[n] is not None)
+                if is_grad_enabled() and any(t.requires_grad for t in ts):
+                    if backward is None:
+                        return reference(*args, **kwargs)
+                    forward = kernel if use_kernel(name, *ts) else reference
+                    return backward.apply(forward, reference, *bound(args, kwargs).args)
+                if use_kernel(name, *ts):
+                    return kernel(*args, **kwargs)
+                return reference(*args, **kwargs)
+            finally:
+                if rec is not None:
+                    trace._close(rec)
+
+        wrapper.launches = 0
+        KERNEL_WRAPPERS.append(wrapper)
+        return wrapper
+    return declare

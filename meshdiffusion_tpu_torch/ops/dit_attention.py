@@ -27,10 +27,10 @@ operand of O += P V, wgmma m64n72k16 with V from shared memory (N-major,
 128-byte swizzle). O is divided by the row sum at the end and stored as
 bf16. Each block's sums are its own: reruns agree bit for bit.
 
-The wrapper runs the plain version (:func:`dit_attention_reference`) on
-CPU tensors; on CUDA tensors it launches the kernel (once a call) or
-raises, also when autograd would record the call. It counts its launches
-in ``dit_attention.launches``. The kernel takes a head dimension of 72
+The wrapper takes its route by the rule of ``ops/_build.py`` and declares
+no backward; its plain version is :func:`dit_attention_reference`. The
+kernel runs once a call; the wrapper counts its launches in
+``dit_attention.launches``. The kernel takes a head dimension of 72
 (DiT-XL's 1152 / 16) alone.
 """
 
@@ -40,9 +40,8 @@ from typing import Tuple
 
 import torch
 
-from ..utils import trace
 from . import _build
-from ._build import use_kernel
+from ._build import kernel_wrapper
 
 HEAD_DIMS = (72,)       # the head dimensions the kernel is built for
 
@@ -65,14 +64,12 @@ def dit_attention_cost(B: int, T: int, num_heads: int, head_dim: int) -> Tuple[f
     return 4.0 * B * num_heads * T * T * head_dim, 4.0 * B * T * D * 2
 
 
-@trace.span('ops.dit_attention')
+@kernel_wrapper(dit_attention_reference)
 def dit_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Multi-head attention of a qkv Linear's output (B, T, 3 D) with
     ``num_heads`` heads; returns (B, T, D). On CUDA tensors qkv is a
     contiguous, 16-byte aligned bf16 tensor, D / num_heads is in
-    :data:`HEAD_DIMS`, and nothing records a gradient."""
-    if not use_kernel('dit_attention', qkv):
-        return dit_attention_reference(qkv, num_heads)
+    :data:`HEAD_DIMS`."""
     if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f'dit_attention: qkv {tuple(qkv.shape)} is no (B, T, 3 D) '
                          f'of {num_heads} heads')
@@ -80,9 +77,6 @@ def dit_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     dh = D3 // (3 * num_heads)
     if dh not in HEAD_DIMS:
         raise ValueError(f'dit_attention: head dimension {dh}; the kernel takes {HEAD_DIMS}')
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise RuntimeError('dit_attention: the kernel has no backward; under autograd '
-                           'use dit_attention_reference')
     if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError('dit_attention: takes a contiguous, 16-byte aligned bf16 qkv')
     if B * T == 0:
@@ -95,6 +89,3 @@ def dit_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     _build.check(err, 'dit_attention')
     dit_attention.launches += 1
     return out
-
-
-dit_attention.launches = 0

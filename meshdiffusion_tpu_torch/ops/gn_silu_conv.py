@@ -28,26 +28,23 @@ On an H100 (700 W) the descriptor route runs (4, 64^3, 128) -> 128 in 1.45
 ms, 65 % of its bound, against the register route's 1.98 ms (47 %); both
 give the same bits.
 
-On a CPU tensor :func:`gn_silu_conv3d` runs the plain version
-(:func:`gn_silu_conv3d_reference`); on a CUDA tensor it launches the
-kernel or raises. It counts its launches in ``gn_silu_conv3d.launches``,
-and those on the descriptor route in ``gn_silu_conv3d.descriptor_launches``.
-The kernel computes in bfloat16 only, and only forward; called directly
-under autograd it raises. :func:`gn_silu_conv3d_autograd` is the
-differentiable op, the counterpart of the JAX package's ``custom_vjp``
-(``meshdiffusion_tpu/ops/gn_silu_conv.py:199-231``): the forward is the
-kernel, the backward recomputes through the plain version and
-differentiates that.
+:func:`gn_silu_conv3d` takes its route by the rule of ``ops/_build.py``;
+its plain version is :func:`gn_silu_conv3d_reference`, and its declared
+backward :class:`._build.PlainBackward` (the counterpart of the JAX
+package's ``custom_vjp``, ``meshdiffusion_tpu/ops/gn_silu_conv.py:199-231``):
+under autograd the kernel's forward, the plain version's gradients. It
+counts its launches in ``gn_silu_conv3d.launches``, and those on the
+descriptor route in ``gn_silu_conv3d.descriptor_launches``. The kernel
+computes in bfloat16 only.
 
 :func:`gn_silu_conv3d_halo` is the kernel's depth-halo mode, for a rank
 that holds one depth slab of the grid (``parallel/spatial.py``): it takes
 the whole grid's ``a, b`` (from the statistics' moments mode, merged over
 the ranks) in the place of the statistics pass, and a slab of D + lo + hi
 planes (its neighbours' boundary planes around it), and writes the slab's
-D planes, zero-padded only at the grid's ends. It counts its launches in
-``gn_silu_conv3d_halo.launches`` (and ``.descriptor_launches``);
-:func:`gn_silu_conv3d_halo_autograd` is its differentiable op, built as the
-one above.
+D planes, zero-padded only at the grid's ends. It routes as the one above
+and counts its launches in ``gn_silu_conv3d_halo.launches`` (and
+``.descriptor_launches``).
 """
 
 from __future__ import annotations
@@ -61,6 +58,7 @@ import torch.nn.functional as F
 
 from . import _build
 from ..utils import trace
+from ._build import PlainBackward, kernel_wrapper
 from .groupnorm import _gn_stats, groupnorm_silu_reference
 from .roofline import PEAK_BF16_FLOPS, bound_ms
 
@@ -82,10 +80,12 @@ def conv3d_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def gn_silu_conv3d_reference(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
-                             eps: float = 1e-6, dtype=torch.bfloat16) -> torch.Tensor:
+                             eps: float = 1e-6, dtype=torch.bfloat16,
+                             packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version (JAX oracle ``gn_silu_conv3d_reference``):
     GroupNorm (fp32 statistics) -> SiLU -> SAME 3^3 conv in ``dtype`` ->
-    + bias in ``dtype``. x (B, D, H, W, C); kernel (3, 3, 3, C, O)."""
+    + bias in ``dtype``. x (B, D, H, W, C); kernel (3, 3, 3, C, O).
+    ``packed``, the kernel's own layout of ``kernel``, is not read."""
     h = groupnorm_silu_reference(x, scale, bias, num_groups, eps)
     return conv3d_same(h.to(dtype), kernel.to(dtype)) + conv_bias.to(dtype)
 
@@ -100,12 +100,14 @@ def conv3d_depth_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def gn_silu_conv3d_halo_reference(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
-                                  dtype=torch.bfloat16) -> torch.Tensor:
+                                  dtype=torch.bfloat16, packed: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """Plain version of the depth-halo mode: ``silu(x_h * a + b)`` in fp32
     with the whole grid's per-(B, C) affine, in ``dtype``, zero-padded in D
     by (1 - lo, 1 - hi) (zeros only where the slab meets the grid's ends),
     then the 3^3 conv, VALID in D and SAME in H and W, + bias in ``dtype``.
-    x_h (B, D + lo + hi, H, W, C); output (B, D, H, W, O)."""
+    x_h (B, D + lo + hi, H, W, C); output (B, D, H, W, O). ``packed`` is
+    not read."""
     lo, hi = halo
     h = F.silu(x_h.float() * a[:, None, None, None, :] + b[:, None, None, None, :])
     h = F.pad(h.to(dtype), (0, 0, 0, 0, 0, 0, 1 - lo, 1 - hi))
@@ -237,25 +239,19 @@ def _scratch(device, stream: int, numel: int) -> torch.Tensor:
     return buf
 
 
-@trace.span('ops.gn_silu_conv3d')
-def gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
+@kernel_wrapper(gn_silu_conv3d_reference, PlainBackward)
+def gn_silu_conv3d(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   kernel: torch.Tensor, conv_bias: torch.Tensor, num_groups: int = 32,
                    eps: float = 1e-6, dtype=torch.bfloat16,
                    packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GroupNorm -> SiLU -> SAME 3^3 conv + bias. x (B, D, H, W, C) in fp32
     or bf16; kernel (3, 3, 3, C, O); output (B, D, H, W, O) in ``dtype``.
     ``packed``: the kernel as :func:`pack_conv_weights` lays it out (the
     U-Net's convs keep it between calls); packed here when not given."""
-    tensors = (x, scale, bias, kernel, conv_bias) + ((packed,) if packed is not None else ())
-    if not _build.use_kernel('gn_silu_conv3d', *tensors):
-        return gn_silu_conv3d_reference(x, scale, bias, kernel, conv_bias,
-                                        num_groups, eps, dtype)
     B, D, H, W, C = x.shape
     O = kernel.shape[-1]
     if dtype != torch.bfloat16:
         raise ValueError(f'the conv kernel computes in bfloat16, not {dtype}')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError('gn_silu_conv3d is forward-only on CUDA: call under '
-                           'torch.inference_mode() or torch.no_grad()')
     if kernel.shape != (3, 3, 3, C, O):
         raise ValueError(f'kernel {tuple(kernel.shape)} is not (3, 3, 3, {C}, O)')
     if C % num_groups:
@@ -278,8 +274,7 @@ def gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
     return out
 
 
-gn_silu_conv3d.launches = 0
-gn_silu_conv3d.descriptor_launches = 0     # of those, launches on the descriptor route
+gn_silu_conv3d.descriptor_launches = 0     # of its launches, those on the descriptor route
 
 
 def _launch(xb, a, b, packed, conv_bias, plan: ConvPlan, D: int, O: int,
@@ -310,8 +305,9 @@ def _check_packed(packed: Optional[torch.Tensor], kernel: torch.Tensor, C: int, 
     return packed
 
 
-@trace.span('ops.gn_silu_conv3d_halo')
-def gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
+@kernel_wrapper(gn_silu_conv3d_halo_reference, PlainBackward)
+def gn_silu_conv3d_halo(x_h: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        kernel: torch.Tensor, conv_bias: torch.Tensor, halo: Tuple[int, int],
                         dtype=torch.bfloat16, packed: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """The depth-halo mode: ``silu(x_h * a + b)`` then the 3^3 conv + bias
@@ -320,17 +316,11 @@ def gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
     after the slab's D taken from the neighbouring slabs (0 where the slab
     meets the grid's end); a, b (B, C) fp32, the whole grid's affine; kernel
     (3, 3, 3, C, O); output (B, D, H, W, O) in ``dtype``."""
-    tensors = (x_h, a, b, kernel, conv_bias) + ((packed,) if packed is not None else ())
-    if not _build.use_kernel('gn_silu_conv3d_halo', *tensors):
-        return gn_silu_conv3d_halo_reference(x_h, a, b, kernel, conv_bias, halo, dtype)
     lo, hi = halo
     B, Dh, H, W, C = x_h.shape
     O, D = kernel.shape[-1], Dh - lo - hi
     if dtype != torch.bfloat16:
         raise ValueError(f'the conv kernel computes in bfloat16, not {dtype}')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError('gn_silu_conv3d_halo is forward-only on CUDA: call under '
-                           'torch.inference_mode() or torch.no_grad()')
     if lo not in (0, 1) or hi not in (0, 1) or D < 1:
         raise ValueError(f'halo {halo} on {Dh} planes: lo and hi must be 0 or 1, D >= 1')
     if kernel.shape != (3, 3, 3, C, O):
@@ -353,71 +343,4 @@ def gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
     return out
 
 
-gn_silu_conv3d_halo.launches = 0
 gn_silu_conv3d_halo.descriptor_launches = 0
-
-
-class _GnSiluConv3d(torch.autograd.Function):
-    """The kernel forward, the plain composition's gradients (JAX ``_fwd``
-    and ``_bwd``): the backward recomputes GroupNorm -> SiLU -> conv from
-    the saved inputs and runs autograd through it, so the GroupNorm
-    statistics' gradients are exact."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, kernel, conv_bias, num_groups, eps, dtype, packed):
-        ctx.save_for_backward(x, scale, bias, kernel, conv_bias)
-        ctx.args = (num_groups, eps, dtype)
-        return gn_silu_conv3d(x, scale, bias, kernel, conv_bias, num_groups, eps, dtype,
-                              packed=packed)
-
-    @staticmethod
-    def backward(ctx, g):
-        # only the gradients asked for: the likelihood's divergence needs x's
-        # alone, and then no weight gradient is computed
-        need = ctx.needs_input_grad[:5]
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y = gn_silu_conv3d_reference(*inputs, *ctx.args)
-        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], g,
-                                         allow_unused=True))
-        return (*(next(grads) if n else None for n in need), None, None, None, None)
-
-
-def gn_silu_conv3d_autograd(x, scale, bias, kernel, conv_bias, num_groups: int = 32,
-                            eps: float = 1e-6, dtype=torch.bfloat16,
-                            packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`gn_silu_conv3d` with gradients for every tensor argument:
-    the forward launches the kernel (the plain version on the CPU), the
-    backward differentiates the plain version."""
-    return _GnSiluConv3d.apply(x, scale, bias, kernel, conv_bias, num_groups, eps, dtype, packed)
-
-
-class _GnSiluConv3dHalo(torch.autograd.Function):
-    """The halo mode's kernel forward, the gradients of its plain version
-    (as :class:`_GnSiluConv3d`): a and b get theirs, so the whole grid's
-    statistics carry the gradient back to every slab."""
-
-    @staticmethod
-    def forward(ctx, x_h, a, b, kernel, conv_bias, halo, dtype, packed):
-        ctx.save_for_backward(x_h, a, b, kernel, conv_bias)
-        ctx.args = (halo, dtype)
-        return gn_silu_conv3d_halo(x_h, a, b, kernel, conv_bias, halo, dtype, packed=packed)
-
-    @staticmethod
-    def backward(ctx, g):
-        need = ctx.needs_input_grad[:5]
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y = gn_silu_conv3d_halo_reference(*inputs, *ctx.args)
-        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], g,
-                                         allow_unused=True))
-        return (*(next(grads) if n else None for n in need), None, None, None)
-
-
-def gn_silu_conv3d_halo_autograd(x_h, a, b, kernel, conv_bias, halo: Tuple[int, int],
-                                 dtype=torch.bfloat16, packed: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
-    """:func:`gn_silu_conv3d_halo` with gradients for every tensor argument:
-    the forward launches the kernel (the plain version on the CPU), the
-    backward differentiates the plain version."""
-    return _GnSiluConv3dHalo.apply(x_h, a, b, kernel, conv_bias, halo, dtype, packed)

@@ -15,7 +15,8 @@ Replaces the TPU kernel ``meshdiffusion_tpu/ops/groupnorm.py``
   sharded U-Net (``parallel/spatial.py``): the slabs' moments are gathered,
   merged in rank order (:func:`merge_moments`, Chan's formula) and folded
   (:func:`affine_from_moments`, shared with the plain route) into the whole
-  grid's ``a, b``. :func:`gn_moments_autograd` gives them gradients.
+  grid's ``a, b``. Under autograd it keeps a backward of its own, exact
+  (:class:`_GnMoments`).
 
 What bounds them on the H100: both are memory-bound (the statistics read x
 once, the apply reads it again and writes the output); below 32^3 the
@@ -26,9 +27,10 @@ triples with Chan's formula, the last block to finish doing the final merge
 in a fixed order (see the note in ``csrc/gn_stats.cu``). Triton fits the
 apply: one elementwise pass.
 
-On a CPU tensor every wrapper runs its plain PyTorch version (``*_reference``,
-the spec, mirroring the JAX oracles); on a CUDA tensor it launches its
-kernel or raises. Each wrapper counts its launches in ``.launches``.
+Every wrapper takes its route by the rule of ``ops/_build.py``. Its plain
+PyTorch version (``*_reference``) is the spec, mirroring the JAX oracles.
+Only :func:`gn_moments` declares a backward. Each wrapper counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations  # kernel annotations stay strings until Triton reads them
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 
 from . import _build
 from ..utils import trace
-from ._build import use_kernel
+from ._build import kernel_wrapper
 
 # Bound at the first launch by _kernels(); the kernel bodies below read them
 # as module globals, so importing this module needs no Triton.
@@ -220,10 +222,6 @@ def _check(x: torch.Tensor, scale, bias, num_groups: int):
         raise ValueError(f'unsupported dtype {x.dtype}')
     if scale is not None and (scale.shape != (C,) or bias.shape != (C,)):
         raise ValueError(f'scale/bias must have shape ({C},)')
-    tensors = (x,) if scale is None else (x, scale, bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError('the GroupNorm kernels are forward-only: call under '
-                           'torch.inference_mode() or torch.no_grad()')
 
 
 def _stats_launch(x: torch.Tensor, num_groups: int, stream: int, outs, scale=None, bias=None,
@@ -263,46 +261,16 @@ def _gn_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_grou
     return a, b, xb
 
 
-@trace.span('ops.gn_affine')
+@kernel_wrapper(gn_affine_reference)
 def gn_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               num_groups: int = 32, eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(B, C) fp32 ``a, b`` with ``GroupNorm(x) = x*a + b``; x is
     channels-last (B, ..., C) in any float dtype. One launch of
     ``csrc/gn_stats.cu`` on CUDA, with a scratch workspace and ticket of
     the current stream's own."""
-    if not use_kernel('gn_affine', x, scale, bias):
-        return gn_affine_reference(x, scale, bias, num_groups, eps)
     with torch.cuda.device(x.device):
         a, b, _ = _gn_stats(x, scale, bias, num_groups, eps, torch.cuda.current_stream().cuda_stream)
     return a, b
-
-
-gn_affine.launches = 0
-
-
-@trace.span('ops.gn_moments')
-def gn_moments(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
-    """(B, G, 2) fp32 (mean, M2) of each (sample, group) of channels-last x:
-    the statistics kernel in its moments mode, one launch, on CUDA; the
-    plain version on the CPU."""
-    if not use_kernel('gn_moments', x):
-        return gn_moments_reference(x, num_groups)
-    out = torch.empty((x.shape[0], num_groups, 2), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        _stats_launch(x, num_groups, torch.cuda.current_stream().cuda_stream, None, moments=out)
-    gn_moments.launches += 1
-    return out
-
-
-gn_moments.launches = 0
-
-
-def gn_moments_cost(x_shape, x_dtype: torch.dtype, num_groups: int = 32) -> Tuple[float, float]:
-    """(FLOP, bytes) of one :func:`gn_moments` call: 3 fp32 operations an
-    element; x read once, the (B, G, 2) fp32 moments written once."""
-    n, B = math.prod(x_shape), x_shape[0]
-    esize = torch.empty((), dtype=x_dtype).element_size()
-    return 3.0 * n, float(n * esize + B * num_groups * 2 * 4)
 
 
 class _GnMoments(torch.autograd.Function):
@@ -310,8 +278,8 @@ class _GnMoments(torch.autograd.Function):
     = 1 / n and d M2 / dx = 2 (x - mean) over each (sample, group)."""
 
     @staticmethod
-    def forward(ctx, x, num_groups):
-        m = gn_moments(x, num_groups)
+    def forward(ctx, forward, reference, x, num_groups):
+        m = forward(x, num_groups)
         ctx.save_for_backward(x, m)
         ctx.num_groups = num_groups
         return m
@@ -325,20 +293,32 @@ class _GnMoments(torch.autograd.Function):
         n = xf.shape[1] * xf.shape[3]
         gx = (g[:, None, :, None, 0] / n
               + 2.0 * g[:, None, :, None, 1] * (xf - m[:, None, :, None, 0]))
-        return gx.reshape(x.shape).to(x.dtype), None
+        return None, None, gx.reshape(x.shape).to(x.dtype), None
 
 
-def gn_moments_autograd(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
-    """:func:`gn_moments` with x's gradient."""
-    return _GnMoments.apply(x, num_groups)
+@kernel_wrapper(gn_moments_reference, _GnMoments)
+def gn_moments(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """(B, G, 2) fp32 (mean, M2) of each (sample, group) of channels-last x:
+    the statistics kernel in its moments mode, one launch, on CUDA."""
+    out = torch.empty((x.shape[0], num_groups, 2), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        _stats_launch(x, num_groups, torch.cuda.current_stream().cuda_stream, None, moments=out)
+    gn_moments.launches += 1
+    return out
 
 
-@trace.span('ops.groupnorm_silu')
+def gn_moments_cost(x_shape, x_dtype: torch.dtype, num_groups: int = 32) -> Tuple[float, float]:
+    """(FLOP, bytes) of one :func:`gn_moments` call: 3 fp32 operations an
+    element; x read once, the (B, G, 2) fp32 moments written once."""
+    n, B = math.prod(x_shape), x_shape[0]
+    esize = torch.empty((), dtype=x_dtype).element_size()
+    return 3.0 * n, float(n * esize + B * num_groups * 2 * 4)
+
+
+@kernel_wrapper(groupnorm_silu_reference)
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm(num_groups) + SiLU over channels-last x; output in x's dtype."""
-    if not use_kernel('groupnorm_silu', x, scale, bias):
-        return groupnorm_silu_reference(x, scale, bias, num_groups, eps)
     a, b = gn_affine(x, scale, bias, num_groups, eps)     # checks x, scale and bias
     out = torch.empty_like(x)
     N = x.numel()
@@ -349,6 +329,3 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                                    BLOCK=BLOCK, num_warps=4)
     groupnorm_silu.launches += 1
     return out
-
-
-groupnorm_silu.launches = 0

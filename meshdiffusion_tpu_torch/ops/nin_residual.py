@@ -29,10 +29,10 @@ own, so reruns agree bit for bit. The products of two bf16 values are
 exact in fp32, so the result differs from the plain version only in the
 order of the sum over k.
 
-The wrapper runs the plain version (:func:`nin_residual_reference`) on CPU
-tensors, bit for bit the composition ``NIN(x) + h``; on CUDA tensors it
-launches the kernel (once a call) or raises, also when autograd would
-record the call. It counts its launches in ``nin_residual.launches``.
+The wrapper takes its route by the rule of ``ops/_build.py`` and declares
+no backward. Its plain version, :func:`nin_residual_reference`, is bit for
+bit the composition ``NIN(x) + h``. The kernel runs once a call; the
+wrapper counts its launches in ``nin_residual.launches``.
 """
 
 from __future__ import annotations
@@ -42,9 +42,8 @@ from typing import Tuple
 
 import torch
 
-from ..utils import trace
 from . import _build
-from ._build import use_kernel
+from ._build import kernel_wrapper
 
 
 def nin_reference(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
@@ -73,22 +72,17 @@ def nin_residual_cost(x_shape, x_dtype: torch.dtype, N: int) -> Tuple[float, flo
     return 2.0 * M * K * N, float(M * K * esize + K * N * 2 + N * 4 + M * N * 2 + M * N * 4)
 
 
-@trace.span('ops.nin_residual')
+@kernel_wrapper(nin_residual_reference)
 def nin_residual(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """``NIN(x) + h`` with the NIN's weight ``W`` (K, N) and bias ``b`` (N,):
     x (..., K) fp32 or bf16, h (..., N); returns fp32 (..., N). On CUDA
     tensors the operands are bf16 (``dtype``), W a contiguous bf16 (K, N),
-    b fp32 and h bf16, all contiguous, and nothing records a gradient."""
-    if not use_kernel('nin_residual', x, W, b, h):
-        return nin_residual_reference(x, W, b, h, dtype)
+    b fp32 and h bf16, all contiguous."""
     K, N = x.shape[-1], W.shape[-1]
     if W.shape != (K, N) or b.shape != (N,) or h.shape != x.shape[:-1] + (N,):
         raise ValueError(f'nin_residual: x {tuple(x.shape)}, W {tuple(W.shape)}, '
                          f'b {tuple(b.shape)} and h {tuple(h.shape)} do not agree')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, W, b, h)):
-        raise RuntimeError('nin_residual: the kernel has no backward; under autograd '
-                           'compose NIN(x) + h')
     if dtype != torch.bfloat16 or W.dtype != torch.bfloat16 or b.dtype != torch.float32 \
             or h.dtype != torch.bfloat16 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError('nin_residual: takes fp32 or bf16 x, bf16 W and h, fp32 b, '
@@ -108,6 +102,3 @@ def nin_residual(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, h: torch.Ten
     _build.check(err, 'nin_residual')
     nin_residual.launches += 1
     return out
-
-
-nin_residual.launches = 0

@@ -19,9 +19,9 @@ scalars, and ``rsqrt(1 - beta)`` is computed in fp32 as the Pallas kernel
 does (the JAX sampler's inline jnp uses a float64-built
 ``1/sqrt(1-beta)`` table instead: the two differ by about one fp32 ulp).
 
-On a CPU tensor the wrapper runs the plain version
-(:func:`ancestral_update_reference`); on a CUDA tensor it launches the
-kernel or raises. It counts its launches in ``ancestral_update.launches``.
+The wrapper takes its route by the rule of ``ops/_build.py`` and declares
+no backward; its plain version is :func:`ancestral_update_reference`. It
+counts its launches in ``ancestral_update.launches``.
 """
 
 from __future__ import annotations  # kernel annotations stay strings until Triton reads them
@@ -32,8 +32,7 @@ from typing import Tuple
 
 import torch
 
-from ..utils import trace
-from ._build import use_kernel, watch_triton_compiles
+from ._build import kernel_wrapper, watch_triton_compiles
 
 # Bound at the first launch by _kernel(); see ops/groupnorm.py.
 triton = tl = None
@@ -85,14 +84,12 @@ def _kernel():
     return triton.jit(_ancestral_kernel)
 
 
-@trace.span('ops.ancestral_update')
+@kernel_wrapper(ancestral_update_reference)
 def ancestral_update(x: torch.Tensor, eps_hat: torch.Tensor, mask: torch.Tensor,
                      noise: torch.Tensor, beta: float, std: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ancestral step; returns (x, x_mean). x, eps_hat, noise:
     (B, R, R, R, C) fp32; mask (1 or B, R, R, R, 1) fp32."""
-    if not use_kernel('ancestral_update', x, eps_hat, mask, noise):
-        return ancestral_update_reference(x, eps_hat, mask, noise, beta, std)
     B, C = x.shape[0], x.shape[-1]
     S = x.numel() // (B * C)
     if eps_hat.shape != x.shape or noise.shape != x.shape:
@@ -114,6 +111,3 @@ def ancestral_update(x: torch.Tensor, eps_hat: torch.Tensor, mask: torch.Tensor,
                                     float(beta), float(std), BLOCK=BLOCK, num_warps=4)
     ancestral_update.launches += 1
     return x_new, x_mean
-
-
-ancestral_update.launches = 0

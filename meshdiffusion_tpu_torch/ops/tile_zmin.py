@@ -39,11 +39,12 @@ Outputs: best_tri (L, N, TILE, TILE) int32, -1 where nothing was hit, and
 best_z (L, N, TILE, TILE) f32, 1e30 there. Tile n sits at pixel origin
 ((n % T) % ntx * TILE, (n % T) // ntx * TILE), ntx = ceil(W / TILE).
 
-On a CPU tensor :func:`tile_zmin` runs :func:`tile_zmin_reference`; on a
-CUDA tensor it launches ``csrc/tile_zmin.cu`` once for all layers or raises,
-and counts the launch in ``tile_zmin.launches``. Selection is not
-differentiable (the rasterizer re-derives barycentrics with autograd), so
-there is no backward.
+:func:`tile_zmin` takes its route by the rule of ``ops/_build.py``; its
+plain version is :func:`tile_zmin_reference`. The kernel,
+``csrc/tile_zmin.cu``, runs once for all layers, and the wrapper counts the
+launch in ``tile_zmin.launches``. Selection is not differentiable (the
+rasterizer re-derives barycentrics with autograd, and selects under
+``torch.no_grad``), so the wrapper declares no backward.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from ..utils import trace
+from ._build import kernel_wrapper
 from .roofline import PEAK_ALU_OPS, PEAK_FP32_UNFUSED_OPS, pipes_bound_ms
 
 TILE = 32
@@ -229,18 +230,13 @@ def tile_zmin_bound_ms(*args, **kwargs) -> Tuple[float, str]:
                           (fp32 + alu, PEAK_FP32_UNFUSED_OPS))
 
 
-@trace.span('ops.tile_zmin')
+@kernel_wrapper(tile_zmin_reference)
 def tile_zmin(coords: torch.Tensor, tile_tris: torch.Tensor, tile_counts: torch.Tensor,
               global_tris: torch.Tensor, global_count: torch.Tensor, res: Tuple[int, int],
               num_layers: int = 1, z_floor: Optional[torch.Tensor] = None):
     """Nearest candidate triangle at every pixel of every tile, for
     ``num_layers`` depth layers; see the module docstring. Returns
     (best_tri int32, best_z f32), each (num_layers, N, TILE, TILE)."""
-    tensors = (coords, tile_tris, tile_counts, global_tris, global_count) \
-        + (() if z_floor is None else (z_floor,))
-    if not _build.use_kernel('tile_zmin', *tensors):
-        return tile_zmin_reference(coords, tile_tris, tile_counts, global_tris, global_count,
-                                   res, num_layers, z_floor)
     H, W = res
     ntx, _, T = tile_grid(res)
     B, F, nine = coords.shape
@@ -280,6 +276,3 @@ def tile_zmin(coords: torch.Tensor, tile_tris: torch.Tensor, tile_counts: torch.
     _build.check(err, 'tile_zmin')
     tile_zmin.launches += 1
     return best_t, best_z
-
-
-tile_zmin.launches = 0

@@ -186,7 +186,7 @@ def gn_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """The whole grid's GroupNorm folded into per-(B, C) fp32 ``a, b``, from
     this rank's slab x: its moments (``ops.gn_moments``, the kernel on the
     card), gathered and merged in rank order, then folded; differentiable."""
-    m = gather(ops.gn_moments_autograd(x.contiguous(), num_groups))      # (S, B, G, 2)
+    m = gather(ops.gn_moments(x.contiguous(), num_groups))      # (S, B, G, 2)
     mean, m2, n = ops.merge_moments(m, x[0].numel() // num_groups)
     return ops.affine_from_moments(mean, m2, n, scale, bias, eps)
 

@@ -151,7 +151,7 @@ def test_gn_silu_conv3d_kernel_matches_plain(cuda, rng, shape, dtype, halo, rout
     ((1, 8, 8, 8, 384, 128), torch.float32),          # the up path's fp32 concat input
 ])
 def test_gn_silu_conv3d_autograd_matches_plain(cuda, rng, shape, dtype):
-    """The differentiable op (kernel forward, plain backward) against
+    """The conv under autograd (kernel forward, plain backward) against
     autograd through the plain composition: the forward at relative L2
     1e-2 (the kernel's bound), each gradient at relative L2 2e-2 (bf16
     operands; the backward recomputes through the same plain ops)."""
@@ -160,7 +160,7 @@ def test_gn_silu_conv3d_autograd_matches_plain(cuda, rng, shape, dtype):
         device=cuda).manual_seed(0))
     before = ops.gn_silu_conv3d.launches
     outs = []
-    for op in (ops.gn_silu_conv3d_autograd, ops.gn_silu_conv3d_reference):
+    for op in (ops.gn_silu_conv3d, ops.gn_silu_conv3d_reference):
         leaves = [args[0].to(dtype)] + args[1:]
         leaves = [t.clone().requires_grad_(True) for t in leaves]
         y = op(*leaves, 32, 1e-6, torch.bfloat16)
@@ -367,9 +367,14 @@ def test_nin_residual_kernel_matches_plain(cuda, B, r, K, N, dtype):
 
 @pytest.mark.cuda
 def test_nin_residual_raises_on_what_it_does_not_take(cuda):
+    """The kernel refuses what it does not take; under autograd the wrapper
+    launches nothing and gives its plain version's values."""
     x, w, b, h = _nin_inputs(cuda, (2, 4, 4, 4), 256, 128, torch.float32)
-    with pytest.raises(RuntimeError):          # under autograd
-        ops.nin_residual(x.clone().requires_grad_(True), w, b, h)
+    xg = x.clone().requires_grad_(True)
+    n0 = ops.nin_residual.launches
+    y = ops.nin_residual(xg, w, b, h)
+    assert ops.nin_residual.launches == n0 and y.requires_grad
+    assert torch.equal(y, ops.nin_residual_reference(xg, w, b, h))
     with torch.inference_mode():
         with pytest.raises(ValueError):        # non-contiguous x
             ops.nin_residual(x.transpose(1, 2), w, b, h)
@@ -444,9 +449,14 @@ def test_dit_attention_kernel_matches_plain(cuda, B, T, H):
 
 @pytest.mark.cuda
 def test_dit_attention_raises_on_what_it_does_not_take(cuda):
+    """The kernel refuses what it does not take; under autograd the wrapper
+    launches nothing and gives its plain version's values."""
     qkv = _qkv(cuda, 2, 256, 2)
-    with pytest.raises(RuntimeError):          # under autograd
-        ops.dit_attention(qkv.float().requires_grad_(True).to(torch.bfloat16), 2)
+    qg = qkv.float().requires_grad_(True).to(torch.bfloat16)
+    n0 = ops.dit_attention.launches
+    y = ops.dit_attention(qg, 2)
+    assert ops.dit_attention.launches == n0 and y.requires_grad
+    assert torch.equal(y, ops.dit_attention_reference(qg, 2))
     with torch.inference_mode():
         with pytest.raises(ValueError):        # head dimension 64
             ops.dit_attention(_qkv(cuda, 1, 256, 2, dh=64), 2)
@@ -497,3 +507,47 @@ def test_dit_forward_runs_every_attention_in_the_kernel(cuda):
     err = (y - y_plain).norm() / y_plain.norm()
     assert err <= 2e-2, err.item()
     trace.clear()
+
+
+@pytest.mark.cuda
+def test_routes_under_autograd_and_within_plain(cuda, rng):
+    """Under autograd the conv's two modes and gn_moments launch their
+    kernels (the forward; the backward is the plain version's or
+    gn_moments' own) and every wrapper without a backward launches nothing;
+    within ``ops.plain()`` no wrapper launches."""
+    x, sc, bi, k, cb = (_t(a).to(cuda) for a in _gsc_inputs(rng, 1, 4, 8, 8, 64, 64))
+    a, b = ops.gn_affine_reference(x, sc, bi)
+    xn, wn, bn, hn = _nin_inputs(cuda, (1, 4, 8, 8), 64, 128, torch.float32)
+    qkv = _qkv(cuda, 1, 64, 2).float()
+    xa, ea, ma, na, beta, std = _ancestral_inputs(rng, (1, 8, 8, 8, 4))
+    xa, ea, ma, na = (_t(v).to(cuda) for v in (xa, ea, ma, na))
+    coords = torch.tensor([[[2., 2., .1, 30., 4., .2, 5., 28., .3]]], device=cuda)
+    lists = [torch.tensor(v, dtype=torch.int32, device=cuda)
+             for v in ([[0, -1, -1, -1]], [1], [[-1]], [0])]
+    g = lambda t: t.clone().requires_grad_(True)
+    calls = {
+        'gn_silu_conv3d': lambda: ops.gn_silu_conv3d(g(x), sc, bi, k, cb),
+        'gn_silu_conv3d_halo': lambda: ops.gn_silu_conv3d_halo(g(x), a, b, k, cb, (1, 1)),
+        'gn_moments': lambda: ops.gn_moments(g(x)),
+        'gn_affine': lambda: ops.gn_affine(g(x), sc, bi),
+        'groupnorm_silu': lambda: ops.groupnorm_silu(g(x), sc, bi),
+        'nin_residual': lambda: ops.nin_residual(g(xn), wn, bn, hn),
+        'dit_attention': lambda: ops.dit_attention(g(qkv).to(torch.bfloat16), 2),
+        'ancestral_update': lambda: ops.ancestral_update(g(xa), ea, ma, na, beta, std),
+        'tile_zmin': lambda: ops.tile_zmin(g(coords), *lists, (32, 32)),
+    }
+    assert set(calls) == set(ops.launch_counts())
+    launching = {'gn_silu_conv3d': {'gn_silu_conv3d': 1, 'gn_affine': 1},
+                 'gn_silu_conv3d_halo': {'gn_silu_conv3d_halo': 1},
+                 'gn_moments': {'gn_moments': 1}}
+    for name, call in calls.items():
+        n0 = ops.launch_counts()
+        call()
+        torch.cuda.synchronize()
+        n = {w: c - n0[w] for w, c in ops.launch_counts().items() if c != n0[w]}
+        assert n == launching.get(name, {}), name
+    n0 = ops.launch_counts()
+    with torch.inference_mode(), ops.plain():
+        for call in calls.values():
+            call()
+    assert ops.launch_counts() == n0

@@ -149,8 +149,9 @@ def test_wrappers_route_by_device(rng):
 def test_nin_residual_plain_is_nin_plus_h(rng, monkeypatch, case, K, N, x_dtype):
     """On CPU tensors ``ops.nin_residual`` is the composition it replaces,
     ``NIN_0(x) + h``, bit for bit, at the main path's widths; a res64-width
-    ResnetBlock with a shortcut returns that composition of its own h (the
-    wrapper with no gradient, the composition itself under autograd)."""
+    ResnetBlock with a shortcut calls the wrapper once, with no gradient and
+    under autograd, and returns that composition of its own h, under
+    autograd with the NIN weight's gradient."""
     from meshdiffusion_tpu_torch.models.layers import NIN, ResnetBlockDDPM
     x = _t(rng.normal(size=(2, 4, 4, 4, K)).astype(np.float32)).to(x_dtype)
     if case == 'op':
@@ -172,11 +173,74 @@ def test_nin_residual_plain_is_nin_plus_h(rng, monkeypatch, case, K, N, x_dtype)
         seen.append(h)
         return real(x, W, b, h, dtype)
     monkeypatch.setattr(ops, 'nin_residual', rec)
-    with torch.set_grad_enabled(case == 'block_under_autograd'):
+    grad = case == 'block_under_autograd'
+    with torch.set_grad_enabled(grad):
         y = block(x, temb)
-    if case == 'block_under_autograd':
-        assert not seen and y.requires_grad
-        return
-    assert len(seen) == 1 and y.dtype == torch.float32 and torch.isfinite(y).all()
-    with torch.no_grad():
-        assert torch.equal(y, block.NIN_0(x) + seen[0])
+        assert len(seen) == 1 and y.dtype == torch.float32 and torch.isfinite(y).all()
+        assert torch.equal(y, block.NIN_0(x) + seen[0]) and y.requires_grad == grad
+    if grad:
+        y.sum().backward()
+        assert block.NIN_0.W.grad is not None and block.NIN_0.W.grad.abs().sum() > 0
+
+
+# ---- the route rule (ops/_build.py): every wrapper under autograd ----
+
+def _wrapper_args(name, g):
+    """Tiny arguments of each kernel wrapper, its float tensors random."""
+    r = lambda *shape: torch.randn(shape, generator=g)
+    if name == 'ancestral_update':
+        mask = (torch.rand((1, 4, 4, 4, 1), generator=g) > 0.3).float()
+        return r(2, 4, 4, 4, 3), r(2, 4, 4, 4, 3), mask, r(2, 4, 4, 4, 3), 0.0123, 0.87
+    if name in ('gn_affine', 'groupnorm_silu'):
+        return r(2, 2, 3, 4, 64), 1 + 0.1 * r(64), 0.1 * r(64)
+    if name == 'gn_moments':
+        return r(2, 2, 3, 4, 64), 32
+    if name == 'gn_silu_conv3d':
+        return (r(2, 2, 3, 4, 32), 1 + 0.1 * r(32), 0.1 * r(32), 0.05 * r(3, 3, 3, 32, 8),
+                0.1 * r(8), 32, 1e-6, torch.float32)
+    if name == 'gn_silu_conv3d_halo':
+        return (r(1, 4, 3, 4, 32), r(1, 32), r(1, 32), 0.05 * r(3, 3, 3, 32, 8), 0.1 * r(8),
+                (1, 1), torch.float32)
+    if name == 'nin_residual':
+        return r(2, 3, 4, 64), r(64, 128), r(128), r(2, 3, 4, 128)
+    if name == 'dit_attention':
+        return r(2, 5, 3 * 2 * 8), 2
+    assert name == 'tile_zmin', name
+    coords = torch.tensor([[[2., 2., .1, 30., 4., .2, 5., 28., .3],
+                            [0., 0., .5, 32., 0., .4, 0., 32., .6]]])
+    return (coords, torch.tensor([[0, 1, -1, -1]], dtype=torch.int32),
+            torch.tensor([2], dtype=torch.int32), torch.tensor([[1]], dtype=torch.int32),
+            torch.tensor([0], dtype=torch.int32), (32, 32))
+
+
+@pytest.mark.parametrize('fn', ops.KERNEL_WRAPPERS, ids=lambda fn: fn.__name__)
+def test_wrapper_under_autograd_is_its_plain_version(fn):
+    """Under autograd every wrapper gives its plain version's outputs and
+    input gradients, through the backward it declares: the conv's two modes
+    the plain version's recomputed (PlainBackward), gn_moments its own exact
+    one, every other wrapper the plain version itself."""
+    reference = getattr(ops, fn.__name__ + '_reference')
+    args = _wrapper_args(fn.__name__, torch.Generator().manual_seed(0))
+    n0 = ops.launch_counts()
+    got = []
+    for op in (fn, reference):
+        leaves = [a.clone().requires_grad_(True) if torch.is_tensor(a) and a.is_floating_point()
+                  else a for a in args]
+        outs = op(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = torch.Generator().manual_seed(1)
+        loss = sum((o * torch.randn(o.shape, generator=g)).sum() for o in outs if o.requires_grad)
+        wrt = [t for t in leaves if torch.is_tensor(t) and t.requires_grad]
+        got.append((outs, torch.autograd.grad(loss, wrt), outs[0].grad_fn))
+    (y1, g1, node), (y2, g2, _) = got
+    declared = {'gn_silu_conv3d': 'PlainBackwardBackward',
+                'gn_silu_conv3d_halo': 'PlainBackwardBackward',
+                'gn_moments': '_GnMomentsBackward'}.get(fn.__name__)
+    if declared:
+        assert type(node).__name__ == declared
+    for a, b in zip(y1, y2):
+        assert torch.equal(a, b)
+    assert len(g1) == len(g2) > 0
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert ops.launch_counts() == n0

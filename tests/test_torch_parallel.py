@@ -127,12 +127,12 @@ def test_moments_merge_matches_jax_gn_affine(S):
 
 
 def test_gn_moments_backward_is_exact():
-    """gn_moments_autograd's hand-written backward against autograd through
-    its plain version."""
+    """gn_moments' hand-written backward (its route under autograd) against
+    autograd through its plain version."""
     x = torch.from_numpy(_chain_inputs()['chain_x'][:, :4])
     g = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 32, 2)).astype(np.float32))
     grads = []
-    for fn in (ops.gn_moments_autograd, ops.gn_moments_reference):
+    for fn in (ops.gn_moments, ops.gn_moments_reference):
         xx = x.clone().requires_grad_(True)
         fn(xx, 32).backward(g)
         grads.append(xx.grad)

@@ -48,7 +48,7 @@ def _conv_calls(name: str):
     cfg = get_config(name)
     R = cfg.data.image_size
     with torch.device('meta'):
-        model = get_model(cfg.model.name).from_config(cfg, kernels=False)
+        model = get_model(cfg.model.name).from_config(cfg)
     calls = collections.Counter()
 
     def hook(mod, args):
@@ -59,7 +59,7 @@ def _conv_calls(name: str):
     for m in model.modules():
         if isinstance(m, ResnetBlockDDPM):
             m.register_forward_pre_hook(hook)
-    with torch.inference_mode():
+    with torch.inference_mode(), ops.plain():
         model(torch.empty((1, R, R, R, 4), device='meta'), torch.empty((1,), device='meta'),
               torch.empty((1, R, R, R, 1), device='meta'))
     return dict(calls)

@@ -151,7 +151,7 @@ def test_gn_silu_conv_function_matches_jax_vjp():
                      *map(jnp.asarray, args))
     want = vjp(jnp.asarray(g))
     targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
-    out = ops.gn_silu_conv3d_autograd(*targs, 32, 1e-6, torch.float32)
+    out = ops.gn_silu_conv3d(*targs, 32, 1e-6, torch.float32)
     out.backward(torch.from_numpy(g))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(y), **VAL)
     for name, t, w in zip(('x', 'scale', 'bias', 'kernel', 'conv_bias'), targs, want):
@@ -160,12 +160,14 @@ def test_gn_silu_conv_function_matches_jax_vjp():
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_gn_silu_conv_function_matches_plain_autograd(dtype):
-    """Its gradients equal autograd's through the plain composition, and a
-    permuted (non-contiguous) weight view gets its gradient too."""
+    """Its gradients (``ops.gn_silu_conv3d`` under autograd: the kernel
+    forward's route with the plain version's backward) equal autograd's
+    through the plain composition, and a permuted (non-contiguous) weight
+    view gets its gradient too."""
     args, g = _gsc_inputs(1, C=32, O=64)
     w = torch.from_numpy(np.ascontiguousarray(args[3].transpose(4, 3, 0, 1, 2)))
     outs = []
-    for op in (ops.gn_silu_conv3d_autograd, ops.gn_silu_conv3d_reference):
+    for op in (ops.gn_silu_conv3d, ops.gn_silu_conv3d_reference):
         x, sc, bi, cb = (torch.from_numpy(a).requires_grad_(True)
                          for a in (args[0], args[1], args[2], args[4]))
         wt = w.clone().requires_grad_(True)

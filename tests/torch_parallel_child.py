@@ -80,8 +80,8 @@ def main(work: str, rank: int, world: int, port: int) -> None:
         params = [torch.from_numpy(inp[n]).requires_grad_(True) for n in names]
         with spatial.sharded(m) as sh:
             a, b = spatial.gn_affine(x, params[0], params[1], 32, 1e-6)
-            y = ops.gn_silu_conv3d_halo_autograd(spatial.halo(x, 1, 1), a, b, params[2],
-                                                 params[3], sh.halo_sizes(1), torch.float32)
+            y = ops.gn_silu_conv3d_halo(spatial.halo(x, 1, 1), a, b, params[2], params[3],
+                                        sh.halo_sizes(1), torch.float32)
             y.backward(slab(inp['chain_g'], m))
         out['chain_' + key] = {'y': y.detach().numpy(), 'gx': x.grad.numpy(),
                                **{n: p.grad.numpy() for n, p in zip(names, params)}}
