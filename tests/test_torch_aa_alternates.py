@@ -23,6 +23,8 @@ import torch
 from meshdiffusion_tpu.render import rasterize as JR
 from meshdiffusion_tpu_torch.render import rasterize as R
 
+pytest_plugins = ('torch_rules',)
+
 RTOL, ATOL = 2e-4, 2e-5
 
 

@@ -29,6 +29,8 @@ from meshdiffusion_tpu_torch.utils.convert import from_jax_params
 
 from test_torch_unet import R, jax_params, tiny_configs
 
+pytest_plugins = ('torch_rules',)
+
 RTOL, ATOL = 2e-4, 2e-5
 
 

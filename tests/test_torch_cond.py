@@ -27,6 +27,8 @@ from test_torch_checkpoint import reference_pth
 from test_torch_samplers import jax_draws, replay
 from test_torch_singleview import ANGLE, ITERS, sv  # noqa: F401  (sv: the fixture)
 
+pytest_plugins = ('torch_rules',)
+
 
 def test_extract_visibility_matches_jax(sv):
     """vis and vis_rast of the frozen sphere state seen from the fixed

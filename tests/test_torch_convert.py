@@ -18,6 +18,8 @@ from meshdiffusion_tpu_torch.data import convert as PC
 from meshdiffusion_tpu_torch.data.dataset import ShapeNetDMTetDataset
 from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
 
+pytest_plugins = ('torch_rules',)
+
 
 def fitted_dict(tg, seed):
     rng = np.random.default_rng(seed)

@@ -15,6 +15,8 @@ import torch
 from meshdiffusion_tpu.utils import debug as JD
 from meshdiffusion_tpu_torch.utils import debug as D
 
+pytest_plugins = ('torch_rules',)
+
 
 @pytest.fixture
 def anomaly_off(monkeypatch):

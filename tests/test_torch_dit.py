@@ -25,16 +25,10 @@ from meshdiffusion_tpu_torch.models import create_model, get_model
 from meshdiffusion_tpu_torch.utils import trace
 from portbench.reference import dit as ref_dit
 
+pytest_plugins = ('torch_rules',)
+
 R, D, DEPTH, HEADS = 16, 48, 2, 4
 VAL = dict(rtol=2e-4, atol=2e-5)
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_config(dtype='float32', num_scales=1000, beta_max=20.0):
@@ -65,7 +59,7 @@ def _inputs(B=2, seed=0):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-def test_forward_matches_reference(dtype, one_thread):
+def test_forward_matches_reference(dtype):
     model, a, w = tiny_model(dtype)
     x, labels, mask = _inputs()
     with torch.no_grad():
@@ -124,7 +118,7 @@ def test_dit_initialisation_zeroes_the_modulation_and_output():
         assert not model(x, labels, mask[None, ..., None]).any()
 
 
-def test_uncond_gen_runs_the_dit(tmp_path, one_thread):
+def test_uncond_gen_runs_the_dit(tmp_path):
     """``evaler.uncond_gen`` with the tiny DiT (its own initialisation, a
     10-scale schedule) through the PC sampler: a finite, masked sample."""
     from meshdiffusion_tpu_torch.diffusion import evaler
@@ -140,7 +134,7 @@ def test_uncond_gen_runs_the_dit(tmp_path, one_thread):
     assert not out[:, :, 0].any() and out[:, :, 1:].any()
 
 
-def test_training_step_through_losses(one_thread):
+def test_training_step_through_losses():
     """One step of ``losses.make_train_step`` (``train=True``: the plain
     attention, under autograd), no warm-up: a finite loss and gradient
     norm, and every parameter moved."""

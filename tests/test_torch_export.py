@@ -40,18 +40,10 @@ from meshdiffusion_tpu_torch.render import utils as U
 from meshdiffusion_tpu_torch.render.render import render_uv
 from meshdiffusion_tpu_torch.utils.convert import mlp_texture_state_from_jax
 
+pytest_plugins = ('torch_rules',)
+
 RTOL, ATOL = 2e-4, 2e-5
 RES = (64, 64)
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for a test's torch work (many small ops crawl
-    when every test worker's thread pool spins on the same cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -187,7 +179,7 @@ def _agreeing(got_ids, want_ids, pm, res):
     return got_ids == want_ids
 
 
-def test_render_uv_matches_jax(meshes, material, jax_tile_kernel, one_thread):
+def test_render_uv_matches_jax(meshes, material, jax_tile_kernel):
     """The UV-space bake of the blob at 128^2 (where JAX's first binning
     drops nothing), every candidate tied at z = 0: the texel -> triangle
     choice equal to JAX's except where a texel centre lies on a triangle
@@ -210,7 +202,7 @@ def test_render_uv_matches_jax(meshes, material, jax_tile_kernel, one_thread):
                                    err_msg=what)
 
 
-def test_render_uv_drops_nothing(meshes, material, one_thread):
+def test_render_uv_drops_nothing(meshes, material):
     """The blob's atlas at 64^2 overflows the first binning (K 256; the
     JAX package keeps that binning and drops triangles): the port's bake
     regrows it and covers every texel a binning at K 1024 covers."""
@@ -228,8 +220,7 @@ def test_render_uv_drops_nothing(meshes, material, one_thread):
     np.testing.assert_array_equal(mask[..., 0].numpy(), ample.valid.float().numpy())
 
 
-def test_export_baked_matches_jax(meshes, material, jax_tile_kernel, tmp_path, monkeypatch,
-                                  one_thread):
+def test_export_baked_matches_jax(meshes, material, jax_tile_kernel, tmp_path, monkeypatch):
     """export_baked of the sphere at 64^2: the .obj's positions, texture
     coordinates and faces equal JAX's, its normals to fp32 tolerance; the
     .mtl's lines; the ks and normal maps within one 8-bit step of JAX's,

@@ -22,18 +22,9 @@ from meshdiffusion_tpu_torch.geometry.obj_io import read_obj
 from meshdiffusion_tpu_torch.geometry.smoothing import laplacian_smooth
 from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
 
+pytest_plugins = ('torch_rules',)
+
 R = 64
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for a test's torch work: these renders run many
-    small ops, which crawl when every test worker's thread pool spins on
-    the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def sphere_grid(rng):
@@ -139,7 +130,7 @@ def _tiny_mesh(tiny_tet_grid):
     return np.asarray(v, np.float32), np.asarray(f, np.int64)
 
 
-def test_render_viz_matches_jax(tiny_tet_grid, tmp_path, monkeypatch, one_thread):
+def test_render_viz_matches_jax(tiny_tet_grid, tmp_path, monkeypatch):
     """The sanity render of one mesh at 64^2: the triangle-id image of its
     camera exactly equal (each package's rasterize_select), the visible
     triangle set exact, ``shaded`` and the image handed to the PNG writer at
@@ -206,7 +197,7 @@ def test_save_image_same_bytes(tmp_path):
         assert a == b and a.startswith(b'\x89PNG')
 
 
-def test_render_viz_grows_capacities_until_nothing_drops(tmp_path, caplog, one_thread):
+def test_render_viz_grows_capacities_until_nothing_drops(tmp_path, caplog):
     """A mesh denser than the first render's capacities (a marched sphere of
     ~1,900 faces in the four 32x32 tiles of a 64^2 image, past raster_K
     256): the sanity render is redone with grown capacities, ends with no

@@ -37,6 +37,8 @@ from meshdiffusion_tpu_torch.render import light as PLight
 from meshdiffusion_tpu_torch.render import mesh as PM
 from meshdiffusion_tpu_torch.utils.convert import fit_state_from_jax
 
+pytest_plugins = ('torch_rules',)
+
 RTOL, ATOL = 2e-4, 2e-5
 RES, BATCH, ITERS = (48, 48), 2, 500
 

@@ -18,6 +18,8 @@ import torch
 import chip_smoke
 from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
 
+pytest_plugins = ('torch_rules',)
+
 
 @pytest.mark.slow
 @pytest.mark.parametrize('impl', chip_smoke.AA_IMPLS)

@@ -16,6 +16,8 @@ import sys
 import numpy as np
 import torch
 
+pytest_plugins = ('torch_rules',)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_collections', 'meshdiffusion_tpu')
 
@@ -311,7 +313,7 @@ def test_two_rank_train_cli_runs_without_jax(tmp_path):
         port = sock.getsockname()[1]
     procs = []
     for rank in range(2):
-        env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS='1',
+        env = dict(os.environ, PYTHONPATH=str(REPO),
                    MESHDIFFUSION_COORDINATOR=f'localhost:{port}', MESHDIFFUSION_NUM_PROCESSES='2',
                    MESHDIFFUSION_PROCESS_ID=str(rank))
         procs.append(subprocess.Popen([sys.executable, '-c', _DIST_TRAIN_CHILD, str(tmp_path)],

@@ -26,16 +26,7 @@ from meshdiffusion_tpu_torch.utils.convert import from_jax_params
 
 from test_torch_unet import R, jax_params, tiny_configs
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread for the port's side: the test workers share the
-    machine's cores, and a thread pool in every worker spinning on the
-    same cores slows them all."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytest_plugins = ('torch_rules',)
 
 
 def test_drift_and_divergence_match_jax():

@@ -23,6 +23,8 @@ from meshdiffusion_tpu_torch.models import up_or_down_sampling as U
 from meshdiffusion_tpu_torch.utils.convert import (ncsn_block_state_from_jax,
                                                    normalization_state_from_jax)
 
+pytest_plugins = ('torch_rules',)
+
 RTOL, ATOL = 2e-4, 2e-5
 
 

@@ -19,6 +19,8 @@ from meshdiffusion_tpu.ops.gn_silu_conv import (_gn_affine as jax_gn_affine,
 from meshdiffusion_tpu_torch import ops
 from meshdiffusion_tpu_torch.ops.gn_silu_conv import _plan
 
+pytest_plugins = ('torch_rules',)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -8,8 +8,8 @@ nf 32, ch_mult (1, 2), one block a level, attention at 4^3, dropout 0):
   devices), the moments merge and fold (against JAX's ``_gn_affine`` on the
   whole tensor), the halo conv's plain version on hand-cut slabs (against
   JAX's ``gn_silu_conv3d_reference``);
-* one spawned job of 4 gloo ranks (``tests/torch_parallel_child.py``, one
-  torch thread each) holding the (2, 2) and (1, 4) meshes: the halo
+* one spawned job of 4 gloo ranks (``tests/torch_parallel_child.py``, each
+  on the worker's thread share) holding the (2, 2) and (1, 4) meshes: the halo
   exchange forward and backward against an unsharded autograd, the sharded
   GN -> SiLU -> conv chain against JAX's ``custom_vjp``, the sharded U-Net
   forward (one plane a slab on level 1 at (1, 4)) against JAX's apply and
@@ -48,6 +48,8 @@ from meshdiffusion_tpu_torch.parallel import make_mesh, shard_batch
 from meshdiffusion_tpu_torch.parallel.distributed import process_local_batch_size
 from meshdiffusion_tpu_torch.utils.convert import from_jax_params
 from test_torch_train import GRAD, VAL, _adam_state, configs, jax_draws, jax_params
+
+pytest_plugins = ('torch_rules',)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CHILD = REPO / 'tests' / 'torch_parallel_child.py'
@@ -226,7 +228,7 @@ def job(tmp_path_factory):
              unet_x=ux, unet_t=ut, mask=umask, train_x=tx, train_mask=tmask, train_t=tl,
              train_noise=tn, **_chain_inputs())
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS='1')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     procs = [subprocess.Popen([sys.executable, str(CHILD), str(work), str(r), str(WORLD),
                                str(port)], cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(WORLD)]

@@ -15,6 +15,8 @@ import sys
 import numpy as np
 import pytest
 
+pytest_plugins = ('torch_rules',)
+
 REFERENCE = '/root/reference'
 pytestmark = pytest.mark.skipif(not os.path.isdir(REFERENCE),
                                 reason='reference repo not mounted')

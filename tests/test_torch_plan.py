@@ -38,6 +38,8 @@ from meshdiffusion_tpu_torch.ops.groupnorm import _gn_plan
 from meshdiffusion_tpu_torch.ops.roofline import (PEAK_ALU_OPS, PEAK_BF16_FLOPS,
                                                   PEAK_FP32_UNFUSED_OPS, bound_ms)
 
+pytest_plugins = ('torch_rules',)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 

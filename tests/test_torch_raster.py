@@ -28,6 +28,8 @@ from meshdiffusion_tpu.render import rasterize as JR
 from meshdiffusion_tpu_torch.ops import tile_zmin
 from meshdiffusion_tpu_torch.render import rasterize as R
 
+pytest_plugins = ('torch_rules',)
+
 Z_ATOL = 2e-6     # FMA (XLA) against op-by-op rounding (port), see above
 
 

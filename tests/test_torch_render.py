@@ -29,6 +29,8 @@ from meshdiffusion_tpu_torch.render import ops as O
 from meshdiffusion_tpu_torch.render import utils as U
 from meshdiffusion_tpu_torch.render.render import render_mesh
 
+pytest_plugins = ('torch_rules',)
+
 RTOL, ATOL = 2e-4, 2e-5
 
 

@@ -21,7 +21,6 @@ another order), past fp32's atol 2e-5."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from meshdiffusion_tpu.config import get_config as jax_get_config
@@ -40,18 +39,9 @@ from meshdiffusion_tpu_torch.utils.checkpoint import EMA, save_checkpoint
 
 from test_torch_sampler import replayed_jax_noise
 
+pytest_plugins = ('torch_rules',)
+
 R, NF, STEPS = 32, 32, 2
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread for the port's side: the test workers share the
-    machine's cores, and a thread pool in every worker spinning on the
-    same cores slows them all."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_res128(cfg, ckpt):

@@ -17,6 +17,8 @@ from meshdiffusion_tpu_torch.utils.convert import from_jax_params
 
 from test_torch_unet import R, jax_params, tiny_configs
 
+pytest_plugins = ('torch_rules',)
+
 
 def replayed_jax_noise(seed, shape, n_steps):
     """The normals the JAX uncond sampler draws: one split for the prior

@@ -48,6 +48,8 @@ from meshdiffusion_tpu_torch.utils.convert import fit_state_from_jax
 
 from test_torch_fit import _close_grad, _t, jax_tick_draws, replay
 
+pytest_plugins = ('torch_rules',)
+
 RTOL = 2e-4
 RES, ITERS, ANGLE = (48, 48), 500, 10
 

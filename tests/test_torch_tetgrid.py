@@ -17,6 +17,8 @@ from meshdiffusion_tpu_torch.geometry import generate_tets as PG
 from meshdiffusion_tpu_torch.geometry import tet_grid as PT
 from meshdiffusion_tpu_torch.geometry.tet_grid import TetGrid
 
+pytest_plugins = ('torch_rules',)
+
 FIELDS = ('verts', 'indices', 'unique_edges', 'tet_edge_to_unique', 'vert_grid_coords')
 
 

@@ -49,6 +49,8 @@ from meshdiffusion_tpu_torch.render import texture as T
 from meshdiffusion_tpu_torch.render import utils as U
 from meshdiffusion_tpu_torch.utils.convert import mlp_texture_state_from_jax
 
+pytest_plugins = ('torch_rules',)
+
 RTOL, ATOL = 2e-4, 2e-5
 
 
@@ -65,16 +67,6 @@ def _close_grad(got, want):
     want = np.asarray(want)
     assert np.abs(want).max() > 0
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=2e-4 * np.abs(want).max())
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for a test's torch work (many small ops crawl
-    when every test worker's thread pool spins on the same cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class AnyRankLight(JL.EnvironmentLight):
@@ -181,7 +173,7 @@ def jax_material():
     return (aabb,) + material_pair(aabb, 1)
 
 
-def test_mlp_texture_forward_and_grads_match_jax(rng, jax_material, one_thread):
+def test_mlp_texture_forward_and_grads_match_jax(rng, jax_material):
     """MLPTexture3D forward (aabb normalization, clip, encoder, ReLU MLP,
     sigmoid into min_max) on 2500 points including the box's corners and
     points outside it, and the gradients of a weighted sum to the table
@@ -599,7 +591,7 @@ def _cameras(n, seed=0, res=(48, 48)):
     return mvp, campos
 
 
-def test_neural_material_render_matches_jax(sphere, small_hash, one_thread):
+def test_neural_material_render_matches_jax(sphere, small_hash):
     """render_mesh of a 2-view batch with the kd_ks_normal material (the
     hash grid of ``small_hash``, every level N(0, 0.3^2)), the jitter's
     normal draws JAX's (jax.random.normal of each view's key, one draw a
@@ -640,7 +632,7 @@ def test_neural_material_render_matches_jax(sphere, small_hash, one_thread):
 
 
 @pytest.mark.parametrize('pool', [0, 2])
-def test_random_lgt_targets_match_jax(sphere, pool, one_thread):
+def test_random_lgt_targets_match_jax(sphere, pool):
     """``random_lgt`` targets: each batch's cameras and then its light
     rotation drawn from the numpy Generator in JAX's order (equal), and the
     GT rendered under the rotated light (JAX's shading through
@@ -670,7 +662,7 @@ def test_random_lgt_targets_match_jax(sphere, pool, one_thread):
     assert jrng.integers(1 << 30) == prng.integers(1 << 30)      # the same draws taken
 
 
-def test_validate_matches_jax(sphere, tmp_path, monkeypatch, one_thread):
+def test_validate_matches_jax(sphere, tmp_path, monkeypatch):
     """validate's metrics.txt (per-view MSE and PSNR of the sRGB renders,
     and the averages) and its PNGs, 3 views at 48^2, the fit's candidate a
     noisy sphere against the GT sphere."""

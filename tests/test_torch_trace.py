@@ -16,6 +16,8 @@ from meshdiffusion_tpu_torch.models.unet3d import UNet3D
 from meshdiffusion_tpu_torch.ops import gn_silu_conv
 from meshdiffusion_tpu_torch.utils import trace
 
+pytest_plugins = ('torch_rules',)
+
 R = 8
 
 

@@ -33,6 +33,8 @@ from meshdiffusion_tpu_torch.diffusion.vpsde import VPSDE
 from meshdiffusion_tpu_torch.models import create_model, layers
 from meshdiffusion_tpu_torch.utils.convert import from_jax_params
 
+pytest_plugins = ('torch_rules',)
+
 R, MICRO = 8, 2
 VAL = dict(rtol=2e-4, atol=2e-5)
 GRAD = dict(rtol=1e-3, atol=1e-6)

@@ -38,6 +38,8 @@ from meshdiffusion_tpu_torch.native import NativeGridLoader, native_available
 from meshdiffusion_tpu_torch.utils.checkpoint import load_eval_weights
 from meshdiffusion_tpu_torch.utils.convert import from_jax_params
 
+pytest_plugins = ('torch_rules',)
+
 R = 8
 
 

@@ -21,6 +21,8 @@ from meshdiffusion_tpu_torch.config import get_config, apply_overrides
 from meshdiffusion_tpu_torch.models import create_model
 from meshdiffusion_tpu_torch.utils.convert import from_jax_params
 
+pytest_plugins = ('torch_rules',)
+
 R = 16
 
 

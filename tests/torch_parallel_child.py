@@ -50,7 +50,6 @@ def slab(a, mesh, batch_dim=0):
 
 
 def main(work: str, rank: int, world: int, port: int) -> None:
-    torch.set_num_threads(1)
     import torch.distributed as dist
     from meshdiffusion_tpu_torch import ops
     from meshdiffusion_tpu_torch.diffusion import losses as PL
