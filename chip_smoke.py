@@ -207,7 +207,7 @@ under each. Phases, in order:
     AA ablation's arms (tools/aa_ablation.py: 150
     iterations at 64^2, AA on and off) with chamfer and 4-pose PSNR beside
     the JAX package's recorded numbers; numbers to ``DIR/aa_gate.json``;
-24b. the DiT-XL/4 preset (``dit3d_xl4_res64``), last, since its large
+24b. the DiT-XL/4 preset (``dit3d_xl4_res64``), after 24, since its large
     temporaries would leave the allocator's cache fragmented for the ranks
     of 22-23: its attention kernel against the plain version at batch 4
     and 1 (4096 tokens, 16 heads of 72), with
@@ -215,6 +215,15 @@ under each. Phases, in order:
     a full-width forward's 28 launches and the kernel's device time a
     forward; ``main --config dit3d_xl4_res64 --mode uncond_gen`` 9 steps,
     launches counted;
+24c. the DiT-MoE-XL/4 preset (``dit3d_moe_xl4_res64``), after 24b: its
+    routed-expert kernels (``ops.moe_experts``) against the plain version
+    at the cell's shapes (32,768 rows of batch 4 top 2 over 8 experts, D
+    1152, F 4608) under the softmax's own routing, a skewed one and one
+    that leaves six experts empty, with the per-expert loop of cuBLAS
+    products timed beside it as ``library_ms``; a full-width forward's 56
+    expert and 28 attention launches and the experts' device time a
+    forward; ``main --config dit3d_moe_xl4_res64 --mode uncond_gen`` 9
+    steps, launches counted;
 25. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
@@ -296,6 +305,7 @@ _KERNEL_NAMES = {
     'tile_zmin': ('tile_zmin_kernel',),
     'nin_residual': ('nin_residual_kernel',),
     'dit_attention': ('dit_attention_kernel',),
+    'moe_experts': ('moe_gate_up_kernel', 'moe_down_kernel'),
 }
 
 
@@ -717,6 +727,151 @@ def dit_run(port_main, dev, g, record, per_shape) -> dict:
               f'launches {launches}')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'device_ms_per_forward': fwd_dms}
+
+
+MOE_SHAPE = (16384, 8, 2, 1152, 4608)   # phase 24c: tokens (batch 4), E, k, D, F
+
+
+def moe_case(dev, g, routing: str, shape=MOE_SHAPE):
+    """(tokens, packed bf16 weights, order, offsets, routing weights, top k
+    ids) at ``shape`` (N, E, k, D, F), drawn from ``g``: ``cell`` the
+    softmax's top k of random logits; ``skewed`` every token's first slot
+    on expert 3 and its second on expert 0 or 1; ``empty`` every pair on
+    experts 0 and E - 1, the others without a row."""
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.models.moe import route
+    N, E, k, D, F = shape
+    x = torch.randn((N, D), device=dev, generator=g).to(torch.bfloat16)
+    gate, up = (torch.randn((E, F, D), device=dev, generator=g) * D ** -0.5 for _ in range(2))
+    w_gu = ops.pack_gate_up(gate, up).to(torch.bfloat16)
+    del gate, up
+    w_down = (torch.randn((E, D, F), device=dev, generator=g) * F ** -0.5).to(torch.bfloat16)
+    logits = torch.randn((N, E), device=dev, generator=g)
+    if routing == 'skewed':
+        logits[:, 3] += 100.0
+        logits[:, :2] += 50.0
+    elif routing == 'empty':
+        logits[:, [0, E - 1]] += 100.0
+    p, top, order, offsets = route(logits, k)
+    return x, w_gu, w_down, order, offsets, p.reshape(-1).contiguous(), top
+
+
+def moe_cublas_loop(x, w_gu, w_down, order, bounds, weights, k):
+    """The per-expert loop of cuBLAS bf16 products that ``ops.moe_experts``
+    replaces, the partition already on the host: gather, gate/up, SwiGLU,
+    down, weight, scatter to pair order."""
+    import torch
+    import torch.nn.functional as F
+    out = torch.empty((order.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    for e in range(w_gu.shape[0]):
+        rows = order[bounds[e]:bounds[e + 1]].long()
+        if not rows.numel():
+            continue
+        gu = F.linear(x.index_select(0, rows // k), w_gu[e]).view(rows.shape[0], -1, 2, 64)
+        h = (F.silu(gu[:, :, 0].float()) * gu[:, :, 1].float()).to(x.dtype).flatten(1)
+        out[rows] = F.linear(h, w_down[e]).float() * weights[rows, None]
+    return out
+
+
+def moe_run(port_main, dev, g, record, per_shape) -> dict:
+    """Phase 24c: the DiT-MoE-XL/4 preset (``dit3d_moe_xl4_res64``). Its
+    routed-expert kernels against the plain version at MOE_SHAPE under
+    each routing of :func:`moe_case`: relative L2 within 1e-3, two
+    launches a call, bit-equal reruns, CUDA-event, device and plain times,
+    the bound of ``moe_experts_cost``, and as ``library_ms`` the per-expert
+    cuBLAS loop (timed beside it, never called by the port); a full-width
+    forward at batch 1 (seeded weights, bf16), with 56 expert and 28
+    attention launches and the experts' device time a forward; then ``main
+    --config dit3d_moe_xl4_res64 --mode uncond_gen`` (num_scales 10,
+    beta_max 2.0, batch 1), its counts zeroed just before it. Returns
+    {'launches', 'device_ms_per_forward'}."""
+    import numpy as np
+    import torch
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.ops.roofline import PEAK_BF16_FLOPS, bound_ms
+    N, E, k, D, F = MOE_SHAPE
+    cost = ops.moe_experts_cost(N * k, D, F, E)
+    bnd, by = bound_ms(sum(c[0] for c in cost.values()), sum(c[1] for c in cost.values()),
+                       PEAK_BF16_FLOPS)
+    with torch.inference_mode():
+        for routing in ('cell', 'skewed', 'empty'):
+            x, w_gu, w_down, order, offsets, wts, _ = moe_case(dev, g, routing)
+            counts = torch.diff(offsets).tolist()
+            n0 = ops.moe_experts.launches
+            y = ops.moe_experts(x, w_gu, w_down, order, offsets, wts, k)
+            assert ops.moe_experts.launches == n0 + 2
+            y2 = ops.moe_experts(x, w_gu, w_down, order, offsets, wts, k)
+            ref = ops.moe_experts_reference(x, w_gu, w_down, order, offsets, wts, k)
+            rel = _rel_l2(y, ref)
+            err = float((y - ref).abs().max())
+            assert torch.isfinite(y).all() and torch.equal(y, y2) and rel <= 1e-3, (routing, rel)
+            del y2, ref
+            call = lambda: ops.moe_experts(x, w_gu, w_down, order, offsets, wts, k)  # noqa: E731
+            ms = _time_ms(call, 20)
+            dms = _kernel_ms(call, 'moe_experts', per_call=2)[0]
+            pms = _time_ms(lambda: ops.moe_experts_reference(x, w_gu, w_down, order, offsets,
+                                                             wts, k), 3, 1)
+            bounds = offsets.tolist()
+            lms = _time_ms(lambda: moe_cublas_loop(x, w_gu, w_down, order, bounds, wts, k), 20)
+            if routing == 'cell':      # the cell's routing: the kernels line's row
+                record('moe_experts', err, ms, pms, bnd, by, lms)
+            per_shape.append({'name': 'moe_experts', 'routing': routing, 'rows': N * k,
+                              'experts': E, 'D': D, 'F': F, 'counts': counts, 'rel_l2': rel,
+                              'ms': ms, 'device_ms': dms, 'plain_ms': pms, 'library_ms': lms,
+                              'bound_ms': bnd, 'bound_by': by})
+            share = '' if dms is None else f', {100 * bnd / dms:.0f} % reached'
+            print(f'moe_experts {N * k} rows over {E} experts ({routing}: {counts}), D {D}, '
+                  f'F {F}: rel_l2 {rel:.3e} (bound 1e-3) max_abs_err {err:.3e}; call {ms:.4f} '
+                  f'ms (CUDA events), device {_ms(dms)} ms; plain {pms:.2f} ms; per-expert '
+                  f'cuBLAS loop {lms:.4f} ms; bound {bnd:.4f} ms ({by}{share})')
+            del x, w_gu, w_down, order, offsets, wts, y
+
+    cfg = get_config('dit3d_moe_xl4_res64')
+    R = cfg.data.image_size
+    model = create_model(cfg, dev).eval()       # outside inference mode: its weights keep versions
+    with torch.inference_mode():
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.uniform_(-0.03, 0.03, generator=g)
+        x = torch.randn((1, R, R, R, 4), device=dev, generator=g)
+        lab, msk = torch.tensor([500.0], device=dev), torch.ones((1, R, R, R, 1), device=dev)
+        model(x, lab, msk)
+        ops.reset_launch_counts()
+        model(x, lab, msk)
+        torch.cuda.synchronize()
+        per_fwd = ops.launch_counts()
+        assert per_fwd == _launches(dit_attention=28, moe_experts=56), per_fwd
+        fwd_dms = _kernel_ms(lambda: model(x, lab, msk), 'moe_experts', per_call=56,
+                             iters=3)[0]
+        print(f'DiT-MoE-XL/4 full-width forward, batch 1, bf16: launches {per_fwd}; the expert '
+              f'kernels {_ms(fwd_dms)} ms of device time a forward')
+        del model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ditmoe_')
+    try:
+        ops.reset_launch_counts()
+        npy = port_main(['--config', 'dit3d_moe_xl4_res64', '--mode', 'uncond_gen',
+                         '--device', 'cuda', f'--config.model.num_scales={DIT_STEPS + 1}',
+                         '--config.model.beta_max=2.0', '--config.eval.batch_size=1',
+                         f'--config.eval.eval_dir={tmp}'])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        assert launches == _launches(ancestral_update=DIT_STEPS, dit_attention=28 * DIT_STEPS,
+                                     moe_experts=56 * DIT_STEPS), launches
+        sample = np.load(npy)
+        assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
+        print(f'main --config dit3d_moe_xl4_res64 --mode uncond_gen: {DIT_STEPS} steps; '
+              f'launches {launches}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
     torch.cuda.empty_cache()
     return {'launches': launches, 'device_ms_per_forward': fwd_dms}
 
@@ -3529,6 +3684,9 @@ def main() -> int:
     # ---- 24b. the DiT-XL/4 preset: its attention kernel, a forward, uncond_gen ----
     dit = dit_run(port_main, dev, g, record, per_shape)
 
+    # ---- 24c. the DiT-MoE-XL/4 preset: its expert kernels, a forward, uncond_gen ----
+    moe = moe_run(port_main, dev, g, record, per_shape)
+
     # ---- 25. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
@@ -3553,12 +3711,15 @@ def main() -> int:
         'dit_attention': ('cuda', 'meshdiffusion_tpu_torch/csrc/dit_attention.cu',
                           'none: the DiT\'s multi-head attention (models/dit3d.py); the JAX '
                           'package has no transformer'),
+        'moe_experts': ('cuda', 'meshdiffusion_tpu_torch/csrc/moe_experts.cu',
+                        'none: the routed experts of DiT-MoE (models/moe.py); the JAX '
+                        'package has no routed layer'),
     }
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
                'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,
                'train': train_launches, 'uncond_gen_res128': uncond128_launches,
                'extract_viz': viz_launches, 'likelihood': likelihood_launches,
-               'dit_uncond_gen': dit['launches'],
+               'dit_uncond_gen': dit['launches'], 'ditmoe_uncond_gen': moe['launches'],
                **tex['launches'], 'train_res64_2x2': par['res64 (2, 2)']['launches'],
                'train_res128_1x2': par['res128 (1, 2)']['launches'],
                **{f'aa_alternates_{impl}': r['launches'] for impl, r in aa.items()},
@@ -3575,6 +3736,9 @@ def main() -> int:
     # the DiT's attention: a launch a block of a DiT forward
     per_step['dit_attention'] = 28
     per_fwd_dev['dit_attention'] = dit['device_ms_per_forward']
+    # the routed experts: two launches a block of a DiT-MoE forward
+    per_step['moe_experts'] = 56
+    per_fwd_dev['moe_experts'] = moe['device_ms_per_forward']
     kernels = [{'name': n, 'route': route, 'source': src, 'replaces': rep,
                 'launches': path_launches[n], 'launches_per_forward': per_step[n],
                 'device_ms_per_forward': per_fwd_dev.get(n) or None, **results[n]}

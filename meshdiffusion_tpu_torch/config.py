@@ -138,10 +138,27 @@ def get_dit3d_xl4_res64_config() -> Config:
     return config
 
 
+def get_dit3d_moe_xl4_res64_config() -> Config:
+    """``dit3d_xl4_res64`` with every block's MLP replaced by DiT-MoE's
+    sparse-expert layer (feizc/DiT-MoE ``DiT-MoE-XL/2-8E2A`` in 4^3 3D
+    patches, ``models/moe.py``): 8 SwiGLU experts of width 4608 (mlp_ratio x
+    hidden), the top 2 a token, and a shared SwiGLU expert of width 2304
+    (2 x hidden)."""
+    config = get_dit3d_xl4_res64_config()
+    m = config.model
+    m.name = 'dit3d_moe_xl4'
+    m.num_experts = 8
+    m.experts_per_token = 2
+    m.expert_hidden = 4608
+    m.shared_expert_hidden = 2304
+    return config
+
+
 _PRESETS = {
     'res64': get_res64_config,
     'res128': get_res128_config,
     'dit3d_xl4_res64': get_dit3d_xl4_res64_config,
+    'dit3d_moe_xl4_res64': get_dit3d_moe_xl4_res64_config,
     'default': get_default_config,
 }
 

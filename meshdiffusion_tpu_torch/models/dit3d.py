@@ -37,9 +37,14 @@ which takes its route by the rule of ``ops/_build.py`` (the hand-written
 kernel on CUDA tensors; under autograd its plain version). The model has
 no dropout, so ``train`` changes nothing.
 
+With ``num_experts`` set (preset ``dit3d_moe_xl4_res64``, registered as
+``dit3d_moe_xl4``), each block's MLP is DiT-MoE's sparse-expert layer
+(Fei et al., arXiv:2407.11633; ``models/moe.py``), fed the fp32 modulated
+tokens: x += gate2 moe(mod(LN x, shift2, scale2)).
+
 A forward is a ``dit.forward`` span; each block a ``dit.block`` span
-(attribute ``index``) holding a ``dit.attn`` and a ``dit.mlp`` span
-(``utils/trace.py``).
+(attribute ``index``) holding a ``dit.attn`` and a ``dit.mlp`` span, or a
+``dit.moe`` span in a sparse-expert block (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ from .. import ops
 from ..parallel import spatial
 from ..utils import trace
 from .layers import _Derived
-from .registry import register_model
+from .moe import MoEGate, SparseMoeBlock
+from .registry import register_alias, register_model
 
 FREQ_DIM = 256          # the timestep's sinusoidal features (DiT's frequency_embedding_size)
 
@@ -191,12 +197,20 @@ class Mlp(nn.Module):
 
 
 class DiTBlock(nn.Module):
+    """Attention, then the FFN: the dense ``mlp``, or with ``moe`` (the
+    keyword arguments of :class:`SparseMoeBlock` but the width and dtype)
+    DiT-MoE's sparse-expert ``moe``, fed the fp32 modulated tokens."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, moe: Optional[dict] = None):
         super().__init__()
         self.attn = Attention(dim, num_heads, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        if moe:
+            self.moe = SparseMoeBlock(dim, dtype=dtype, **moe)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(dim, 6 * dim, dtype))
+        self.ffn = 'moe' if moe else 'mlp'
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift1, scale1, gate1, shift2, scale2, gate2 = \
@@ -204,8 +218,8 @@ class DiTBlock(nn.Module):
         with trace.span('dit.attn'):
             y = self.attn(modulate(_layer_norm(x), shift1, scale1))
             x = torch.addcmul(x, gate1[:, None], y)
-        with trace.span('dit.mlp'):
-            y = self.mlp(modulate(_layer_norm(x), shift2, scale2))
+        with trace.span('dit.' + self.ffn):
+            y = getattr(self, self.ffn)(modulate(_layer_norm(x), shift2, scale2))
             x = torch.addcmul(x, gate2[:, None], y)
         return x
 
@@ -224,7 +238,11 @@ class FinalLayer(nn.Module):
 @register_model(name='dit3d_xl4')
 class DiT3D(nn.Module):
     """DiT over (B, R, R, R, C) grids in p^3 patches (module docstring);
-    registered as ``dit3d_xl4``, the ``dit3d_xl4_res64`` preset's model."""
+    registered as ``dit3d_xl4``, the ``dit3d_xl4_res64`` preset's model, and
+    as ``dit3d_moe_xl4``, the ``dit3d_moe_xl4_res64`` preset's: with
+    ``num_experts`` > 0 every block's FFN is DiT-MoE's sparse-expert layer
+    (``models/moe.py``; ``experts_per_token`` of them a token, width
+    ``expert_hidden``, a shared expert of width ``shared_expert_hidden``)."""
 
     # checkpoints list this model's parameters in its own order (utils/checkpoint.py)
     own_param_order = True
@@ -232,7 +250,9 @@ class DiT3D(nn.Module):
     def __init__(self, image_size: int = 64, channels: int = 4, hidden_size: int = 1152,
                  depth: int = 28, num_heads: int = 16, mlp_ratio: float = 4.0,
                  patch_size: int = 4, centered: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, num_experts: int = 0,
+                 experts_per_token: int = 2, expert_hidden: int = 4608,
+                 shared_expert_hidden: int = 2304):
         super().__init__()
         if image_size % patch_size or hidden_size % num_heads:
             raise ValueError(f'DiT3D: image_size {image_size} must be a multiple of patch_size '
@@ -246,7 +266,10 @@ class DiT3D(nn.Module):
         self.t_embedder = TimestepEmbedder(D, dtype)
         self.register_buffer('pos_embed', sincos_pos_embed_3d(D, image_size // p),
                              persistent=False)
-        self.blocks = nn.ModuleList(DiTBlock(D, num_heads, mlp_ratio, dtype)
+        moe = (dict(num_experts=num_experts, experts_per_token=experts_per_token,
+                    expert_hidden=expert_hidden, shared_expert_hidden=shared_expert_hidden)
+               if num_experts else None)
+        self.blocks = nn.ModuleList(DiTBlock(D, num_heads, mlp_ratio, dtype, moe)
                                     for _ in range(depth))
         self.final_layer = FinalLayer(D, p, channels, dtype)
 
@@ -257,6 +280,9 @@ class DiT3D(nn.Module):
                   hidden_size=m.hidden_size, depth=m.depth, num_heads=m.num_heads,
                   mlp_ratio=m.mlp_ratio, patch_size=m.patch_size,
                   centered=config.data.centered, dtype=getattr(torch, config.gpu.compute_dtype))
+        for key in ('num_experts', 'experts_per_token', 'expert_hidden', 'shared_expert_hidden'):
+            if key in m:
+                kw[key] = m[key]
         kw.update(overrides)
         return cls(**kw)
 
@@ -265,7 +291,7 @@ class DiT3D(nn.Module):
         ``generator`` (the hook ``create_model`` calls): xavier-uniform
         Linears and patch projections (over their flattened fan-in), zero
         biases, normal(0.02) on the timestep MLP, zero adaLN modulations and
-        a zero final layer."""
+        a zero final layer; DiT-MoE's routers uniform in +-1/sqrt(D)."""
         def xavier(w):
             a = math.sqrt(6.0 / (w.shape[0] + w[0].numel()))
             w.uniform_(-a, a, generator=generator)
@@ -274,7 +300,10 @@ class DiT3D(nn.Module):
             for mod in self.modules():
                 if isinstance(mod, nn.Linear):
                     xavier(mod.weight)
-                    mod.bias.zero_()
+                    if mod.bias is not None:
+                        mod.bias.zero_()
+                elif isinstance(mod, MoEGate):
+                    mod.reset_parameters(generator)
             for emb in (self.x_embedder, self.mask_embedder):
                 xavier(emb.proj.weight)
                 emb.proj.bias.zero_()
@@ -284,6 +313,14 @@ class DiT3D(nn.Module):
                     self.final_layer.adaLN_modulation[1], self.final_layer.linear]:
                 lin.weight.zero_()
                 lin.bias.zero_()
+
+    def capture_routes(self, sink: Optional[list]) -> None:
+        """While ``sink`` is a list, each forward appends every sparse-expert
+        block's top-k expert ids (B T, k), in block order, on the device;
+        None turns it off."""
+        for block in self.blocks:
+            if hasattr(block, 'moe'):
+                block.moe.routes = sink
 
     @trace.span('dit.forward')
     def forward(self, x: torch.Tensor, labels: torch.Tensor,
@@ -308,3 +345,5 @@ class DiT3D(nn.Module):
         out = self.final_layer(tok, c).float()
         return unpatchify(out, self.patch_size, self.channels)
 
+
+register_alias('dit3d_moe_xl4', 'dit3d_xl4')

@@ -11,6 +11,7 @@
 | :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 | :func:`nin_residual` | CUDA C++, sm_90a (wgmma) | none: the plain NIN shortcut + residual sum of ``meshdiffusion_tpu/models/layers.py:275-276`` |
 | :func:`dit_attention` | CUDA C++, sm_90a (wgmma, online softmax) | none: the DiT's multi-head attention (``models/dit3d.py``); the JAX package has no transformer |
+| :func:`moe_experts` | CUDA C++, sm_90a (wgmma, grouped over the experts; two launches) | none: the routed experts of the sparse-expert DiT (``models/moe.py``) |
 
 Every wrapper takes its route (its plain version, its kernel, or its
 kernel forward with the plain version's backward) by the one rule written
@@ -37,6 +38,8 @@ from .groupnorm import (affine_from_moments, gn_affine, gn_affine_cost,  # noqa:
                         gn_affine_reference, gn_moments, gn_moments_cost,
                         gn_moments_reference, groupnorm_reference, groupnorm_silu,
                         groupnorm_silu_cost, groupnorm_silu_reference, merge_moments)
+from .moe_experts import (moe_experts, moe_experts_cost, moe_experts_reference,  # noqa: F401
+                          pack_gate_up, unpack_gate_up)
 from .nin_residual import (nin_reference, nin_residual, nin_residual_cost,  # noqa: F401
                            nin_residual_reference)
 from .sampler_step import (ancestral_update, ancestral_update_cost,  # noqa: F401

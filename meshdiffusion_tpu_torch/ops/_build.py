@@ -76,6 +76,8 @@ _SIGNATURES = {
     'nin_residual_bf16': [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # qkv, out, B, T, H, dh, stream
     'dit_attention_bf16': [_P, _P, _I, _I, _I, _I, _P],
+    # x, w_gu, w_down, order, offsets, weights, h, out, rows, D, F, E, k, stream
+    'moe_experts_bf16': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

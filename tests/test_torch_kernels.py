@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from meshdiffusion_tpu_torch import ops
 
 
@@ -510,6 +511,148 @@ def test_dit_forward_runs_every_attention_in_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('N,routing', [(16384, 'cell'), (16384, 'skewed'), (16384, 'empty'),
+                                       (300, 'cell')])
+def test_moe_experts_kernel_matches_plain(cuda, N, routing):
+    """The grouped expert kernels against their plain version (fp32 sums of
+    the same bf16 values) at the DiT-MoE-XL cell's shapes (16,384 tokens of
+    batch 4, top 2: 32,768 rows over 8 experts, D 1152, F 4608), under a
+    skewed routing (one expert takes every token) and one that leaves six
+    experts without a row, and at a ragged 600 rows: relative L2 at most
+    1e-3 (the sums' order, and H's bf16 rounding where it then falls the
+    other way, ~2^-9 on one element in thousands), two launches a call,
+    bit-equal reruns. Times the call beside the per-expert cuBLAS loop it
+    replaces (CUDA events, 20 calls each; printed)."""
+    import json
+    E, k, D, F = 8, 2, 1152, 4608
+    x, w_gu, w_down, order, offsets, wts, top = chip_smoke.moe_case(
+        cuda, torch.Generator(device=cuda).manual_seed(0), routing, (N, E, k, D, F))
+    counts = torch.diff(offsets).tolist()
+    if routing == 'skewed':
+        assert counts[3] == N and max(counts[2:3] + counts[4:]) == 0
+    if routing == 'empty':
+        assert counts[0] == counts[-1] == N and sum(counts) == 2 * N
+    with torch.inference_mode():
+        n0 = ops.moe_experts.launches
+        y = ops.moe_experts(x, w_gu, w_down, order, offsets, wts, k)
+        assert ops.moe_experts.launches == n0 + 2
+        y2 = ops.moe_experts(x, w_gu, w_down, order, offsets, wts, k)
+        torch.cuda.synchronize()
+        ref = ops.moe_experts_reference(x, w_gu, w_down, order, offsets, wts, k)
+    assert y.dtype == torch.float32 and y.shape == (N * k, D)
+    assert torch.equal(y, y2)
+    err = ((y - ref).norm() / ref.norm()).item()
+    assert err <= 1e-3, err
+    if N < 16384:
+        return
+    bounds = offsets.tolist()
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(20):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / 20
+    with torch.inference_mode():
+        ms = timed(lambda: ops.moe_experts(x, w_gu, w_down, order, offsets, wts, k))
+        lib = timed(lambda: chip_smoke.moe_cublas_loop(x, w_gu, w_down, order, bounds, wts, k))
+        loop = chip_smoke.moe_cublas_loop(x, w_gu, w_down, order, bounds, wts, k)
+    fl = sum(c[0] for c in ops.moe_experts_cost(N * k, D, F, E).values())
+    print(json.dumps({'moe_experts': routing, 'rows': N * k, 'ms': ms, 'cublas_loop_ms': lib,
+                      'bound_ms': fl / 989e12 * 1e3, 'counts': counts,
+                      'loop_rel_l2': ((loop - ref).norm() / ref.norm()).item(),
+                      'rel_l2': err, 'card': torch.cuda.get_device_name(0)}))
+
+
+@pytest.mark.cuda
+def test_moe_experts_raises_on_what_it_does_not_take(cuda):
+    """The kernel refuses what it does not take; under autograd the wrapper
+    launches nothing and gives its plain version's values."""
+    x, w_gu, w_down, order, offsets, wts, _ = chip_smoke.moe_case(
+        cuda, torch.Generator(device=cuda).manual_seed(0), 'cell', (256, 4, 2, 384, 256))
+    xg = x.float().requires_grad_(True).to(torch.bfloat16)
+    n0 = ops.moe_experts.launches
+    y = ops.moe_experts(xg, w_gu, w_down, order, offsets, wts, 2)
+    assert ops.moe_experts.launches == n0 and y.requires_grad
+    assert torch.equal(y, ops.moe_experts_reference(xg, w_gu, w_down, order, offsets, wts, 2))
+    with torch.inference_mode():
+        with pytest.raises(ValueError):        # fp32 tokens
+            ops.moe_experts(x.float(), w_gu, w_down, order, offsets, wts, 2)
+        with pytest.raises(ValueError):        # int64 order
+            ops.moe_experts(x, w_gu, w_down, order.long(), offsets, wts, 2)
+        with pytest.raises(ValueError):        # D 320, no multiple of 192
+            ops.moe_experts(x[:, :320].contiguous(), w_gu[..., :320].contiguous(),
+                            w_down[:, :320].contiguous(), order, offsets, wts, 2)
+        with pytest.raises(ValueError):        # rows that are not N k
+            ops.moe_experts(x, w_gu, w_down, order, offsets, wts, 1)
+
+
+@pytest.mark.cuda
+def test_moe_dit_forward_runs_the_experts_in_the_kernel(cuda):
+    """A warm full-width DiT-MoE-XL/4 forward at batch 1 (4,167,325,696
+    parameters) launches both expert kernels and the attention kernel 28
+    times each, rebuilds nothing, makes no host synchronisation and no copy
+    to or from the host inside its ``dit.moe`` spans, and agrees with its plain version (every
+    wrapper plain, ``ops.plain()``) to a relative L2 of 2e-2, with the same
+    routes but at near-ties."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.utils import trace
+    cfg = get_config('dit3d_moe_xl4_res64')
+    R = cfg.data.image_size
+    model = create_model(cfg, device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.uniform_(-0.03, 0.03, generator=g)
+    x = torch.randn((1, R, R, R, 4), device=cuda, generator=g)
+    lab, mask = torch.tensor([500.0], device=cuda), torch.ones((1, R, R, R, 1), device=cuda)
+    routes, plain_routes = [], []
+    with torch.inference_mode():
+        model(x, lab, mask)
+        torch.cuda.synchronize()
+        trace.clear()
+        n0, a0 = ops.moe_experts.launches, ops.dit_attention.launches
+        model.capture_routes(routes)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y = model(x, lab, mask)
+            torch.cuda.synchronize()
+        assert ops.moe_experts.launches == n0 + 56 and ops.dit_attention.launches == a0 + 28
+        assert not [i.name for i in trace.instants() if i.name.startswith('rebuild.')]
+        spans = trace.spans()
+        moe = [(s.t0, s.t1) for s in spans if s.name == 'dit.moe']
+        assert len(moe) == 28 and [s.name for s in spans].count('ops.moe_experts') == 28
+        events = prof.profiler.kineto_results.events()
+        calls = {e.correlation_id(): e.name() for e in events
+                 if e.device_type() != DeviceType.CUDA and e.name().startswith('cu')
+                 and any(a <= e.start_ns() <= b for a, b in moe)}
+        copies = {e.name() for e in events
+                  if e.device_type() == DeviceType.CUDA and e.correlation_id() in calls
+                  and 'Memcpy' in e.name()}
+        assert calls and not [c for c in calls.values() if 'Synchronize' in c], \
+            sorted(set(calls.values()))
+        assert not [c for c in copies if 'DtoD' not in c], copies      # the sort's own copy
+        model.capture_routes(plain_routes)
+        with ops.plain():
+            y_plain = model(x, lab, mask)
+        model.capture_routes(None)
+    trace.clear()
+    assert torch.isfinite(y).all()
+    err = ((y - y_plain).norm() / y_plain.norm()).item()
+    assert err <= 2e-2, err
+    flips = sum(int((a.sort(1).values != b.sort(1).values).any(1).sum())
+                for a, b in zip(routes, plain_routes))
+    assert flips <= 0.01 * 28 * 4096, flips
+
+
+@pytest.mark.cuda
 def test_routes_under_autograd_and_within_plain(cuda, rng):
     """Under autograd the conv's two modes and gn_moments launch their
     kernels (the forward; the backward is the plain version's or
@@ -519,6 +662,8 @@ def test_routes_under_autograd_and_within_plain(cuda, rng):
     a, b = ops.gn_affine_reference(x, sc, bi)
     xn, wn, bn, hn = _nin_inputs(cuda, (1, 4, 8, 8), 64, 128, torch.float32)
     qkv = _qkv(cuda, 1, 64, 2).float()
+    moe = chip_smoke.moe_case(cuda, torch.Generator(device=cuda).manual_seed(0), 'cell',
+                              (64, 4, 2, 192, 128))
     xa, ea, ma, na, beta, std = _ancestral_inputs(rng, (1, 8, 8, 8, 4))
     xa, ea, ma, na = (_t(v).to(cuda) for v in (xa, ea, ma, na))
     coords = torch.tensor([[[2., 2., .1, 30., 4., .2, 5., 28., .3]]], device=cuda)
@@ -533,6 +678,7 @@ def test_routes_under_autograd_and_within_plain(cuda, rng):
         'groupnorm_silu': lambda: ops.groupnorm_silu(g(x), sc, bi),
         'nin_residual': lambda: ops.nin_residual(g(xn), wn, bn, hn),
         'dit_attention': lambda: ops.dit_attention(g(qkv).to(torch.bfloat16), 2),
+        'moe_experts': lambda: ops.moe_experts(g(moe[0].float()).to(torch.bfloat16), *moe[1:6], 2),
         'ancestral_update': lambda: ops.ancestral_update(g(xa), ea, ma, na, beta, std),
         'tile_zmin': lambda: ops.tile_zmin(g(coords), *lists, (32, 32)),
     }

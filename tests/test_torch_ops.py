@@ -207,6 +207,10 @@ def _wrapper_args(name, g):
         return r(2, 3, 4, 64), r(64, 128), r(128), r(2, 3, 4, 128)
     if name == 'dit_attention':
         return r(2, 5, 3 * 2 * 8), 2
+    if name == 'moe_experts':
+        from meshdiffusion_tpu_torch.models.moe import route
+        p, _, order, offsets = route(r(5, 3), 2)
+        return r(5, 8), r(3, 2 * 4, 8), r(3, 8, 4), order, offsets, p.reshape(-1), 2
     assert name == 'tile_zmin', name
     coords = torch.tensor([[[2., 2., .1, 30., 4., .2, 5., 28., .3],
                             [0., 0., .5, 32., 0., .4, 0., 32., .6]]])
