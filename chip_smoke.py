@@ -210,11 +210,12 @@ under each. Phases, in order:
 24b. the DiT-XL/4 preset (``dit3d_xl4_res64``), after 24, since its large
     temporaries would leave the allocator's cache fragmented for the ranks
     of 22-23: its attention kernel against the plain version at batch 4
-    and 1 (4096 tokens, 16 heads of 72), with
-    ``F.scaled_dot_product_attention`` timed beside it as ``library_ms``;
-    a full-width forward's 28 launches and the kernel's device time a
-    forward; ``main --config dit3d_xl4_res64 --mode uncond_gen`` 9 steps,
-    launches counted;
+    and 1 (4096 tokens, 16 heads of 72), with its share of the bound, the
+    bytes of K and V it reads a call, ptxas's log free of wgmma
+    serialisation for it, and ``F.scaled_dot_product_attention`` timed
+    beside it as ``library_ms``; a full-width forward's 28 launches and the
+    kernel's device time a forward; ``main --config dit3d_xl4_res64 --mode
+    uncond_gen`` 9 steps, launches counted;
 24c. the DiT-MoE-XL/4 preset (``dit3d_moe_xl4_res64``), after 24b: its
     routed-expert kernels (``ops.moe_experts``) against the plain version
     at the cell's shapes (32,768 rows of batch 4 top 2 over 8 experts, D
@@ -645,9 +646,12 @@ def dit_run(port_main, dev, g, record, per_shape) -> dict:
     """Phase 24b: the DiT-XL/4 preset (``dit3d_xl4_res64``). Its attention
     kernel against the plain version at the cell's batch 4 and at batch 1
     (4096 tokens, 16 heads of 72): relative L2 within 1e-2 per head,
-    CUDA-event, device and plain times, the bound, and as ``library_ms``
-    ``F.scaled_dot_product_attention`` on the same q, k, v (timed beside
-    it, never called by the port); a full-width forward (seeded weights,
+    CUDA-event, device and plain times, the bound and the share of it
+    reached, the bytes of K and V the kernel reads a call, and as
+    ``library_ms`` ``F.scaled_dot_product_attention`` on the same q, k, v
+    (timed beside it, never called by the port), after checking that the
+    verbose build's ptxas log holds no wgmma serialisation warning for the
+    kernel; a full-width forward (seeded weights,
     bf16), whose attention runs as 28 launches, with the kernel's device
     time a forward; then ``main --config dit3d_xl4_res64 --mode
     uncond_gen`` (num_scales 10, beta_max 2.0, batch 1) with every launch
@@ -659,7 +663,14 @@ def dit_run(port_main, dev, g, record, per_shape) -> dict:
     from meshdiffusion_tpu_torch.config import get_config
     from meshdiffusion_tpu_torch.models import create_model
     from meshdiffusion_tpu_torch.ops.roofline import PEAK_BF16_FLOPS, bound_ms
+    from meshdiffusion_tpu_torch.ops import _build
     H, dh, T = 16, 72, 4096
+    # ptxas must not serialise the kernel's wgmma (C7510-C7517: registers short,
+    # accumulators read in flight); the log is the verbose build's of phase 2
+    log = _build.build_log.splitlines()
+    serial = [ln for ln in log if 'C75' in ln and 'dit_attention' in ln]
+    assert not serial, serial
+    print(f'dit_attention_kernel: no wgmma serialisation in ptxas\'s {len(log)} build log lines')
     with torch.inference_mode():
         for B in (4, 1):
             qkv = torch.randn((B, T, 3 * H * dh), device=dev, generator=g).to(torch.bfloat16)
@@ -678,16 +689,20 @@ def dit_run(port_main, dev, g, record, per_shape) -> dict:
             q, k, v = qkv.reshape(B, -1, 3, H, dh).permute(2, 0, 3, 1, 4)
             lms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
             bnd, by = bound_ms(*ops.dit_attention_cost(B, qkv.shape[1], H, dh), PEAK_BF16_FLOPS)
+            kv = ops.dit_attention_kv_bytes(B, qkv.shape[1], H, dh)
             if B == 4:          # the cell's batch: the kernels line's row
                 record('dit_attention', err, ms, pms, bnd, by, lms)
+            share = None if dms is None else 100 * bnd / dms
             per_shape.append({'name': 'dit_attention', 'qkv': list(qkv.shape), 'heads': H,
                               'rel_l2': rel, 'ms': ms, 'device_ms': dms, 'plain_ms': pms,
-                              'library_ms': lms, 'bound_ms': bnd, 'bound_by': by})
-            share = '' if dms is None else f', {100 * bnd / dms:.0f} % reached'
+                              'library_ms': lms, 'bound_ms': bnd, 'bound_by': by,
+                              'share_of_bound': share, 'kv_bytes': kv})
             print(f'dit_attention qkv{tuple(qkv.shape)} {H} heads of {dh}: rel_l2 {rel:.3e} '
                   f'(bound 1e-2 a head) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
                   f'device {_ms(dms)} ms; plain {pms:.2f} ms; scaled_dot_product_attention '
-                  f'{lms:.4f} ms; bound {bnd:.4f} ms ({by}{share})')
+                  f'{lms:.4f} ms; bound {bnd:.4f} ms ({by}'
+                  f'{"" if share is None else f", {share:.1f} % reached"}); '
+                  f'K and V read {kv / 1e9:.3f} GB a call')
             del qkv, y, q, k, v
 
     cfg = get_config('dit3d_xl4_res64')

@@ -11,42 +11,67 @@
 // einsums with the T x T scores in memory (meshdiffusion_tpu/models/
 // layers.py, AttnBlock).
 //
-// What bounds it on the H100: the tensor cores. A head's two products are
-// 2 T^2 DH FLOP each against 8 T DH bytes of q, k, v and output: at T 4096
-// and DH 72, ~2,300 operations a byte against the card's ~295 at its
-// ridge. The scores never reach device memory.
+// What bounds it on the H100: the tensor cores, and beside them the
+// exponentials. A head's two products are 2 T^2 DH FLOP each against 8 T DH
+// bytes of q, k, v and output: at T 4096 and DH 72, ~2,300 operations a
+// byte against the card's ~295 at its ridge; the scores never reach device
+// memory. A score costs 304 tensor FLOP (Q K^T over the padded depth 80,
+// P V over 72) at 4,096 a clock an SM, and one ex2 at 16 a clock an SM: the
+// softmax needs ~85 % of the products' time, so it has to run under them
+// (run one after another, loads, softmax and products took 0.95 ms a b4
+// call, the products alone 0.39).
 //
-// Design: a block of two warpgroups takes 128 queries of one (sample,
-// head), 64 a warpgroup, and walks the keys in tiles of 64 through a
-// 3-stage cp.async ring that both warpgroups fill and read.
-// * Q stays in registers for the whole walk as wgmma A fragments, loaded
-//   once from global memory; dh 72 to 79 are zero, since wgmma's k step is
-//   16: S = Q K^T is five k16 steps of wgmma m64n64k16.
-// * A stage holds the tile's K as two K-major, 128-byte-swizzled blocks of
-//   64 rows (dh 0-63; dh 64-71 in each row's first 16 bytes and zeros in
-//   its second, written once, which the ring never overwrites) and its V as
-//   two N-major blocks (dh 0-63; dh 64-71), V's own layout, so that
-//   O += P V is wgmma m64n72k16 with B transposed by the descriptor.
-//   Keys past T are zero-filled by the copies and masked out of the scores.
-// * The online softmax runs in registers in fp32: a row's four threads
-//   reduce its maximum by shuffles, the scale and log2(e) are folded into
-//   one fma before exp2, the row sums are kept per thread and reduced at
-//   the end. P is rounded to bf16 and fed back from registers as the A
-//   fragments of the second product (the accumulator's layout is the A
-//   operand's).
-// * O (fp32, in registers) is divided by the row sums and stored as bf16.
-// * Two blocks an SM (128 registers a thread, 2 x 97 KB of shared memory):
-//   the two warpgroups of a block run in step (one barrier a tile), so a
-//   second block's products fill the tensor cores while one block's
-//   softmax runs. 1.21 ms a b4 call at one block an SM, 0.95 at two, on an
-//   H100; of the 0.95, a variant that skips the tile loads takes 0.66 and
-//   one that skips the softmax 0.69 (L2 -> shared memory traffic: every
-//   block reads its head's K and V whole, ~2.4 GB a b4 call).
-// Each block owns its rows' sums: reruns agree bit for bit.
+// Design: one persistent block an SM, warp-specialised.
+// * Work items are (sample, head, 192-query tile), walked by block i as
+//   items i, i + grid, ... with the query tile fastest, so neighbouring
+//   blocks share a head's K and V in L2. The grid is min(items, SMs): the
+//   call's B, T, H and the card's SM count decide it. An item reads its
+//   head's K and V once for 192 queries (1.66 GB a b4 call; 128-query
+//   items read 2.42).
+// * Producer: one warp (its warpgroup's registers cut to 32 by setmaxnreg)
+//   issues every copy by TMA from four tensor maps over the qkv tensor in
+//   place, (dh 72, 3 H heads, T, B) with T and B as dimensions of their
+//   own, so rows past T read as zeros. Q comes once an item into one of two
+//   buffers; K and V in tiles of 64 keys into a 5-stage ring, each with its
+//   own full and empty mbarriers, so a stage's K is free again once Q K^T
+//   has read it and its V once P V has.
+//   - K and Q: dh 0-63 as one 128-byte-swizzled box (rows of 128 bytes,
+//     the layout wgmma's K-major SW128 descriptor reads), dh 64-71 as a
+//     16-byte box (rows of 16 bytes: unswizzled 8 x 16-byte core matrices),
+//     whose k16 step reads dh 72-79 from 1 KB of zeros written once (the
+//     descriptor's leading offset points there).
+//   - V: dh 0-63 as a swizzled box, and dh 64-127 as a second, whose dh
+//     72-127 lie past the tensor map's 72 and arrive as zeros: the two
+//     64-column blocks of the N-major SW128 descriptor of O += P V.
+// * Consumers: three warpgroups of 64 queries (160 registers each) take
+//   turns on three named barriers to issue their products, so that one's
+//   softmax runs while the others' products do. In its turn a warpgroup
+//   issues S_j = Q K_j^T (wgmma m64n64k16, Q and K both from shared memory,
+//   no registers held for Q) and O += P_{j-1} V_{j-1} (m64n72k16, P from
+//   registers); it then runs S_j's softmax while P_{j-1} V_{j-1} runs
+//   (FlashAttention-3's two-stage pipeline within a warpgroup).
+// * The arithmetic: scores in fp32, the online softmax in registers (a
+//   row's four threads reduce its maximum by shuffles; the scale and
+//   log2(e) folded into one fma before ex2.approx; row sums per thread,
+//   reduced at the end), P rounded to bf16 once as the A operand of P V, O
+//   in fp32, divided by the row sums and stored as bf16. An item's epilogue
+//   overlaps the producer's loads of the next item.
+// Each block owns its rows' sums, nothing is atomic: reruns agree bit for
+// bit. 0.68 ms a b4 call, 0.19 at b1, on an H100 at 700 W.
+//
+// Variants timed on the same card (CUDA events, b4): 128-key tiles with
+// three warpgroups need more than 160 registers (spills, wgmma serialised:
+// 1.67 ms); two warpgroups of 240 registers with 128-key tiles run as fast
+// (0.67) but read K and V for 128 queries only; without the turns 0.73;
+// S_{j+1} issued before S_j's softmax (two S buffers) spills with the turns
+// (1.42) and is slower without (0.71-0.74); Q's fragments in registers
+// spill with the turns; a rescale of O skipped when no maximum moved, and
+// P rounded by integer operations, gave nothing or lost.
 //
 // Requirements (checked by the Python wrapper): DH 72, contiguous qkv and
 // output, 16-byte aligned pointers.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -61,17 +86,28 @@ namespace {
 using namespace sm90;
 
 constexpr int DH = 72;                  // head dimension
-constexpr int DH_CELLS = DH / 8;        // 16-byte cells of a head's row
-constexpr int KSTEPS = 5;               // k16 steps of Q K^T: DH padded to 80
-constexpr int BM = 64;                  // queries a warpgroup: wgmma's m64
-constexpr int WGS = 2;                  // warpgroups a block
-constexpr int BQ = BM * WGS;            // queries a block
+constexpr int BM = 64;                  // queries a consumer warpgroup: wgmma's m64
+constexpr int WGS = 3;                  // consumer warpgroups
+constexpr int BQ = BM * WGS;            // queries a work item
 constexpr int BN = 64;                  // keys a tile
-constexpr int STAGES = 3;
-constexpr int THREADS = 128 * WGS;
-constexpr int TILE = BN * 128;          // one 64-row block of 128-byte swizzled rows
-constexpr int STAGE_BYTES = 4 * TILE;   // K dh 0-63 | K dh 64-79 | V dh 0-63 | V dh 64-71
-constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES;
+constexpr int STAGES = 5;               // K/V ring
+constexpr int THREADS = 128 * (WGS + 1);                   // and the producer's warpgroup
+constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 160;   // 128 * 32 + 384 * 160 = 512 * 128
+
+// Shared memory, from a 1024-byte aligned base: two Q buffers, the ring, the
+// zeros, the mbarriers. ROW: a 128-byte swizzled row (dh 0-63); CELL: a
+// 16-byte row (dh 64-71).
+constexpr int ROW = 128, CELL = 16;
+constexpr int Q_TAIL = BQ * ROW, Q_BYTES = BQ * (ROW + CELL);
+constexpr int K_MAIN = 0, V_MAIN = BN * ROW, V_TAIL = 2 * BN * ROW, K_TAIL = 3 * BN * ROW;
+constexpr int STAGE_BYTES = 3 * BN * ROW + BN * CELL;
+constexpr int K_TX = BN * (ROW + CELL), V_TX = 2 * BN * ROW;     // bytes a K tile, a V tile brings
+constexpr int RING = 2 * Q_BYTES;
+constexpr int ZEROS = RING + STAGES * STAGE_BYTES;
+constexpr int BARS = ZEROS + BN * CELL;
+constexpr int SMEM_BYTES = 1024 + BARS + (4 * STAGES + 4) * 8;
+static_assert(Q_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0, "swizzled boxes need 1024-byte alignment");
+static_assert(BN * CELL >= BM * CELL, "the zeros serve Q's k16 step too");
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi)
 {
@@ -86,169 +122,297 @@ __device__ __forceinline__ float ex2(float x)
     return y;
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-dit_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int H,
-                     float scale_log2)
+// S = Q K^T over the padded depth 80: four k16 steps along the swizzled rows
+// (32 bytes each), the fifth from the 16-byte rows and the zeros
+__device__ __forceinline__ void issue_qk(float* s, uint32_t q_main, uint64_t q_tail, uint32_t st,
+                                         uint32_t zeros)
+{
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        WgmmaSS<BN, 0>::run(s, desc_sw128_k_major(q_main + 32 * j),
+                            desc_sw128_k_major(st + K_MAIN + 32 * j), j > 0);
+    const uint32_t kt = st + K_TAIL;
+    WgmmaSS<BN, 0>::run(s, q_tail, desc_none_k_major(kt, zeros - kt, 8 * CELL));
+    wgmma_commit();
+}
+
+// O += P V: k16 step j takes keys 16 j .. 16 j + 15 (2 KB further along V's
+// rows); N 72 spans V's dh 0-63 block and its dh 64-127 block
+__device__ __forceinline__ void issue_pv(float* o, uint32_t (*p)[4], uint32_t st)
+{
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+        Wgmma<DH, 1>::run(o, p[j], desc_sw128_n_major(st + V_MAIN + j * 2048, V_TAIL - V_MAIN));
+    wgmma_commit();
+}
+
+// The online softmax of a tile's scores, in place: s[4 q + e] is row g + 8
+// (e >> 1), key key0 + 8 q + 2 t4 + (e & 1); keys past T are masked out. The
+// running maxima m (scaled, log2 domain) and sums l are updated, c is the
+// factor O has to be scaled by before this tile's P V.
+__device__ __forceinline__ void softmax(float* s, int key0, int T, int t4, float scale_log2,
+                                        float& m0, float& m1, float& l0, float& l1, float& c0,
+                                        float& c1)
+{
+    if (key0 + BN > T) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+            if (key0 + 8 * (i >> 2) + 2 * t4 + (i & 1) >= T) s[i] = -INFINITY;
+    }
+    float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+        x0 = fmaxf(x0, fmaxf(s[4 * q], s[4 * q + 1]));
+        x1 = fmaxf(x1, fmaxf(s[4 * q + 2], s[4 * q + 3]));
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, w));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, w));
+    }
+    const float n0 = fmaxf(m0, x0 * scale_log2), n1 = fmaxf(m1, x1 * scale_log2);
+    c0 = ex2(m0 - n0);
+    c1 = ex2(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+        s[4 * q] = ex2(fmaf(s[4 * q], scale_log2, -n0));
+        s[4 * q + 1] = ex2(fmaf(s[4 * q + 1], scale_log2, -n0));
+        s[4 * q + 2] = ex2(fmaf(s[4 * q + 2], scale_log2, -n1));
+        s[4 * q + 3] = ex2(fmaf(s[4 * q + 3], scale_log2, -n1));
+        s0 += s[4 * q] + s[4 * q + 1];
+        s1 += s[4 * q + 2] + s[4 * q + 3];
+    }
+    l0 = l0 * c0 + s0;
+    l1 = l1 * c1 + s1;
+}
+
+// P as the A fragments of O += P V: step j (keys 16 j .. 16 j + 15) takes
+// the probabilities of q = 2 j (registers 0, 1) and q = 2 j + 1 (2, 3)
+__device__ __forceinline__ void to_bf16(uint32_t (*p)[4], const float* s)
+{
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[j][e] = bf16x2(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+}
+
+// o[4 q + e]: row g + 8 (e >> 1), dh 8 q + 2 t4 + (e & 1)
+__device__ __forceinline__ void rescale(float* o, float c0, float c1)
+{
+#pragma unroll
+    for (int q = 0; q < DH / 8; ++q) {
+        o[4 * q] *= c0;
+        o[4 * q + 1] *= c0;
+        o[4 * q + 2] *= c1;
+        o[4 * q + 3] *= c1;
+    }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+dit_attention_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_qtail,
+                     const __grid_constant__ CUtensorMap tm_kv, const __grid_constant__ CUtensorMap tm_ktail,
+                     bf16* __restrict__ out, int T, int H, int items, float scale_log2)
 {
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-    const uint32_t smem_s = smem_u32(smem);
+    const uint32_t base = smem_u32(smem);
+    uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + BARS);
+    uint64_t* empty_k = full_k + STAGES;
+    uint64_t* full_v = full_k + 2 * STAGES;
+    uint64_t* empty_v = full_k + 3 * STAGES;
+    uint64_t* q_full = full_k + 4 * STAGES;
+    uint64_t* q_empty = q_full + 2;
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t4 = lane & 3;
-    const int D = H * DH;
-    const long long stride = 3LL * D;                 // elements from one token's row to the next
-    const int h = blockIdx.y, b = blockIdx.z;
-    const bf16* qbase = qkv + (long long)b * T * stride + h * DH;
-    const bf16* kbase = qbase + D;
-    const bf16* vbase = qbase + 2 * D;
-    const int tiles = (T + BN - 1) / BN;
+    const int tid = threadIdx.x, wg = tid >> 7;
+    const int qtiles = (T + BQ - 1) / BQ, tiles = (T + BN - 1) / BN;
+    const uint32_t zeros = base + ZEROS;
 
-    // the zeros of K's dh 72-79 in every stage: each row's second 16-byte cell
-    // of its dh 64-79 block, after the swizzle
-    for (int i = tid; i < STAGES * BN; i += THREADS) {
-        const int s = i / BN, r = i % BN;
-        *reinterpret_cast<uint4*>(smem + s * STAGE_BYTES + TILE + r * 128 + ((1 ^ (r & 7)) << 4)) =
-            make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < BN * CELL / 16; i += THREADS)
+        reinterpret_cast<uint4*>(smem + ZEROS)[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_k + s, 1);
+            mbar_init(empty_k + s, WGS * 4);
+            mbar_init(full_v + s, 1);
+            mbar_init(empty_v + s, WGS * 4);
+        }
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(q_full + i, 1);
+            mbar_init(q_empty + i, WGS * 4);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    // the zeros, visible to wgmma's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
 
-    // key tile kt into stage s: a row's nine 16-byte cells of K and of V, cell
-    // c < 8 into the block's first 64 columns, cell 8 into the second block's
-    // cell 0, each XOR-swizzled by the row; rows past T are zero-filled
-    auto load = [&](int kt, int s) {
-        const uint32_t st = smem_s + s * STAGE_BYTES;
-        for (int i = tid; i < 2 * BN * DH_CELLS; i += THREADS) {
-            const int v = i / (BN * DH_CELLS), j = i % (BN * DH_CELLS);
-            const int r = j / DH_CELLS, c = j % DH_CELLS;
-            const int t = kt * BN + r;
-            const bool live = t < T;
-            const bf16* src = (v ? vbase : kbase) + (live ? (long long)t * stride : 0) + c * 8;
-            cp_async16(st + (2 * v + (c >> 3)) * TILE + r * 128 + (((c & 7) ^ (r & 7)) << 4), src,
-                       live ? 16 : 0);
+    if (wg == WGS) {
+        // ---- the producer: one thread issues every copy ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+        if (tid == WGS * 128) {
+            int kv = 0, local = 0;
+            for (int item = blockIdx.x; item < items; item += gridDim.x, ++local) {
+                const int qt = item % qtiles, bh = item / qtiles, h = bh % H, b = bh / H;
+                const int qb = local & 1;
+                const uint32_t q = base + qb * Q_BYTES;
+                mbar_wait(q_empty + qb, ((local >> 1) & 1) ^ 1);
+                mbar_expect_tx(q_full + qb, Q_BYTES);
+                tma_load_4d(q, &tm_q, 0, h, qt * BQ, b, q_full + qb);
+                tma_load_4d(q + Q_TAIL, &tm_qtail, 64, h, qt * BQ, b, q_full + qb);
+                for (int j = 0; j < tiles; ++j, ++kv) {
+                    const int s = kv % STAGES;
+                    const uint32_t ph = ((kv / STAGES) & 1) ^ 1;
+                    const uint32_t st = base + RING + s * STAGE_BYTES;
+                    mbar_wait(empty_k + s, ph);
+                    mbar_expect_tx(full_k + s, K_TX);
+                    tma_load_4d(st + K_MAIN, &tm_kv, 0, H + h, j * BN, b, full_k + s);
+                    tma_load_4d(st + K_TAIL, &tm_ktail, 64, H + h, j * BN, b, full_k + s);
+                    mbar_wait(empty_v + s, ph);
+                    mbar_expect_tx(full_v + s, V_TX);
+                    tma_load_4d(st + V_MAIN, &tm_kv, 0, 2 * H + h, j * BN, b, full_v + s);
+                    tma_load_4d(st + V_TAIL, &tm_kv, 64, 2 * H + h, j * BN, b, full_v + s);
+                }
+            }
         }
-    };
+    } else {
+        // ---- the consumers: warpgroup wg takes queries 64 wg .. 64 wg + 63 of an item ----
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+        const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+        const int D = H * DH;
+        const int turn = 1 + wg, next = 1 + (wg + 1) % WGS;     // named barriers 1 .. WGS
+        float o[DH / 2], s[BN / 2];
+        uint32_t p[BN / 16][4];
+        if (wg == WGS - 1) bar_arrive<256>(1);                  // the first turn is warpgroup 0's
+        int kv = 0, local = 0;
+        for (int item = blockIdx.x; item < items; item += gridDim.x, ++local) {
+            const int qt = item % qtiles, bh = item / qtiles, h = bh % H, b = bh / H;
+            const int qb = local & 1;
+            const uint32_t q_main = base + qb * Q_BYTES + wg * BM * ROW;
+            const uint32_t qt_addr = base + qb * Q_BYTES + Q_TAIL + wg * BM * CELL;
+            const uint64_t q_tail = desc_none_k_major(qt_addr, zeros - qt_addr, 8 * CELL);
+            float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, c0 = 0.0f, c1 = 0.0f;
+#pragma unroll
+            for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+            mbar_wait(q_full + qb, (local >> 1) & 1);
+
+            // tile 0: S_0 alone
+            {
+                const int sk = kv % STAGES;
+                mbar_wait(full_k + sk, (kv / STAGES) & 1);
+                bar_sync<256>(turn);
+                issue_qk(s, q_main, q_tail, base + RING + sk * STAGE_BYTES, zeros);
+                bar_arrive<256>(next);
+                wgmma_wait<0>();
+                fence_regs<BN / 2>(s);
+                if (lane == 0) {
+                    mbar_arrive(empty_k + sk);
+                    if (tiles == 1) mbar_arrive(q_empty + qb);
+                }
+                softmax(s, 0, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+                to_bf16(p, s);
+            }
+            // tile j: S_j and P_{j-1} V_{j-1} issued in one turn; S_j's softmax under P V
+            for (int j = 1; j < tiles; ++j) {
+                const int kj = kv + j, sk = kj % STAGES, sv = (kj - 1) % STAGES;
+                mbar_wait(full_k + sk, (kj / STAGES) & 1);
+                bar_sync<256>(turn);
+                issue_qk(s, q_main, q_tail, base + RING + sk * STAGE_BYTES, zeros);
+                rescale(o, c0, c1);
+                mbar_wait(full_v + sv, ((kj - 1) / STAGES) & 1);
+                issue_pv(o, p, base + RING + sv * STAGE_BYTES);
+                bar_arrive<256>(next);
+                wgmma_wait<1>();
+                fence_regs<BN / 2>(s);
+                if (lane == 0) {
+                    mbar_arrive(empty_k + sk);
+                    if (j == tiles - 1) mbar_arrive(q_empty + qb);
+                }
+                softmax(s, j * BN, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+                wgmma_wait<0>();
+                fence_regs<DH / 2>(o);
+                fence_regs<BN / 2>(s);
+                if (lane == 0) mbar_arrive(empty_v + sv);
+                to_bf16(p, s);
+            }
+            // the last tile's P V
+            {
+                const int kl = kv + tiles - 1, sv = kl % STAGES;
+                rescale(o, c0, c1);
+                mbar_wait(full_v + sv, (kl / STAGES) & 1);
+                issue_pv(o, p, base + RING + sv * STAGE_BYTES);
+                wgmma_wait<0>();
+                fence_regs<DH / 2>(o);
+                if (lane == 0) mbar_arrive(empty_v + sv);
+            }
+            kv += tiles;
 
 #pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < tiles) load(s, s);
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
+            for (int w = 1; w < 4; w <<= 1) {
+                l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+                l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+            }
+            const float inv[2] = {1.0f / l0, 1.0f / l1};
+            const int r0 = qt * BQ + wg * BM + warp * 16 + g;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int r = r0 + half * 8;
+                if (r >= T) continue;
+                bf16* orow = out + ((long long)b * T + r) * D + h * DH + 2 * t4;
+#pragma unroll
+                for (int q = 0; q < DH / 8; ++q)
+                    *reinterpret_cast<uint32_t*>(orow + 8 * q) =
+                        bf16x2(o[4 * q + 2 * half] * inv[half], o[4 * q + 2 * half + 1] * inv[half]);
+            }
+        }
+        if (wg == 0) bar_sync<256>(1);          // the last warpgroup's last hand-over
     }
+}
 
-    // Q's A fragments: rows r0 and r0 + 8 of the warp's 16; register e of
-    // step j holds row r0 + 8 (e & 1), dh 16 j + 2 t4 + 8 (e >> 1) and the next
-    const int r0 = blockIdx.x * BQ + (warp >> 2) * BM + (warp & 3) * 16 + g;
-    uint32_t qa[KSTEPS][4];
-#pragma unroll
-    for (int j = 0; j < KSTEPS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int r = r0 + (e & 1) * 8, k = 16 * j + 2 * t4 + (e >> 1) * 8;
-            qa[j][e] = (r < T && k < DH)
-                ? __ldg(reinterpret_cast<const uint32_t*>(qbase + (long long)r * stride + k)) : 0u;
-        }
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
 
-    // o[4 q + e]: row r0 + 8 (e >> 1), dh 8 q + 2 t4 + (e & 1); the same
-    // layout for the scores s, key 8 q + 2 t4 + (e & 1) of the tile
-    float o[DH / 2];
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
-    fence_regs<DH / 2>(o);
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-
-    for (int kt = 0; kt < tiles; ++kt) {
-        asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2) : "memory");
-        // the tile's cp.async writes (and the zeros), visible to wgmma's reads
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();
-        if (kt + STAGES - 1 < tiles) load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
-        const uint32_t st = smem_s + (kt % STAGES) * STAGE_BYTES;
-
-        float s[BN / 2];
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) s[i] = 0.0f;
-        fence_regs<BN / 2>(s);
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < KSTEPS - 1; ++j)
-            Wgmma<BN, 0>::run(s, qa[j], desc_sw128_k_major(st + 32 * j));
-        Wgmma<BN, 0>::run(s, qa[KSTEPS - 1], desc_sw128_k_major(st + TILE));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs<BN / 2>(s);
-
-        if ((kt + 1) * BN > T) {
-#pragma unroll
-            for (int i = 0; i < BN / 2; ++i)
-                if (kt * BN + 8 * (i >> 2) + 2 * t4 + (i & 1) >= T) s[i] = -INFINITY;
-        }
-        float x0 = -INFINITY, x1 = -INFINITY;
-#pragma unroll
-        for (int q = 0; q < BN / 8; ++q) {
-            x0 = fmaxf(x0, fmaxf(s[4 * q], s[4 * q + 1]));
-            x1 = fmaxf(x1, fmaxf(s[4 * q + 2], s[4 * q + 3]));
-        }
-#pragma unroll
-        for (int w = 1; w < 4; w <<= 1) {
-            x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, w));
-            x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, w));
-        }
-        const float n0 = fmaxf(m0, x0 * scale_log2), n1 = fmaxf(m1, x1 * scale_log2);
-        const float c0 = ex2(m0 - n0), c1 = ex2(m1 - n1);
-        m0 = n0;
-        m1 = n1;
-
-        // P as the A fragments of O += P V: step j (keys 16 j .. 16 j + 15)
-        // takes the scores of q = 2 j (registers 0, 1) and q = 2 j + 1 (2, 3)
-        uint32_t pa[BN / 16][4];
-        float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-        for (int q = 0; q < BN / 8; ++q) {
-            const float p0 = ex2(fmaf(s[4 * q], scale_log2, -n0));
-            const float p1 = ex2(fmaf(s[4 * q + 1], scale_log2, -n0));
-            const float p2 = ex2(fmaf(s[4 * q + 2], scale_log2, -n1));
-            const float p3 = ex2(fmaf(s[4 * q + 3], scale_log2, -n1));
-            s0 += p0 + p1;
-            s1 += p2 + p3;
-            pa[q >> 1][2 * (q & 1)] = bf16x2(p0, p1);
-            pa[q >> 1][2 * (q & 1) + 1] = bf16x2(p2, p3);
-        }
-        l0 = l0 * c0 + s0;
-        l1 = l1 * c1 + s1;
-#pragma unroll
-        for (int q = 0; q < DH / 8; ++q) {
-            o[4 * q] *= c0;
-            o[4 * q + 1] *= c0;
-            o[4 * q + 2] *= c1;
-            o[4 * q + 3] *= c1;
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < BN / 16; ++j)
-            Wgmma<DH, 1>::run(o, pa[j], desc_sw128_n_major(st + 2 * TILE + j * 2048, TILE));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs<DH / 2>(o);
+// cuTensorMapEncodeTiled from the CUDA driver library, through the runtime (no -lcuda)
+EncodeTiled encoder()
+{
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                                 cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                                        &found);
+#endif
+        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || !f) return nullptr;
+        fn = reinterpret_cast<EncodeTiled>(f);
     }
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    return fn;
+}
 
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, w);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, w);
-    }
-    const float inv[2] = {1.0f / l0, 1.0f / l1};
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        const int r = r0 + half * 8;
-        if (r >= T) continue;
-        bf16* orow = out + ((long long)b * T + r) * D + h * DH + 2 * t4;
-#pragma unroll
-        for (int q = 0; q < DH / 8; ++q)
-            *reinterpret_cast<uint32_t*>(orow + 8 * q) =
-                bf16x2(o[4 * q + 2 * half] * inv[half], o[4 * q + 2 * half + 1] * inv[half]);
-    }
+// A tensor map over qkv as (dh 72, 3 H heads, T, B) whose box is (box0, 1,
+// rows, 1) elements, 128-byte swizzled or not.
+bool encode(EncodeTiled fn, CUtensorMap* m, const void* qkv, int B, int T, int H, uint32_t box0,
+            uint32_t rows, bool swizzle)
+{
+    const cuuint64_t row = 3ull * H * DH * sizeof(bf16);
+    const cuuint64_t dims[4] = {(cuuint64_t)DH, 3ull * H, (cuuint64_t)T, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {DH * sizeof(bf16), row, row * T};
+    const cuuint32_t box[4] = {box0, 1, rows, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(qkv), dims, strides, box, step,
+              CU_TENSOR_MAP_INTERLEAVE_NONE,
+              swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -258,17 +422,28 @@ extern "C" int dit_attention_bf16(const void* qkv, void* out, int B, int T, int 
                                   void* stream)
 {
     if (B <= 0 || T <= 0 || H <= 0 || dh != DH) return (int)cudaErrorInvalidValue;
+    const long long items = (long long)B * H * ((T + BQ - 1) / BQ);
+    if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const EncodeTiled fn = encoder();
+    if (!fn) return (int)cudaErrorSymbolNotFound;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
     static bool smem_set = false;
     if (!smem_set) {
-        cudaError_t err = cudaFuncSetAttribute(dit_attention_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               SMEM_BYTES);
+        err = cudaFuncSetAttribute(dit_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   SMEM_BYTES);
         if (err != cudaSuccess) return (int)err;
         smem_set = true;
     }
-    const dim3 grid((unsigned)((T + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
+    CUtensorMap tq, tqt, tkv, tkt;
+    if (!encode(fn, &tq, qkv, B, T, H, 64, BQ, true) || !encode(fn, &tqt, qkv, B, T, H, 8, BQ, false)
+        || !encode(fn, &tkv, qkv, B, T, H, 64, BN, true) || !encode(fn, &tkt, qkv, B, T, H, 8, BN, false))
+        return (int)cudaErrorInvalidValue;
+    const int grid = (int)(items < sms ? items : sms);
     dit_attention_kernel<<<grid, THREADS, SMEM_BYTES, reinterpret_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T, H,
+        tq, tqt, tkv, tkt, static_cast<bf16*>(out), T, H, (int)items,
         1.4426950408889634f / sqrtf((float)DH));
     return (int)cudaGetLastError();
 }

@@ -151,48 +151,6 @@ struct Params {
     int splits, per, items;           // k-step ranges, their length, work items
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar)
-{
-    asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
-                 :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes)
-{
-    asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Spin until the phase of the given parity has completed. A wait that never
-// ends (a protocol fault) traps, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity)
-{
-    const uint32_t addr = smem_u32(bar);
-    uint32_t done = 0;
-    for (uint32_t spins = 0;; ++spins) {
-        asm volatile("{\n.reg .pred p;\n"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     "selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-        if (done) break;
-        if (spins == (1u << 26)) __trap();
-    }
-}
-
-// One contiguous global -> shared copy by the bulk-copy engine, completing
-// (bytes counted) on the mbarrier.
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
-{
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-
-
 struct Item {
     int b, d0, h0, w0, nb, split, k0, k1;
 };

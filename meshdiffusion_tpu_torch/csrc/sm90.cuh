@@ -1,9 +1,10 @@
 // Hopper (sm_90a) device helpers shared by the tensor-core kernels
 // (gn_silu_conv3d.cu, nin_residual.cu, dit_attention.cu, moe_experts.cu):
-// shared-memory addresses, 16-byte asynchronous copies, ldmatrix, the
-// descriptors of 128-byte-swizzled and of unswizzled tiles, and wgmma (N 64,
-// 72, 128, 256) with A from registers and B from shared memory by
-// descriptor, and (N 128, 192, 256) with both by descriptor, fp32 sums.
+// shared-memory addresses, 16-byte asynchronous copies, mbarriers, bulk and
+// tensor-map (TMA) copies, named barriers, ldmatrix, the descriptors of
+// 128-byte-swizzled and of unswizzled tiles, and wgmma (N 64, 72, 128, 256)
+// with A from registers and B from shared memory by descriptor, and (N 64,
+// 128, 192, 256) with both by descriptor, fp32 sums.
 
 #pragma once
 
@@ -23,6 +24,66 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar)
+{
+    asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes)
+{
+    asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spin until the phase of the given parity has completed. A wait that never
+// ends (a protocol fault) traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity)
+{
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    for (uint32_t spins = 0;; ++spins) {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (done) break;
+        if (spins == (1u << 26)) __trap();
+    }
+}
+
+// One contiguous global -> shared copy by the bulk-copy engine, completing
+// (bytes counted) on the mbarrier.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
+{
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// One box of a 4-D tensor map (a __grid_constant__ kernel parameter) at
+// coordinates (c0 innermost .. c3) into shared memory, completing (the box's
+// bytes, out-of-bounds elements zero-filled and counted) on the mbarrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, int c0, int c1, int c2,
+                                            int c3, uint64_t* bar)
+{
+    asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+                 :: "r"(dst), "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+                 : "memory");
+}
+
+// Named barrier ``id`` (1-15; 0 is __syncthreads) of ``n`` threads: wait
+// there, or arrive without waiting. A warp counts as 32 threads.
+template <int N>
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(N) : "memory"); }
+template <int N>
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(N) : "memory"); }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r)
 {
@@ -180,6 +241,28 @@ __device__ __forceinline__ void wgmma_m64n72k16(float* d, const uint32_t* a, uin
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
+// d (m64 x n64, fp32) += A (m64 x k16, bf16, shared memory by descriptor,
+// K-major) * B (k16 x n64, bf16, shared memory by descriptor; TRANS_B 0:
+// K-major, 1: N-major); with ``accumulate`` 0, d = A * B
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate = 1)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
 // d (m64 x n128, fp32) += A (m64 x k16, bf16, shared memory by descriptor,
 // K-major) * B (k16 x n128, bf16, shared memory by descriptor; TRANS_B 0:
 // K-major, 1: N-major)
@@ -295,6 +378,9 @@ template <int TRANS_B> struct Wgmma<256, TRANS_B> {
 
 // A and B both from shared memory by descriptor
 template <int N, int TRANS_B> struct WgmmaSS;
+template <int TRANS_B> struct WgmmaSS<64, TRANS_B> {
+    static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int accumulate = 1) { wgmma_m64n64k16_ss<TRANS_B>(d, a, b, accumulate); }
+};
 template <int TRANS_B> struct WgmmaSS<128, TRANS_B> {
     static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) { wgmma_m64n128k16_ss<TRANS_B>(d, a, b); }
 };

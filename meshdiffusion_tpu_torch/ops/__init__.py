@@ -10,7 +10,7 @@
 | :func:`gn_moments` | the gn_stats kernel, moments mode | the statistics, on a depth slab |
 | :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 | :func:`nin_residual` | CUDA C++, sm_90a (wgmma) | none: the plain NIN shortcut + residual sum of ``meshdiffusion_tpu/models/layers.py:275-276`` |
-| :func:`dit_attention` | CUDA C++, sm_90a (wgmma, online softmax) | none: the DiT's multi-head attention (``models/dit3d.py``); the JAX package has no transformer |
+| :func:`dit_attention` | CUDA C++, sm_90a (TMA producer warp, wgmma consumer warpgroups in turns, online softmax) | none: the DiT's multi-head attention (``models/dit3d.py``); the JAX package has no transformer |
 | :func:`moe_experts` | CUDA C++, sm_90a (wgmma, grouped over the experts; two launches) | none: the routed experts of the sparse-expert DiT (``models/moe.py``) |
 
 Every wrapper takes its route (its plain version, its kernel, or its
@@ -29,7 +29,7 @@ take for it (the z-test's counts fp32 and ALU operations apart, and
 
 from ._build import KERNEL_WRAPPERS, plain  # noqa: F401
 from .dit_attention import (dit_attention, dit_attention_cost,  # noqa: F401
-                            dit_attention_reference)
+                            dit_attention_kv_bytes, dit_attention_reference)
 from .gn_silu_conv import (conv3d_depth_valid, conv3d_same, gn_silu_conv3d,  # noqa: F401
                            gn_silu_conv3d_cost, gn_silu_conv3d_halo,
                            gn_silu_conv3d_halo_reference, gn_silu_conv3d_reference,

@@ -15,17 +15,23 @@ products of 2 T^2 dh a head) against 8 B T D bytes (qkv read once, the
 output written once): at T 4096, dh 72, ~2,300 operations a byte against
 the card's ~295 at its ridge. The T x T scores never reach device memory.
 
-Design (CUDA C++, sm_90a, ``csrc/dit_attention.cu``): a block of two
-warpgroups takes 128 queries of one (sample, head), 64 each, and walks the
-keys in tiles of 64 through a 3-stage cp.async ring shared by both. Q stays
-in registers as wgmma A fragments; S = Q K^T is wgmma m64n64k16 over a
-depth of 80 (dh 72 zero-padded to wgmma's k step of 16: five steps), K from
-shared memory by descriptor (K-major, 128-byte swizzle); the online softmax
-(running max and sum in fp32, exp2 with the scale folded in) runs in
-registers; P is rounded to bf16 and fed back from registers as the A
-operand of O += P V, wgmma m64n72k16 with V from shared memory (N-major,
-128-byte swizzle). O is divided by the row sum at the end and stored as
-bf16. Each block's sums are its own: reruns agree bit for bit.
+Design (CUDA C++, sm_90a, ``csrc/dit_attention.cu``): besides the tensor
+cores, the softmax's exponentials bound it (one ex2 a score at 16 a clock
+against ~304 tensor FLOP a score at 4,096), so loads and softmax have to
+run under the products. One persistent block an SM walks (sample, head,
+192-query tile) items in a fixed stride, the query tile fastest; the grid
+is min(items, SMs), from the call's B, T, H and the card alone. A producer
+warp brings Q once an item (two buffers) and K and V in tiles of 64 keys
+(a 5-stage ring, full and empty mbarriers for K and for V) by TMA from
+tensor maps over qkv in place; three consumer warpgroups of 64 queries
+take turns on named barriers to issue their products, S_j = Q K_j^T
+(wgmma m64n64k16, Q and K from shared memory, depth 80: dh 72
+zero-padded to wgmma's k step of 16) together with O += P_{j-1} V_{j-1}
+(m64n72k16, P from registers), and run S_j's online softmax (fp32, exp2
+with the scale folded in) while P_{j-1} V_{j-1} runs. O is divided by the
+row sums at the end and stored as bf16. K and V are read once for 192
+queries (:func:`dit_attention_kv_bytes`). Each block's sums are its own:
+reruns agree bit for bit.
 
 The wrapper takes its route by the rule of ``ops/_build.py`` and declares
 no backward; its plain version is :func:`dit_attention_reference`. The
@@ -44,6 +50,7 @@ from . import _build
 from ._build import kernel_wrapper
 
 HEAD_DIMS = (72,)       # the head dimensions the kernel is built for
+BLOCK_QUERIES = 192     # queries a work item of the kernel
 
 
 def dit_attention_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -62,6 +69,14 @@ def dit_attention_cost(B: int, T: int, num_heads: int, head_dim: int) -> Tuple[f
     and the bf16 output written once, 4 B T D 2 bytes."""
     D = num_heads * head_dim
     return 4.0 * B * num_heads * T * T * head_dim, 4.0 * B * T * D * 2
+
+
+def dit_attention_kv_bytes(B: int, T: int, num_heads: int, head_dim: int) -> float:
+    """Bytes of K and V the kernel reads from L2 into shared memory in one
+    call: each (sample, head, query tile) item reads its head's K and V
+    whole, in bf16."""
+    tiles = -(-T // BLOCK_QUERIES)
+    return float(B * num_heads * tiles) * T * 2 * head_dim * 2
 
 
 @kernel_wrapper(dit_attention_reference)

@@ -87,6 +87,18 @@ def test_attention_reference_is_per_head_attention():
     assert ops.dit_attention(qkv, H).equal(y) and ops.dit_attention.launches == 0
 
 
+@pytest.mark.parametrize('B,T,H,expected', [(4, 4096, 16, 4 * 16 * 22 * 4096 * 288),
+                                            (1, 50, 3, 3 * 50 * 288),
+                                            (1, 193, 2, 2 * 2 * 193 * 288)])
+def test_attention_kv_bytes_count_each_item_reading_its_head(B, T, H, expected):
+    """The kernel's K and V traffic: each (sample, head, 192-query tile)
+    reads its head's T keys and values, 2 x 72 bf16 each; 1.66 GB at the
+    DiT cell's b4 call, where 128-query tiles read 2.42."""
+    assert ops.dit_attention_kv_bytes(B, T, H, 72) == expected
+    if T == 4096:
+        assert round(expected / 1e9, 2) == 1.66
+
+
 def test_state_dict_and_full_width_parameter_count():
     """DiT's names plus ``mask_embedder``, no buffer saved (the positions are
     fixed), and 674,291,200 parameters at the preset's full width, built on

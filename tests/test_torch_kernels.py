@@ -424,12 +424,15 @@ def _qkv(cuda, B, T, H, dh=72, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,T,H', [(4, 4096, 16), (1, 4096, 16), (2, 1000 + 37, 3)])
+@pytest.mark.parametrize('B,T,H', [(4, 4096, 16), (1, 4096, 16), (2, 1000 + 37, 3),
+                                   (2, 50, 3), (1, 4097, 2), (1, 700, 1)])
 def test_dit_attention_kernel_matches_plain(cuda, B, T, H):
     """The attention kernel against its plain version (fp32 from the same
     bf16 q, k, v) at the DiT-XL/4 cell's shapes (batch 4 and 1, 4096 tokens,
-    16 heads of 72) and at a ragged T, no multiple of a tile: relative L2 at
-    most 1e-2 per head (the kernel rounds the probabilities and its output to
+    16 heads of 72), at a ragged T, no multiple of a tile, at T shorter than
+    one query tile, at a last key tile of one key, and with fewer work items
+    than SMs (the persistent schedule's short grid): relative L2 at most
+    1e-2 per head (the kernel rounds the probabilities and its output to
     bf16, ~2^-9 each), one launch a call, bit-equal reruns."""
     qkv = _qkv(cuda, B, T, H)
     with torch.inference_mode():
@@ -446,6 +449,25 @@ def test_dit_attention_kernel_matches_plain(cuda, B, T, H):
     rh = ref.reshape(B, T, H, 72)
     err = ((yh - rh).norm(dim=(1, 3)) / rh.norm(dim=(1, 3))).max()
     assert err <= 1e-2, err.item()
+
+
+@pytest.mark.cuda
+def test_dit_attention_is_one_profiled_kernel_a_call(cuda):
+    """torch.profiler records exactly one kernel a call, and its name holds
+    ``dit_attention_kernel``, the name that ``portbench``'s attention
+    roofline and its DiT window check (``drivers/gen_dit.py``) count."""
+    from torch.profiler import ProfilerActivity, profile
+    qkv = _qkv(cuda, 1, 1000, 4)
+    with torch.inference_mode():
+        ops.dit_attention(qkv, 4)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ops.dit_attention(qkv, 4)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+    assert all('dit_attention_kernel' in n for n in kernels), kernels
 
 
 @pytest.mark.cuda
