@@ -225,6 +225,16 @@ under each. Phases, in order:
     expert and 28 attention launches and the experts' device time a
     forward; ``main --config dit3d_moe_xl4_res64 --mode uncond_gen`` 9
     steps, launches counted;
+24d. the FLUX.1 preset (``flux3d_dev_res64``), after 24c: at the cell's
+    shapes (batch 4, 512 + 4096 joint tokens, 24 heads of 128) the dh-128
+    attention against the plain version, with
+    ``F.scaled_dot_product_attention`` timed beside it as ``library_ms``,
+    and ``qk_norm_rope`` in both modes (two 3 D sources, one 7 D source)
+    against its plain version, each with its bound and the share reached;
+    a full-width forward at batch 4 with its 30 + 30 launches and each
+    kernel's device time a forward; ``main --config flux3d_dev_res64 --mode
+    uncond_gen`` 9 steps, launches counted (the kernels line's
+    ``dit_attention`` row sums the dh-72 and dh-128 shapes);
 25. a JSON line of each path's launches, one JSON line of kernel results
     (each kernel's launches summed over every path that runs it, its
     launches a forward or fit step, its bound and its ``library_ms``; for
@@ -305,7 +315,8 @@ _KERNEL_NAMES = {
     'gn_silu_conv3d': ('gn_silu_conv3d_kernel', 'splitk_reduce_kernel'),
     'tile_zmin': ('tile_zmin_kernel',),
     'nin_residual': ('nin_residual_kernel',),
-    'dit_attention': ('dit_attention_kernel',),
+    'dit_attention': ('dit_attention_kernel', 'dit_attention_dh128_kernel'),
+    'qk_norm_rope': ('qk_norm_rope_kernel',),
     'moe_experts': ('moe_gate_up_kernel', 'moe_down_kernel'),
 }
 
@@ -889,6 +900,184 @@ def moe_run(port_main, dev, g, record, per_shape) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {'launches': launches, 'device_ms_per_forward': fwd_dms}
+
+
+FLUX_SHAPE = (4, 512, 4096, 24)     # phase 24d: batch, txt tokens, img tokens, heads of 128
+
+
+def flux_qk_inputs(dev, g, single: bool, shape=FLUX_SHAPE):
+    """``ops.qk_norm_rope``'s arguments at ``shape`` (B, T1, T2, H), heads
+    of 128, as the FLUX blocks give them, drawn from ``g``: two 3 D wide
+    sources (txt, img) with their own scales, or one 7 D wide source
+    (``linear1``'s output); scales in [0.5, 1.5]; a rotation table of
+    angles drawn uniform."""
+    import torch
+    B, T1, T2, H = shape
+    D, dh = H * 128, 128
+
+    def src(T, width):
+        return (torch.randn((B, T, width), device=dev, generator=g) * 2).to(torch.bfloat16)
+    scales = [0.5 + torch.rand(dh, device=dev, generator=g) for _ in range(4)]
+    ang = torch.rand((T1 + T2, dh // 2), device=dev, generator=g) * 6.3
+    pe = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1).contiguous()
+    if single:
+        return (src(T1 + T2, 7 * D), scales[0], scales[1], pe, H)
+    return (src(T1, 3 * D), scales[0], scales[1], pe, H, src(T2, 3 * D), scales[2], scales[3])
+
+
+def flux_run(port_main, dev, g, record, per_shape) -> dict:
+    """Phase 24d: the FLUX.1 preset (``flux3d_dev_res64``). Its two kernels
+    at the cell's shapes (FLUX_SHAPE: 4 x 4608 joint tokens, 24 heads of
+    128): the dh-128 attention against the plain version (relative L2
+    within 1e-2 per head) with ``F.scaled_dot_product_attention`` on the
+    same q, k, v timed beside it as ``library_ms`` (never called by the
+    port); ``qk_norm_rope`` in both modes against its plain version (v bit
+    for bit, q and k within one bf16 rounding); for each CUDA-event, device
+    and plain times, the bound and the share of it reached. Then a
+    full-width forward at batch 4 (seeded weights, bf16), whose 30 blocks
+    launch each kernel 30 times, with each kernel's device time a forward;
+    then ``main --config flux3d_dev_res64 --mode uncond_gen`` (num_scales
+    10, beta_max 2.0, batch 1), its counts zeroed just before it. Returns
+    {'launches', 'attn_device_ms_per_forward', 'qkrope_device_ms_per_forward'}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from meshdiffusion_tpu_torch import ops
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.ops.roofline import PEAK_BF16_FLOPS, bound_ms
+    B, T1, T2, H = FLUX_SHAPE
+    T, dh = T1 + T2, 128
+    D = H * dh
+    with torch.inference_mode():
+        qkv = torch.randn((B, T, 3 * D), device=dev, generator=g).to(torch.bfloat16)
+        n0 = ops.dit_attention.launches
+        y = ops.dit_attention(qkv, H)
+        assert ops.dit_attention.launches == n0 + 1
+        r = torch.cat([ops.dit_attention_reference(qkv[b:b + 1].float(), H) for b in range(B)])
+        yh, rh = y.float().reshape(B, T, H, dh), r.reshape(B, T, H, dh)
+        rel = float(((yh - rh).norm(dim=(1, 3)) / rh.norm(dim=(1, 3))).max())
+        err = float((yh - rh).abs().max())
+        assert torch.isfinite(y).all() and rel <= 1e-2, rel
+        del r, yh, rh, y
+        call = lambda: ops.dit_attention(qkv, H)  # noqa: E731
+        ms = _time_ms(call, 20)
+        dms = _kernel_ms(call, 'dit_attention')[0]
+        pms = _time_ms(lambda: ops.dit_attention_reference(qkv, H), 3, 1)
+        q, k, v = qkv.reshape(B, T, 3, H, dh).permute(2, 0, 3, 1, 4)
+        lms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        ldms = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        ldms = sum(ldms.values()) or None
+        bnd, by = bound_ms(*ops.dit_attention_cost(B, T, H, dh), PEAK_BF16_FLOPS)
+        record('dit_attention', err, ms, pms, bnd, by, lms)
+        share = None if dms is None else 100 * bnd / dms
+        per_shape.append({'name': 'dit_attention', 'qkv': list(qkv.shape), 'heads': H,
+                          'rel_l2': rel, 'ms': ms, 'device_ms': dms, 'plain_ms': pms,
+                          'library_ms': lms, 'library_device_ms': ldms, 'bound_ms': bnd,
+                          'bound_by': by, 'share_of_bound': share,
+                          'kv_bytes': ops.dit_attention_kv_bytes(B, T, H, dh)})
+        print(f'dit_attention qkv{tuple(qkv.shape)} {H} heads of {dh}: rel_l2 {rel:.3e} '
+              f'(bound 1e-2 a head) max_abs_err {err:.3e}; call {ms:.4f} ms (CUDA events), '
+              f'device {_ms(dms)} ms; plain {pms:.2f} ms; scaled_dot_product_attention '
+              f'{lms:.4f} ms (device {_ms(ldms)} ms); bound {bnd:.4f} ms ({by}'
+              f'{"" if share is None else f", {share:.1f} % reached"})')
+        del qkv, q, k, v
+
+        bnd, by = bound_ms(*ops.qk_norm_rope_cost(B, T, H, dh))
+        for single in (False, True):
+            args = flux_qk_inputs(dev, g, single, FLUX_SHAPE)
+            n0 = ops.qk_norm_rope.launches
+            y = ops.qk_norm_rope(*args)
+            assert ops.qk_norm_rope.launches == n0 + 1
+            assert torch.equal(y, ops.qk_norm_rope(*args))
+            fargs = [a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+                     else a for a in args]
+            ref = ops.qk_norm_rope_reference(*fargs)
+            v_src = (args[0][..., 2 * D:3 * D] if single else
+                     torch.cat([args[0][..., 2 * D:], args[5][..., 2 * D:]], dim=1))
+            assert torch.equal(y[..., 2 * D:], v_src)
+            torch.testing.assert_close(y[..., :2 * D].float(), ref[..., :2 * D],
+                                       rtol=2 ** -8, atol=1e-5)
+            rel = _rel_l2(y[..., :2 * D], ref[..., :2 * D])
+            err = float((y[..., :2 * D].float() - ref[..., :2 * D]).abs().max())
+            del y, ref, fargs, v_src
+            call = lambda: ops.qk_norm_rope(*args)  # noqa: E731
+            ms = _time_ms(call, 50)
+            dms = _kernel_ms(call, 'qk_norm_rope')[0]
+            pms = _time_ms(lambda: ops.qk_norm_rope_reference(*args), 5, 1)
+            mode = 'single' if single else 'double'
+            record('qk_norm_rope', err, ms, pms, bnd, by)
+            share = None if dms is None else 100 * bnd / dms
+            per_shape.append({'name': 'qk_norm_rope', 'mode': mode,
+                              'sources': [list(a.shape) for a in args
+                                          if isinstance(a, torch.Tensor) and a.ndim == 3],
+                              'heads': H, 'rel_l2': rel, 'ms': ms, 'device_ms': dms,
+                              'plain_ms': pms, 'library_ms': None, 'bound_ms': bnd,
+                              'bound_by': by, 'share_of_bound': share})
+            print(f'qk_norm_rope {mode} ({B}, {T1} + {T2}, {H} heads of {dh}): q, k rel_l2 '
+                  f'{rel:.3e} max_abs_err {err:.3e} (one bf16 rounding), v bit-equal; call '
+                  f'{ms:.4f} ms (CUDA events), device {_ms(dms)} ms; plain {pms:.3f} ms; bound '
+                  f'{bnd:.4f} ms ({by}{"" if share is None else f", {share:.1f} % reached"})')
+            del args
+
+    cfg = get_config('flux3d_dev_res64')
+    R, m = cfg.data.image_size, cfg.model
+    blocks = m.depth + m.depth_single_blocks
+    model = create_model(cfg, dev).eval()       # outside inference mode: its weights keep versions
+    with torch.inference_mode():
+        with torch.no_grad():
+            for name, prm in model.named_parameters():
+                if name.endswith('.scale'):
+                    prm.uniform_(0.5, 1.5, generator=g)
+                else:
+                    prm.uniform_(-0.02, 0.02, generator=g)
+        x = torch.randn((B, R, R, R, 4), device=dev, generator=g)
+        cond = dict(txt=torch.randn((B, m.context_len, m.context_in_dim), device=dev,
+                                    generator=g),
+                    y=torch.randn((B, m.vec_in_dim), device=dev, generator=g),
+                    guidance=torch.full((B,), float(m.guidance), device=dev))
+        lab = torch.full((B,), 500.0, device=dev)
+        msk = torch.ones((1, R, R, R, 1), device=dev)
+        fwd = lambda: model(x, lab, msk, **cond)  # noqa: E731
+        fwd()
+        ops.reset_launch_counts()
+        fwd()
+        torch.cuda.synchronize()
+        per_fwd = ops.launch_counts()
+        assert per_fwd == _launches(dit_attention=blocks, qk_norm_rope=blocks), per_fwd
+        attn_dms = _kernel_ms(fwd, 'dit_attention', per_call=blocks, iters=3)[0]
+        qk_dms = _kernel_ms(fwd, 'qk_norm_rope', per_call=blocks, iters=3)[0]
+        fwd_ms = _time_ms(fwd, 3, 1)
+        print(f'FLUX full-width forward ({m.depth} double + {m.depth_single_blocks} single '
+              f'blocks), batch {B}, bf16: {fwd_ms:.2f} ms (CUDA events); launches {per_fwd}; '
+              f'the attention kernel {_ms(attn_dms)} ms and the QK norm and RoPE kernel '
+              f'{_ms(qk_dms)} ms of device time a forward')
+        del model, x, cond, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_flux_')
+    try:
+        ops.reset_launch_counts()
+        npy = port_main(['--config', 'flux3d_dev_res64', '--mode', 'uncond_gen',
+                         '--device', 'cuda', f'--config.model.num_scales={DIT_STEPS + 1}',
+                         '--config.model.beta_max=2.0', '--config.eval.batch_size=1',
+                         f'--config.eval.eval_dir={tmp}'])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        assert launches == _launches(ancestral_update=DIT_STEPS,
+                                     dit_attention=blocks * DIT_STEPS,
+                                     qk_norm_rope=blocks * DIT_STEPS), launches
+        sample = np.load(npy)
+        assert sample.shape == (1, 4, R, R, R) and np.isfinite(sample).all()
+        print(f'main --config flux3d_dev_res64 --mode uncond_gen: {DIT_STEPS} steps; '
+              f'launches {launches}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'attn_device_ms_per_forward': attn_dms,
+            'qkrope_device_ms_per_forward': qk_dms}
 
 
 FIT_ITERS, FIT_POOL = 10, 4     # phase 7: iterations a pass, GT view batches
@@ -3702,6 +3891,10 @@ def main() -> int:
     # ---- 24c. the DiT-MoE-XL/4 preset: its expert kernels, a forward, uncond_gen ----
     moe = moe_run(port_main, dev, g, record, per_shape)
 
+    # ---- 24d. the FLUX.1 preset: its attention mode and QK norm and RoPE kernel,
+    # a forward, uncond_gen ----
+    flux = flux_run(port_main, dev, g, record, per_shape)
+
     # ---- 25. results ----
     with open(os.path.join(out_dir, 'kernel_shapes.json'), 'w') as f:
         json.dump(per_shape, f, indent=1)
@@ -3729,12 +3922,16 @@ def main() -> int:
         'moe_experts': ('cuda', 'meshdiffusion_tpu_torch/csrc/moe_experts.cu',
                         'none: the routed experts of DiT-MoE (models/moe.py); the JAX '
                         'package has no routed layer'),
+        'qk_norm_rope': ('cuda', 'meshdiffusion_tpu_torch/csrc/qk_norm_rope.cu',
+                         'none: FLUX\'s QKNorm and apply_rope (models/flux3d.py); the JAX '
+                         'package has no transformer'),
     }
     by_path = {'uncond_gen': launches, 'fit_dmtets': fit_launches, 'fit_singleview': sv_launches,
                'cond_gen': cond_launches, 'uncond_gen_interp': interp_launches,
                'train': train_launches, 'uncond_gen_res128': uncond128_launches,
                'extract_viz': viz_launches, 'likelihood': likelihood_launches,
                'dit_uncond_gen': dit['launches'], 'ditmoe_uncond_gen': moe['launches'],
+               'flux_uncond_gen': flux['launches'],
                **tex['launches'], 'train_res64_2x2': par['res64 (2, 2)']['launches'],
                'train_res128_1x2': par['res128 (1, 2)']['launches'],
                **{f'aa_alternates_{impl}': r['launches'] for impl, r in aa.items()},
@@ -3754,6 +3951,9 @@ def main() -> int:
     # the routed experts: two launches a block of a DiT-MoE forward
     per_step['moe_experts'] = 56
     per_fwd_dev['moe_experts'] = moe['device_ms_per_forward']
+    # the QK norm and RoPE: a launch a block of a FLUX forward (batch 4)
+    per_step['qk_norm_rope'] = 30
+    per_fwd_dev['qk_norm_rope'] = flux['qkrope_device_ms_per_forward']
     kernels = [{'name': n, 'route': route, 'source': src, 'replaces': rep,
                 'launches': path_launches[n], 'launches_per_forward': per_step[n],
                 'device_ms_per_forward': per_fwd_dev.get(n) or None, **results[n]}

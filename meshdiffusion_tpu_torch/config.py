@@ -154,11 +154,49 @@ def get_dit3d_moe_xl4_res64_config() -> Config:
     return config
 
 
+def get_flux3d_dev_res64_config() -> Config:
+    """The res64 preset's data, SDE, sampling and eval sections with FLUX.1's
+    MMDiT in the U-Net's place (``models/flux3d.py``): the widths of
+    black-forest-labs/flux ``configs["flux-dev"]`` (hidden 3072, 24 heads of
+    128, MLP ratio 4, ``axes_dim`` (16, 56, 56), theta 10,000, qkv bias,
+    guidance embedding, T5 features of 4096 over 512 tokens, a pooled vector
+    of 768) over 4^3 patches of the 64^3 grid, 4096 tokens, with the first
+    10 of its 19 double-stream and 20 of its 38 single-stream blocks: the
+    whole model's fp32 weights beside their bf16 copies, as the port's
+    ``Linear`` keeps them, would not fit one card. The condition comes from
+    ``eval.condition_path`` (a torch file of ``txt``, ``y`` and
+    ``guidance``) or, where that is empty, standard normal features drawn
+    from the seed at ``model.guidance`` (3.5, FLUX-dev's default). The
+    U-Net's keys of the model section stay, unread."""
+    config = get_res64_config()
+    m = config.model
+    m.name = 'flux3d'
+    m.hidden_size = 3072
+    m.num_heads = 24
+    m.mlp_ratio = 4.0
+    m.depth = 10
+    m.depth_single_blocks = 20
+    m.axes_dim = (16, 56, 56)
+    m.theta = 10000
+    # FLUX-dev's published values, stated for the record: Flux3D always has
+    # the qkv biases and the guidance embedder
+    m.qkv_bias = True
+    m.guidance_embed = True
+    m.context_in_dim = 4096
+    m.context_len = 512
+    m.vec_in_dim = 768
+    m.patch_size = 4
+    m.guidance = 3.5
+    config.eval.condition_path = ''
+    return config
+
+
 _PRESETS = {
     'res64': get_res64_config,
     'res128': get_res128_config,
     'dit3d_xl4_res64': get_dit3d_xl4_res64_config,
     'dit3d_moe_xl4_res64': get_dit3d_moe_xl4_res64_config,
+    'flux3d_dev_res64': get_flux3d_dev_res64_config,
     'default': get_default_config,
 }
 

@@ -50,8 +50,9 @@ def _is_set(path) -> bool:
 def _setup(config, device):
     """The eval model on ``device`` with the checkpoint's EMA weights (or a
     seeded random init), its grid mask (1, R, R, R, 1) and the SDE
-    (reference evaler.py:34-69): (model_fn(x, labels), sde, mask). Raises
-    where ``device`` is CUDA and there is none."""
+    (reference evaler.py:34-69): (model_fn(x, labels), sde, mask). A
+    text-conditioned model gets its condition (:func:`_condition`) at every
+    call of model_fn. Raises where ``device`` is CUDA and there is none."""
     device = resolve_device(device)
     mask = torch.as_tensor(load_grid_mask(config), device=device)[None, ..., None]
     model = create_model(config, device,
@@ -68,7 +69,24 @@ def _setup(config, device):
         logger.warning('eval.ckpt_path unset; sampling from a random model')
     sde = VPSDE(beta_min=config.model.beta_min, beta_max=config.model.beta_max,
                 N=config.model.num_scales)
-    return (lambda x, labels: model(x, labels, mask)), sde, mask
+    cond = _condition(config, model, device)
+    return (lambda x, labels: model(x, labels, mask, **cond)), sde, mask
+
+
+def _condition(config, model, device) -> dict:
+    """The keyword inputs a text-conditioned model (``models/flux3d.py``) takes
+    at every step of a chain: ``eval.condition_path``'s ``txt``, ``y`` and
+    ``guidance`` (a torch file, each with the eval batch), or, where that is
+    empty, the model's standard normal features drawn from ``config.seed``
+    at ``model.guidance``; nothing for a model without a condition."""
+    if not hasattr(model, 'draw_condition'):
+        return {}
+    path = config.eval.condition_path
+    if _is_set(path):
+        d = torch.load(path, map_location=device, weights_only=True)
+        return {k: d[k].float() for k in ('txt', 'y', 'guidance')}
+    gen = torch.Generator(device=device).manual_seed(config.seed)
+    return model.draw_condition(config.eval.batch_size, gen, config.model.guidance)
 
 
 def _save(samples: torch.Tensor, eval_dir: str, fname: str) -> str:

@@ -10,7 +10,8 @@
 | :func:`gn_moments` | the gn_stats kernel, moments mode | the statistics, on a depth slab |
 | :func:`tile_zmin` | CUDA C++, sm_90a (every depth layer in one launch) | ``meshdiffusion_tpu/ops/tile_raster.py:126`` |
 | :func:`nin_residual` | CUDA C++, sm_90a (wgmma) | none: the plain NIN shortcut + residual sum of ``meshdiffusion_tpu/models/layers.py:275-276`` |
-| :func:`dit_attention` | CUDA C++, sm_90a (TMA producer warp, wgmma consumer warpgroups in turns, online softmax) | none: the DiT's multi-head attention (``models/dit3d.py``); the JAX package has no transformer |
+| :func:`dit_attention` | CUDA C++, sm_90a (TMA producer warp, wgmma consumer warpgroups in turns, online softmax; dh 72 and 128) | none: the DiT's and FLUX's multi-head attention (``models/dit3d.py``, ``models/flux3d.py``); the JAX package has no transformer |
+| :func:`qk_norm_rope` | CUDA C++, sm_90a (one row a block, a head's RMS by shuffles) | none: FLUX's QK RMSNorm and 3-axis RoPE into the joint sequence (``models/flux3d.py``) |
 | :func:`moe_experts` | CUDA C++, sm_90a (wgmma, grouped over the experts; two launches) | none: the routed experts of the sparse-expert DiT (``models/moe.py``) |
 
 Every wrapper takes its route (its plain version, its kernel, or its
@@ -42,6 +43,8 @@ from .moe_experts import (moe_experts, moe_experts_cost, moe_experts_reference, 
                           pack_gate_up, unpack_gate_up)
 from .nin_residual import (nin_reference, nin_residual, nin_residual_cost,  # noqa: F401
                            nin_residual_reference)
+from .qk_norm_rope import (qk_norm_rope, qk_norm_rope_cost,  # noqa: F401
+                           qk_norm_rope_reference)
 from .sampler_step import (ancestral_update, ancestral_update_cost,  # noqa: F401
                            ancestral_update_reference)
 from .tile_zmin import (tile_zmin, tile_zmin_bound_ms, tile_zmin_cost,  # noqa: F401

@@ -78,6 +78,9 @@ _SIGNATURES = {
     'dit_attention_bf16': [_P, _P, _I, _I, _I, _I, _P],
     # x, w_gu, w_down, order, offsets, weights, h, out, rows, D, F, E, k, stream
     'moe_experts_bf16': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, T1, stride1, x2, T2, stride2, q_scale, k_scale, q_scale2, k_scale2, pe, out, B, H, dh,
+    # stream
+    'qk_norm_rope_bf16': [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

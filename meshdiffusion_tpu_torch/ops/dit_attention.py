@@ -1,14 +1,16 @@
-"""The DiT block's multi-head attention in one pass, forward only.
+"""The DiT and FLUX blocks' multi-head attention in one pass, forward only.
 
     out[b, t, h dh + n] = sum_s softmax_s(q_t . k_s / sqrt(dh)) v_s[n]
 
-per sample b and head h, with q, k and v read in place from the qkv
-Linear's output (B, T, 3 D) (DiT's split: (3, H, dh) along the last axis),
-and the heads' outputs side by side in (B, T, D), ready for ``attn.proj``.
-No TPU kernel corresponds: the JAX package has no transformer; the
-U-Net's attention (``meshdiffusion_tpu/models/layers.py::AttnBlock``) is a
-single-head pair of einsums with the scores in memory, which at the DiT's
-4096 tokens, 16 heads and 28 blocks would move ~15 GB a block at batch 4.
+per sample b and head h, with q, k and v read in place from a (B, T, 3 D)
+buffer (DiT's split: (3, H, dh) along the last axis): the DiT's qkv
+Linear's output, or the joint sequence of a FLUX block that
+:func:`.qk_norm_rope` writes; the heads' outputs side by side in (B, T,
+D), ready for the output projections. No TPU kernel corresponds: the JAX
+package has no transformer; the U-Net's attention
+(``meshdiffusion_tpu/models/layers.py::AttnBlock``) is a single-head pair
+of einsums with the scores in memory, which at the DiT's 4096 tokens, 16
+heads and 28 blocks would move ~15 GB a block at batch 4.
 
 What bounds it on the H100: the tensor cores. 4 B H T^2 dh FLOP (two
 products of 2 T^2 dh a head) against 8 B T D bytes (qkv read once, the
@@ -17,27 +19,35 @@ the card's ~295 at its ridge. The T x T scores never reach device memory.
 
 Design (CUDA C++, sm_90a, ``csrc/dit_attention.cu``): besides the tensor
 cores, the softmax's exponentials bound it (one ex2 a score at 16 a clock
-against ~304 tensor FLOP a score at 4,096), so loads and softmax have to
+against ~304 tensor FLOP a score at dh 72), so loads and softmax have to
 run under the products. One persistent block an SM walks (sample, head,
-192-query tile) items in a fixed stride, the query tile fastest; the grid
-is min(items, SMs), from the call's B, T, H and the card alone. A producer
+query tile) items in a fixed stride, the query tile fastest; the grid is
+min(items, SMs), from the call's B, T, H and the card alone. A producer
 warp brings Q once an item (two buffers) and K and V in tiles of 64 keys
-(a 5-stage ring, full and empty mbarriers for K and for V) by TMA from
-tensor maps over qkv in place; three consumer warpgroups of 64 queries
-take turns on named barriers to issue their products, S_j = Q K_j^T
-(wgmma m64n64k16, Q and K from shared memory, depth 80: dh 72
-zero-padded to wgmma's k step of 16) together with O += P_{j-1} V_{j-1}
-(m64n72k16, P from registers), and run S_j's online softmax (fp32, exp2
+(a ring of stages, full and empty mbarriers for K and for V) by TMA from
+tensor maps over qkv in place; consumer warpgroups of 64 queries take
+turns on named barriers to issue their products, S_j = Q K_j^T (wgmma
+m64n64k16, Q and K from shared memory) together with O += P_{j-1} V_{j-1}
+(m64n{dh}k16, P from registers), and run S_j's online softmax (fp32, exp2
 with the scale folded in) while P_{j-1} V_{j-1} runs. O is divided by the
-row sums at the end and stored as bf16. K and V are read once for 192
-queries (:func:`dit_attention_kv_bytes`). Each block's sums are its own:
-reruns agree bit for bit.
+row sums at the end and stored as bf16. Each block's sums are its own:
+reruns agree bit for bit. One body, two instantiations:
+
+* dh 72 (``dit_attention_kernel``): three consumer warpgroups, 192-query
+  items, depth 80 (dh 72 zero-padded to wgmma's k step of 16), a 5-stage
+  ring;
+* dh 128 (``dit_attention_dh128_kernel``): the accumulator O is 64 fp32
+  registers a thread, so two consumer warpgroups of 240 registers,
+  128-query items, no padding, a 4-stage ring.
+
+K and V are read once for each item's queries
+(:func:`dit_attention_kv_bytes`).
 
 The wrapper takes its route by the rule of ``ops/_build.py`` and declares
 no backward; its plain version is :func:`dit_attention_reference`. The
 kernel runs once a call; the wrapper counts its launches in
-``dit_attention.launches``. The kernel takes a head dimension of 72
-(DiT-XL's 1152 / 16) alone.
+``dit_attention.launches``. The kernel takes the head dimensions of
+:data:`HEAD_DIMS` alone.
 """
 
 from __future__ import annotations
@@ -49,8 +59,8 @@ import torch
 from . import _build
 from ._build import kernel_wrapper
 
-HEAD_DIMS = (72,)       # the head dimensions the kernel is built for
-BLOCK_QUERIES = 192     # queries a work item of the kernel
+HEAD_DIMS = (72, 128)   # the head dimensions the kernel is built for
+BLOCK_QUERIES = {72: 192, 128: 128}     # queries a work item of the kernel, by head dimension
 
 
 def dit_attention_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -75,13 +85,13 @@ def dit_attention_kv_bytes(B: int, T: int, num_heads: int, head_dim: int) -> flo
     """Bytes of K and V the kernel reads from L2 into shared memory in one
     call: each (sample, head, query tile) item reads its head's K and V
     whole, in bf16."""
-    tiles = -(-T // BLOCK_QUERIES)
+    tiles = -(-T // BLOCK_QUERIES[head_dim])
     return float(B * num_heads * tiles) * T * 2 * head_dim * 2
 
 
 @kernel_wrapper(dit_attention_reference)
 def dit_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Multi-head attention of a qkv Linear's output (B, T, 3 D) with
+    """Multi-head attention of a (B, T, 3 D) q, k, v buffer with
     ``num_heads`` heads; returns (B, T, D). On CUDA tensors qkv is a
     contiguous, 16-byte aligned bf16 tensor, D / num_heads is in
     :data:`HEAD_DIMS`."""

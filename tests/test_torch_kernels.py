@@ -532,6 +532,171 @@ def test_dit_forward_runs_every_attention_in_the_kernel(cuda):
     trace.clear()
 
 
+def _np_qkv(cuda, B, T, H, dh, seed):
+    """A bf16 (B, T, 3 H dh) buffer from numpy's generator: the same bits on
+    any machine."""
+    a = np.random.default_rng(seed).standard_normal((B, T, 3 * H * dh), dtype=np.float32)
+    return torch.from_numpy(a).to(torch.bfloat16).to(cuda)
+
+
+# sha256 of the dh-72 kernel's bf16 output bytes for _np_qkv(B, T, H, 72, seed 7), as
+# the kernel built for dh 72 alone (commit 5b5f089) gave them on an H100
+DH72_DIGESTS = {
+    (2, 1037, 3): 'f15479077205141d59bfc3946dde19f7e2916d6434f0826f07486d78a0188bf0',
+    (4, 4096, 16): '047e7d01459b488fc6cc73826aaede62b50b93fe5a8cfadbddf7612d042bfe43',
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,T,H', list(DH72_DIGESTS))
+def test_dit_attention_dh72_output_is_bit_equal_to_the_dh72_only_kernel(cuda, B, T, H):
+    """Templating the kernel on the head dimension left dh 72's arithmetic
+    as it was: its output is bit-equal to the kernel built for dh 72 alone,
+    at a ragged T and at the DiT cell's b4 call."""
+    import hashlib
+    with torch.inference_mode():
+        y = ops.dit_attention(_np_qkv(cuda, B, T, H, 72, 7), H)
+        torch.cuda.synchronize()
+    digest = hashlib.sha256(y.cpu().view(torch.int16).numpy().tobytes()).hexdigest()
+    assert digest == DH72_DIGESTS[(B, T, H)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,T,H', [(4, 4608, 24), (1, 4608, 24), (2, 1000 + 37, 3), (1, 50, 2),
+                                   (1, 4609, 2), (1, 700, 1)])
+def test_dit_attention_dh128_kernel_matches_plain(cuda, B, T, H):
+    """The dh-128 instantiation against the plain version (fp32 from the
+    same bf16 q, k, v) at the FLUX cell's joint sequence (batch 4 and 1,
+    512 + 4096 tokens, 24 heads of 128), at a ragged T, at T shorter than
+    one query tile, at a last key tile of one key, and with fewer work items
+    than SMs: relative L2 at most 1e-2 per head (P and the output rounded to
+    bf16, ~2^-9 each), one launch a call, bit-equal reruns."""
+    qkv = _qkv(cuda, B, T, H, dh=128, seed=3)
+    with torch.inference_mode():
+        n0 = ops.dit_attention.launches
+        y = ops.dit_attention(qkv, H)
+        assert ops.dit_attention.launches == n0 + 1
+        y2 = ops.dit_attention(qkv, H)
+        torch.cuda.synchronize()
+        ref = torch.cat([ops.dit_attention_reference(qkv[b:b + 1].float(), H)
+                         for b in range(B)])
+    assert y.dtype == torch.bfloat16 and y.shape == (B, T, H * 128)
+    assert torch.equal(y, y2)
+    yh = y.float().reshape(B, T, H, 128)
+    rh = ref.reshape(B, T, H, 128)
+    err = ((yh - rh).norm(dim=(1, 3)) / rh.norm(dim=(1, 3))).max()
+    assert err <= 1e-2, err.item()
+
+
+def _qk_inputs(cuda, B, T1, T2, H, single, seed=0):
+    """Sources as the FLUX blocks give them (``chip_smoke.flux_qk_inputs``)."""
+    return chip_smoke.flux_qk_inputs(cuda, torch.Generator(device=cuda).manual_seed(seed),
+                                     single, (B, T1, T2, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('single', [False, True], ids=['double', 'single'])
+@pytest.mark.parametrize('B,T1,T2,H', [(4, 512, 4096, 24), (2, 37, 101, 3), (1, 1, 1, 1)])
+def test_qk_norm_rope_kernel_matches_plain(cuda, single, B, T1, T2, H):
+    """The QK norm and RoPE kernel in both modes (two 3 D wide sources with
+    their own scales; one 7 D wide source) against its plain version in fp32
+    from the same bf16 values, at the FLUX cell's shapes and at small odd
+    ones: v copied bit for bit, q and k within one bf16 rounding (2^-8 of
+    the value, 1e-5 beside it for the order of fp32 sums), one launch a
+    call, bit-equal reruns."""
+    args = _qk_inputs(cuda, B, T1, T2, H, single)
+    D = H * 128
+    with torch.inference_mode():
+        n0 = ops.qk_norm_rope.launches
+        y = ops.qk_norm_rope(*args)
+        assert ops.qk_norm_rope.launches == n0 + 1
+        assert torch.equal(y, ops.qk_norm_rope(*args))
+        fargs = [a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16 else a
+                 for a in args]
+        ref = ops.qk_norm_rope_reference(*fargs)
+        torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (B, T1 + T2, 3 * D)
+    v_src = args[0][..., 2 * D:3 * D] if single else torch.cat([args[0][..., 2 * D:],
+                                                                args[5][..., 2 * D:]], dim=1)
+    assert torch.equal(y[..., 2 * D:], v_src)
+    torch.testing.assert_close(y[..., :2 * D].float(), ref[..., :2 * D], rtol=2 ** -8, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_raises_on_what_it_does_not_take(cuda):
+    """The kernel refuses what it does not take; under autograd the wrapper
+    launches nothing and gives its plain version's values."""
+    args = _qk_inputs(cuda, 1, 8, 8, 2, False)
+    x, qs, ks, pe, H, x2, qs2, ks2 = args
+    n0 = ops.qk_norm_rope.launches
+    y = ops.qk_norm_rope(x, qs.clone().requires_grad_(True), ks, pe, H, x2, qs2, ks2)
+    assert ops.qk_norm_rope.launches == n0 and y.requires_grad
+    with torch.inference_mode():
+        with pytest.raises(ValueError):        # head dimension 64
+            ops.qk_norm_rope(x, qs[:64], ks[:64], pe[:, :32], 4, x2, qs2[:64], ks2[:64])
+        with pytest.raises(ValueError):        # fp32 source
+            ops.qk_norm_rope(x.float(), qs, ks, pe, H, x2, qs2, ks2)
+        with pytest.raises(ValueError):        # a second source without its scales
+            ops.qk_norm_rope(x, qs, ks, pe, H, x2)
+        with pytest.raises(ValueError):        # pe of another length
+            ops.qk_norm_rope(x, qs, ks, pe[:-1], H, x2, qs2, ks2)
+        with pytest.raises(ValueError):        # rows not one after another
+            ops.qk_norm_rope(x.transpose(0, 1), qs, ks, pe[:8], H)
+
+
+@pytest.mark.cuda
+def test_flux_forward_runs_every_block_in_the_kernels(cuda):
+    """A warm FLUX forward at the cell's widths (10 double and 20 single
+    blocks, 512 txt tokens) at batch 1 launches the dh-128 attention kernel
+    and the QK norm and RoPE kernel 30 times each (once a block), each call
+    one profiled kernel of its own name, rebuilds nothing, and agrees with
+    the same forward within ``ops.plain()`` to a relative L2 of 2e-2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from meshdiffusion_tpu_torch.config import get_config
+    from meshdiffusion_tpu_torch.models import create_model
+    from meshdiffusion_tpu_torch.utils import trace
+    cfg = get_config('flux3d_dev_res64')
+    R, m = cfg.data.image_size, cfg.model
+    model = create_model(cfg, device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith('.scale'):
+                p.uniform_(0.5, 1.5, generator=g)
+            else:
+                p.uniform_(-0.02, 0.02, generator=g)
+    x = torch.randn((1, R, R, R, 4), device=cuda, generator=g)
+    cond = dict(txt=torch.randn((1, m.context_len, m.context_in_dim), device=cuda, generator=g),
+                y=torch.randn((1, m.vec_in_dim), device=cuda, generator=g),
+                guidance=torch.full((1,), 3.5, device=cuda))
+    lab, mask = torch.tensor([500.0], device=cuda), torch.ones((1, R, R, R, 1), device=cuda)
+    with torch.inference_mode():
+        model(x, lab, mask, **cond)
+        torch.cuda.synchronize()
+        trace.clear()
+        n0 = ops.launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y = model(x, lab, mask, **cond)
+            torch.cuda.synchronize()
+        n = {k: v - n0[k] for k, v in ops.launch_counts().items() if v != n0[k]}
+        assert n == {'dit_attention': 30, 'qk_norm_rope': 30}, n
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert sum('dit_attention_dh128_kernel' in k for k in kernels) == 30
+        assert sum('qk_norm_rope_kernel' in k for k in kernels) == 30
+        assert not any('dit_attention_kernel' in k for k in kernels)
+        assert not [i.name for i in trace.instants() if i.name.startswith('rebuild.')]
+        names = [s.name for s in trace.spans()]
+        assert names.count('flux.double') == 10 and names.count('flux.single') == 20
+        with ops.plain():
+            y_plain = model(x, lab, mask, **cond)
+    assert torch.isfinite(y).all()
+    err = (y - y_plain).norm() / y_plain.norm()
+    assert err <= 2e-2, err.item()
+    trace.clear()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('N,routing', [(16384, 'cell'), (16384, 'skewed'), (16384, 'empty'),
                                        (300, 'cell')])
@@ -684,6 +849,7 @@ def test_routes_under_autograd_and_within_plain(cuda, rng):
     a, b = ops.gn_affine_reference(x, sc, bi)
     xn, wn, bn, hn = _nin_inputs(cuda, (1, 4, 8, 8), 64, 128, torch.float32)
     qkv = _qkv(cuda, 1, 64, 2).float()
+    qk = _qk_inputs(cuda, 1, 8, 8, 2, True)
     moe = chip_smoke.moe_case(cuda, torch.Generator(device=cuda).manual_seed(0), 'cell',
                               (64, 4, 2, 192, 128))
     xa, ea, ma, na, beta, std = _ancestral_inputs(rng, (1, 8, 8, 8, 4))
@@ -700,6 +866,7 @@ def test_routes_under_autograd_and_within_plain(cuda, rng):
         'groupnorm_silu': lambda: ops.groupnorm_silu(g(x), sc, bi),
         'nin_residual': lambda: ops.nin_residual(g(xn), wn, bn, hn),
         'dit_attention': lambda: ops.dit_attention(g(qkv).to(torch.bfloat16), 2),
+        'qk_norm_rope': lambda: ops.qk_norm_rope(g(qk[0].float()).to(torch.bfloat16), *qk[1:]),
         'moe_experts': lambda: ops.moe_experts(g(moe[0].float()).to(torch.bfloat16), *moe[1:6], 2),
         'ancestral_update': lambda: ops.ancestral_update(g(xa), ea, ma, na, beta, std),
         'tile_zmin': lambda: ops.tile_zmin(g(coords), *lists, (32, 32)),

@@ -211,6 +211,11 @@ def _wrapper_args(name, g):
         from meshdiffusion_tpu_torch.models.moe import route
         p, _, order, offsets = route(r(5, 3), 2)
         return r(5, 8), r(3, 2 * 4, 8), r(3, 8, 4), order, offsets, p.reshape(-1), 2
+    if name == 'qk_norm_rope':
+        ang = 6.3 * torch.rand((3 + 4, 4), generator=g)
+        pe = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
+        return (r(2, 3, 3 * 2 * 8), 1 + 0.1 * r(8), 1 + 0.1 * r(8), pe, 2, r(2, 4, 3 * 2 * 8),
+                1 + 0.1 * r(8), 1 + 0.1 * r(8))
     assert name == 'tile_zmin', name
     coords = torch.tensor([[[2., 2., .1, 30., 4., .2, 5., 28., .3],
                             [0., 0., .5, 32., 0., .4, 0., 32., .6]]])

@@ -184,7 +184,7 @@ def test_kernel_wrappers_keep_their_names_and_counters():
     counts = ops.launch_counts()
     assert set(counts) == {'ancestral_update', 'gn_affine', 'groupnorm_silu', 'gn_silu_conv3d',
                            'tile_zmin', 'gn_silu_conv3d_halo', 'gn_moments', 'nin_residual',
-                           'dit_attention', 'moe_experts'}
+                           'dit_attention', 'moe_experts', 'qk_norm_rope'}
     for fn in ops.KERNEL_WRAPPERS:
         assert callable(fn.__wrapped__) and isinstance(fn.launches, int)
 
